@@ -1,0 +1,500 @@
+#!/usr/bin/env python3
+"""chip_smoke.py — run the PyTorch/CUDA port on one card and check it.
+
+    python3 chip_smoke.py          # from the repository root, one CUDA card
+
+Phases (each prints a line; any failure raises and exits non-zero with no
+result line):
+  1. card: `nvidia-smi` name and power limit, torch and CUDA versions;
+  2. build: nvcc builds src/repro_torch/kernels/cnn_eq/csrc/cnn_eq.cu for
+     sm_90a; prints the -Xptxas -v register / shared-memory / spill lines;
+  3. kernel == plain: each datapath (fp32, bf16, int8) on the card at the
+     paper's deployment shape (equalizer_ht: 64 rows × 7320 symbols),
+     shared and per-row stacked weights, tile_m ∈ {16, 64, 256}; each
+     kernel must equal its plain PyTorch version (`ref.py`) bitwise;
+  4. the slice: `ServeRuntime(device="cuda")` serves 4 int8 "ht" tenants,
+     4 bf16 "lp" tenants and 1 fp32 tenant (7320 symbols each, jittered
+     chunks of ~1024 symbols, one chunk shorter than the receptive field);
+     every stream must equal its offline engine bitwise, and every kernel's
+     launch count, zeroed just before, must have gone up; 4a. each kernel
+     == plain bitwise at its most common serving launch shape; 4b. the same
+     serving run again under torch.profiler: device busy and idle share;
+  5. times: CUDA events over many launches after warm-up at the phase-3
+     shape: kernel, plain version, and a chain of F.conv1d + ReLU (TF32
+     off) as a yardstick, beside the least time the card could take.
+The line before the last is the `kernels` JSON; the last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Weights are random from a seed (numpy), carried in through
+`repro_torch.interop`; waveforms are PAM-2 through a short ISI filter with
+noise, also from a seed. Without a CUDA card the script exits with code 2.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch import interop  # noqa: E402
+from repro_torch.configs import equalizer_ht as HT  # noqa: E402
+from repro_torch.core import equalizer as eq  # noqa: E402
+from repro_torch.device import fp32_exact  # noqa: E402
+from repro_torch.kernels.cnn_eq import cnn_eq as K  # noqa: E402
+from repro_torch.kernels.cnn_eq import ref as R  # noqa: E402
+from repro_torch.serve import (BatchPolicy, ServeRuntime,  # noqa: E402
+                               TenantSpec)
+
+CFG = HT.CNN
+ROWS = HT.N_INSTANCES                 # 64 parallel instances
+SYMS = HT.L_INST                      # 7320 symbols per instance
+TILES = (16, 64, 256)
+FORMATS = {
+    "ht": {"w_int": 2, "w_frac": 5, "a_int": 3, "a_frac": 4},   # → int8
+    "lp": {"w_int": 3, "w_frac": 8, "a_int": 3, "a_frac": 8},   # → bf16
+}
+# H100 SXM published peaks (dense): bytes/s, and operations/s per type
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+SOURCE = "src/repro_torch/kernels/cnn_eq/csrc/cnn_eq.cu"
+KERNELS = {   # datapath → (wrapper name, TPU kernel it replaces)
+    "fp32": ("cnn_eq_fused", "src/repro/kernels/cnn_eq/cnn_eq.py:268"),
+    "bf16": ("cnn_eq_fused_bf16", "src/repro/kernels/cnn_eq/cnn_eq.py:293"),
+    "int8": ("cnn_eq_fused_int8", "src/repro/kernels/cnn_eq/cnn_eq.py:342"),
+}
+BACKEND_OF = {"fp32": "fused_fp32", "bf16": "fused_bf16",
+              "int8": "fused_int8"}
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+# ---------------------------------------------------------------------------
+# data and weights from seeds
+# ---------------------------------------------------------------------------
+
+def waveform(rng: np.random.Generator, n_syms: int) -> np.ndarray:
+    """PAM-2 at N_os samples/symbol through a short ISI filter, plus noise."""
+    sym = rng.choice(np.array([-1.0, 1.0]), n_syms)
+    up = np.zeros(n_syms * CFG.n_os)
+    up[::CFG.n_os] = sym
+    rx = np.convolve(up, [0.2, 0.9, 0.35, -0.1])[:up.shape[0]]
+    return (rx + 0.05 * rng.standard_normal(up.shape[0])).astype(np.float32)
+
+
+def np_params(rng: np.random.Generator, fmt=None) -> dict:
+    """He-initialized numpy params in the reference layout (+ QAT widths)."""
+    params = {"conv": [], "bn": []}
+    for i, (c_in, c_out, _) in enumerate(CFG.layer_specs()):
+        std = np.sqrt(2.0 / (c_in * CFG.kernel))
+        params["conv"].append({
+            "w": (rng.standard_normal((c_out, c_in, CFG.kernel))
+                  * std).astype(np.float32),
+            "b": (0.05 * rng.standard_normal(c_out)).astype(np.float32)})
+        if i < CFG.layers - 1:
+            params["bn"].append({
+                "scale": (1 + 0.1 * rng.standard_normal(c_out)).astype(
+                    np.float32),
+                "bias": (0.05 * rng.standard_normal(c_out)).astype(
+                    np.float32)})
+    if fmt is not None:
+        params["qat"] = {f"layer{i}": {k: np.float32(v)
+                                       for k, v in fmt.items()}
+                         for i in range(CFG.layers)}
+    return params
+
+
+def np_bn_state(rng: np.random.Generator) -> dict:
+    return {"bn": [{"mean": (0.1 * rng.standard_normal(c_out)).astype(
+                        np.float32),
+                    "var": (1 + 0.5 * rng.random(c_out)).astype(np.float32)}
+                   for _, c_out, _ in CFG.layer_specs()[:-1]]}
+
+
+def host_folded(rng: np.random.Generator):
+    """BN-folded fp32 weights on the host, from numpy params via interop."""
+    params = interop.to_torch(np_params(rng), device="cpu")
+    bn = interop.to_torch(np_bn_state(rng), device="cpu")
+    return eq.folded_weights(eq.fold_bn(params, bn, CFG))
+
+
+def chop(w: np.ndarray, mean: int, rng: np.random.Generator,
+         short: int) -> list:
+    """Jittered chunks of ~mean samples; the second is `short` samples."""
+    out = [w[:mean], w[mean:mean + short]]
+    i = mean + short
+    while i < w.shape[0]:
+        n = max(1, int(mean * rng.uniform(0.5, 1.5)))
+        out.append(w[i:i + n])
+        i += n
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def kernel_inputs(dev, rows: int, syms: int) -> dict:
+    """Per datapath: (wrapper, plain, x, stacked weights, shared weights)."""
+    rng = np.random.default_rng(1)
+    strides = eq.layer_strides(CFG)
+    x = torch.from_numpy(np.stack([waveform(rng, syms)
+                                   for _ in range(rows)])).to(dev)
+    per_row = [host_folded(rng) for _ in range(rows)]
+    fmts = (tuple(tuple(FORMATS["ht"][k]
+                        for k in ("w_int", "w_frac", "a_int", "a_frac"))
+                  for _ in range(CFG.layers)))
+    forms = {"fp32": per_row,
+             "bf16": [K.cast_weights_bf16(w) for w in per_row],
+             "int8": [K.quantize_weights_int8(w, fmts) for w in per_row]}
+
+    def stack(ws):
+        return tuple((torch.stack([w[l][0] for w in ws]).to(dev),
+                      torch.stack([w[l][1] for w in ws]).to(dev))
+                     for l in range(CFG.layers))
+
+    def shared(ws):
+        return tuple((w.to(dev), b.to(dev)) for w, b in ws[0])
+
+    wrap = {
+        "fp32": (lambda x, w, t: K.cnn_eq_fused(x, w, strides, t),
+                 lambda x, w: R.cnn_eq(x, w, strides)),
+        "bf16": (lambda x, w, t: K.cnn_eq_fused_bf16(x, w, strides, t),
+                 lambda x, w: R.cnn_eq_bf16(x, w, strides)),
+        "int8": (lambda x, w, t: K.cnn_eq_fused_int8(x, w, strides, fmts, t),
+                 lambda x, w: R.cnn_eq_int8(x, w, strides, fmts)),
+    }
+    return {dp: {"kernel": wrap[dp][0], "plain": wrap[dp][1], "x": x,
+                 "stacked": stack(forms[dp]), "shared": shared(forms[dp]),
+                 "strides": strides, "fp32_stacked": stack(per_row)}
+            for dp in forms}
+
+
+def check_kernels(inputs: dict, tiles) -> dict:
+    """Kernel == plain bitwise for every datapath, weight form and tile.
+    Returns the largest |kernel − plain| per datapath."""
+    worst = {}
+    for dp, d in inputs.items():
+        worst[dp] = 0.0
+        for form in ("stacked", "shared"):
+            want = d["plain"](d["x"], d[form])
+            for tile in tiles:
+                got = d["kernel"](d["x"], d[form], tile)
+                require(got.shape == want.shape,
+                        f"{dp} {form} tile {tile}: shape {tuple(got.shape)}"
+                        f" != plain {tuple(want.shape)}")
+                require(bool(torch.isfinite(got).all()),
+                        f"{dp} {form} tile {tile}: non-finite output")
+                err = float((got - want).abs().max())
+                worst[dp] = max(worst[dp], err)
+                require(torch.equal(got, want),
+                        f"{dp} {form} tile {tile}: kernel != plain "
+                        f"(max |diff| {err:.3e})")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the serving path
+# ---------------------------------------------------------------------------
+
+def tenants(n_syms: int, chunk_syms: int, counts=(4, 4, 1)):
+    """int8 "ht", bf16 "lp" and fp32 tenants with their waveforms and
+    jittered chunk streams (the second chunk shorter than the receptive
+    field), all from seeds."""
+    rng = np.random.default_rng(2)
+    specs = []
+    for op, n in zip(("ht", "lp", "fp"), counts):
+        for i in range(n):
+            specs.append(TenantSpec(f"{op}-{i}", CFG,
+                                    params=np_params(rng, FORMATS.get(op)),
+                                    bn_state=np_bn_state(rng)))
+    waves = {s.tenant_id: waveform(rng, n_syms) for s in specs}
+    short = R.receptive_halo([CFG.kernel] * CFG.layers,
+                             eq.layer_strides(CFG))        # < 2·halo + 1
+    streams = {tid: chop(w, chunk_syms * CFG.n_os, rng, short)
+               for tid, w in waves.items()}
+    return specs, waves, streams
+
+
+def serve(dev, specs, streams, max_batch: int) -> dict:
+    """Stream every tenant through one ServeRuntime, round-robin; returns
+    the outputs, this run's launch counts, stats, backends and tiles."""
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    rt = ServeRuntime(BatchPolicy(max_batch=max_batch), device=dev)
+    sessions = {s.tenant_id: rt.open(s) for s in specs}
+    backends = {tid: s.engine.backend for tid, s in sessions.items()}
+    tiles = {tid: s.engine.resolved_tile_m() for tid, s in sessions.items()}
+    n_rounds = max(len(c) for c in streams.values())
+    for r in range(n_rounds):
+        for tid, chunks in streams.items():
+            if r < len(chunks):
+                rt.submit(tid, chunks[r])
+    outs = {tid: rt.close(tid) for tid in streams}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return {"outs": outs, "launches": dict(K.LAUNCHES), "stats": rt.stats(),
+            "backends": backends, "tiles": tiles,
+            "elapsed_s": time.perf_counter() - t0}
+
+
+def check_offline(dev, specs, waves, outs, n_syms: int) -> int:
+    """Each stream must equal its offline engine bitwise; returns the
+    number of symbols checked."""
+    ts = CFG.v_parallel * CFG.n_os
+    n_out = (n_syms * CFG.n_os // ts) * CFG.v_parallel
+    for s in specs:
+        tid = s.tenant_id
+        want = s.build_engine(dev)(waves[tid]).cpu().numpy()
+        got = outs[tid]
+        require(got.shape == (n_out,) and want.shape == (n_out,),
+                f"{tid}: streamed {got.shape}, offline {want.shape}, "
+                f"expected ({n_out},)")
+        require(bool(np.isfinite(got).all()), f"{tid}: non-finite symbols")
+        require(np.array_equal(got, want),
+                f"{tid}: streamed != offline (max |diff| "
+                f"{float(np.max(np.abs(got - want))):.3e})")
+    return n_out * len(specs)
+
+
+def check_serving_shapes(inputs: dict, stats: dict, tiles: dict) -> dict:
+    """Kernel == plain bitwise at each datapath's most common serving launch
+    shape (mode occupancy × median width of the run's traffic)."""
+    shapes = {}
+    for dp, d in inputs.items():
+        tr = stats["traffic"][f"L{CFG.layers}_K{CFG.kernel}_{BACKEND_OF[dp]}"]
+        rows = tr["mode_occupancy"]
+        width = min(tr["median_width"], d["x"].shape[1])
+        x = d["x"][:rows, :width].contiguous()
+        w = tuple((a[:rows].contiguous(), b[:rows].contiguous())
+                  for a, b in d["stacked"])
+        got, want = d["kernel"](x, w, tiles[dp]), d["plain"](x, w)
+        require(torch.equal(got, want),
+                f"{dp} at serving shape {rows}x{width}: kernel != plain")
+        shapes[dp] = f"{rows}x{width} samples, tile {tiles[dp]}"
+    return shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 5: times
+# ---------------------------------------------------------------------------
+
+def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
+    """Mean ms per call from CUDA events around `iters` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_trace(fn) -> dict:
+    """One run of fn under torch.profiler: wall time, the union of device
+    activity (kernels and copies), and device time by kind."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, last = 0.0, float("-inf")
+    kinds: dict = {}
+    for start, end, name in spans:
+        if end > last:
+            busy_us += end - max(start, last)
+            last = end
+        kind = (name.split("(")[0].replace("void ", "")
+                if "cnn_eq_kernel" in name
+                else "memcpy" if "emcpy" in name else "other")
+        n, t = kinds.get(kind, (0, 0.0))
+        kinds[kind] = (n + 1, t + (end - start) / 1e3)
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "idle_share": (1.0 - busy_us / wall_us) if spans else None,
+            "by_kind_ms": {k: {"count": n, "total_ms": t, "mean_ms": t / n}
+                           for k, (n, t) in kinds.items()}}
+
+
+def conv_chain(xp: torch.Tensor, weights, strides, dtype) -> torch.Tensor:
+    """The same stacked function as a chain of grouped F.conv1d + ReLU
+    (one group per row) — a library yardstick, never called by the port."""
+    rows = xp.shape[0]
+    h = xp[None].to(dtype)                                  # (1, rows, W)
+    for i, ((w, b), s) in enumerate(zip(weights, strides)):
+        h = F.conv1d(h, w.reshape(-1, w.shape[-2], w.shape[-1]).to(dtype),
+                     b.reshape(-1).to(dtype), stride=s, groups=rows)
+        if i < len(weights) - 1:
+            h = torch.relu(h)
+    return h
+
+
+def bound(dp: str, x: torch.Tensor, weights, strides) -> tuple:
+    """(least ms, "bytes" | "operations"): each input read once, each output
+    written once, against the MACs this input needs (untiled)."""
+    rows, width = x.shape
+    kernels = [int(w.shape[-1]) for w, _ in weights]
+    n_pos = width // int(np.prod(strides))
+    spans = R._spans(n_pos, kernels, strides)
+    macs = rows * sum(int(w.shape[-3]) * int(w.shape[-2]) * int(w.shape[-1])
+                      * spans[i + 1] for i, (w, _) in enumerate(weights))
+    n_out = rows * n_pos * int(weights[-1][0].shape[-3])
+    n_bytes = (x.numel() * 4 + n_out * 4
+               + sum(w.numel() * w.element_size() + b.numel() * 4
+                     for w, b in weights))
+    t_bytes = n_bytes / HBM_BYTES_S
+    t_ops = 2 * macs / PEAK_OPS_S[dp]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_kernels(inputs: dict, tiles_used: dict, iters: int) -> dict:
+    out = {}
+    for dp, d in inputs.items():
+        x, w, st = d["x"], d["stacked"], d["strides"]
+        tile = tiles_used[dp]
+        xp, _ = R._halo_pad(x, [int(wi.shape[-1]) for wi, _ in w], st)
+        # PyTorch has no int8 convolution: the int8 yardstick is the fp32
+        # chain on the same rows' fp32 folded weights
+        lib_w = d["fp32_stacked"] if dp == "int8" else w
+        lib_dtype = torch.bfloat16 if dp == "bf16" else torch.float32
+        with fp32_exact():
+            t_kernel = cuda_ms(lambda: d["kernel"](x, w, tile), iters)
+            t_plain = cuda_ms(lambda: d["plain"](x, w), max(3, iters // 20),
+                              warmup=2)
+            t_lib = cuda_ms(lambda: conv_chain(xp, lib_w, st, lib_dtype),
+                            iters)
+            t_kernel_again = cuda_ms(lambda: d["kernel"](x, w, tile), iters)
+        prof = device_trace(lambda: [d["kernel"](x, w, tile)
+                                     for _ in range(20)])
+        dev_ms = [v["mean_ms"] for k, v in prof["by_kind_ms"].items()
+                  if k.startswith("cnn_eq_kernel")]
+        b_ms, b_by = bound(dp, x, w, st)
+        out[dp] = {"ms": t_kernel, "ms_repeat": t_kernel_again,
+                   "device_ms": dev_ms[0] if dev_ms else None,
+                   "plain_ms": t_plain, "library_ms": t_lib,
+                   "bound_ms": b_ms, "bound_by": b_by, "tile_m": tile,
+                   "shape": f"{x.shape[0]}x{x.shape[1]} samples, "
+                            f"stacked weights"}
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(f"[1] card: {card} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda} | {torch.cuda.get_device_name(0)}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    lib, log = K.build()
+    print(f"[2] build: {lib.name} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for line in log.splitlines():
+        if any(k in line for k in ("registers", "spill", "Compiling entry",
+                                   "smem")):
+            print(f"    ptxas: {line.strip()}")
+
+    inputs = kernel_inputs(dev, ROWS, SYMS)
+    worst = check_kernels(inputs, TILES)
+    print(f"[3] kernel == plain bitwise at {ROWS}x{SYMS} symbols, stacked "
+          f"and shared weights, tile_m {TILES}: max |diff| {worst}",
+          flush=True)
+
+    specs, waves, streams = tenants(SYMS, 1024)
+    run = serve(dev, specs, streams, max_batch=4)
+    n_checked = check_offline(dev, specs, waves, run["outs"], SYMS)
+    for dp, (name, _) in KERNELS.items():
+        require(run["launches"][name] > 0,
+                f"{name} was not launched on the serving path")
+    want_backends = {"ht": "fused_int8", "lp": "fused_bf16",
+                     "fp": "fused_fp32"}
+    for tid, be in run["backends"].items():
+        require(be == want_backends[tid.split("-")[0]],
+                f"{tid}: deployed {be}, expected "
+                f"{want_backends[tid.split('-')[0]]}")
+    st = run["stats"]
+    print(f"[4] serve: {len(run['backends'])} tenants, {n_checked} "
+          f"symbols in {run['elapsed_s']:.3f} s (engine builds and autotune "
+          f"included), streamed == offline bitwise; kernel launches "
+          f"{run['launches']}, stacked launches {st['launches']}, mean_batch "
+          f"{st['mean_batch']:.2f}, p50 {st['p50_latency_ms']:.3f} ms, "
+          f"p99 {st['p99_latency_ms']:.3f} ms, tiles {run['tiles']}",
+          flush=True)
+    tiles_used = {dp: next(run["tiles"][tid] for tid, be
+                           in run["backends"].items()
+                           if be == BACKEND_OF[dp]) for dp in KERNELS}
+    shapes = check_serving_shapes(inputs, st, tiles_used)
+    print(f"[4a] kernel == plain bitwise at the serving launch shapes: "
+          f"{shapes}", flush=True)
+    again = {}
+    trace = device_trace(lambda: again.update(
+        serve(dev, specs, streams, max_batch=4)))
+    print(f"[4b] serve again under torch.profiler (autotune cached): "
+          f"{json.dumps(trace)}; p50 {again['stats']['p50_latency_ms']:.3f}"
+          f" ms, p99 {again['stats']['p99_latency_ms']:.3f} ms", flush=True)
+
+    times = time_kernels(inputs, tiles_used, iters=200)
+    print(f"[5] times (ms; CUDA events, mean of 200 calls after warm-up; "
+          f"device_ms from torch.profiler over 20 calls): "
+          f"{json.dumps(times)}", flush=True)
+
+    library = {"fp32": "F.conv1d x3 + ReLU x2, fp32, TF32 off, grouped "
+                       "per row",
+               "bf16": "F.conv1d x3 + ReLU x2, bf16, grouped per row",
+               "int8": "F.conv1d x3 + ReLU x2 on the fp32 folded weights, "
+                       "fp32, TF32 off (PyTorch has no int8 conv)"}
+    kernels = []
+    for dp, (name, replaces) in KERNELS.items():
+        t = times[dp]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": replaces, "launches": run["launches"][name],
+            "max_abs_err": worst[dp], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library": library[dp], "tile_m": t["tile_m"],
+            "shape": t["shape"], "card": card})
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,21 @@
+"""repro_torch — the PyTorch/CUDA port of the CNN-equalizer system.
+
+The package mirrors `repro` (the JAX reference) module for module, so each
+port module sits at the same relative path as its counterpart:
+
+  core/      equalizer topology, QAT formats, autotune, EqualizerEngine
+  configs/   the paper's operating points (equalizer_ht, equalizer_lp)
+  kernels/   hand-written Hopper kernels, each beside its plain PyTorch
+             version (kernels/cnn_eq: the fused fp32/bf16/int8 stack)
+  obs/       metrics registry, chunk tracer, Observability hub
+  runtime/   straggler monitor
+  serve/     chunker, engine pool, sessions, micro-batcher, ServeRuntime
+
+It imports torch, numpy and the standard library only — never jax and
+nothing of `repro`. `interop` carries parameter trees across as numpy.
+Entry points take ``device=`` (default ``"cuda"``) and raise when a card is
+asked for and absent (`device.resolve_device`).
+"""
+from .device import fp32_exact, resolve_device
+
+__all__ = ["fp32_exact", "resolve_device"]

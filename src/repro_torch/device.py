@@ -1,0 +1,51 @@
+"""Device resolution and the fp32 policy of the port.
+
+Every public entry point of `repro_torch` takes ``device=`` and defaults to
+``"cuda"``. `resolve_device` turns that argument into a `torch.device` and
+raises when a card is asked for and none is present: the port never runs
+on the CPU unless the caller asks for it (the CPU tests pass
+``device="cpu"``, which runs each kernel's plain PyTorch version).
+
+fp32 policy: float32 means float32. TF32 keeps about three decimal digits,
+and cuDNN uses it for fp32 convolutions by default, so every `F.conv1d`
+the port runs on the card sits inside `fp32_exact()`, which turns TF32 off
+for cuDNN and for matmuls.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator, Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device: DeviceLike = DEFAULT_DEVICE) -> torch.device:
+    """``device`` → `torch.device`; raises RuntimeError for an absent card.
+
+    ``None`` means the default, ``"cuda"``.
+    """
+    dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but no CUDA card is available; "
+            "pass device='cpu' to run the plain PyTorch versions on the host")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {str(dev)!r}: cuda or cpu")
+    return dev
+
+
+@contextlib.contextmanager
+def fp32_exact() -> Iterator[None]:
+    """Run the body with TF32 off for cuDNN convolutions and matmuls."""
+    prev_matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(
+                enabled=torch.backends.cudnn.enabled, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_matmul

@@ -1,0 +1,390 @@
+"""The fused L-layer CNN equalizer on Hopper: wrappers, host helpers, build.
+
+Port of `repro.kernels.cnn_eq.cnn_eq`. Three datapaths, one CUDA source
+(csrc/cnn_eq.cu, built for sm_90a at first use, bound with ctypes):
+
+  * `cnn_eq_fused`       fp32 tap dots, fp32 accumulation;
+  * `cnn_eq_fused_bf16`  bf16 operands, fp32 accumulation — QAT formats of
+                         9–16 bits;
+  * `cnn_eq_fused_int8`  int8 × int8 dots, int32 accumulation, requant
+                         between layers, per-channel power-of-two rescale —
+                         QAT formats that fit 8 bits.
+
+All three take SHARED weights, w: (C_out, C_in, K), b: (C_out,), or one set
+per batch row, w: (B, C_out, C_in, K), b: (B, C_out): the stacked form is
+the multi-tenant serving path (one launch, one weight set per row).
+
+`_fused_call` keeps the reference's padding and tiling: the input is padded
+with one halo on the left and up to the last tile's window on the right,
+the grid is (n_tiles, B), and each tile of `tile_m` positions computes from
+its own window of ``in_tile`` samples. `tile_m` is never shrunk to the
+stream length: a short stream pads a whole tile, exactly as the serving
+layer's launches do.
+
+Where the work runs. On a CUDA tensor a wrapper launches its kernel, or
+raises (a failed build, a refused launch): there is no fallback. On a CPU
+tensor it runs the kernel's plain version (`ref.py`), tile by tile over the
+same padded windows. Both accumulate every output in the same fixed order,
+so the result depends on neither `tile_m` nor the batch composition.
+
+`LAUNCHES` counts the kernel launches of each wrapper (plain integers,
+bumped only where a kernel is launched); `reset_launch_counts` zeroes them.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import ref
+from .ref import _wformat_cols, receptive_halo, requant_int8
+
+__all__ = ["LAUNCHES", "build", "cast_weights_bf16", "cnn_eq_fused",
+           "cnn_eq_fused_bf16", "cnn_eq_fused_int8", "dequant_int8",
+           "quantize_weights_int8", "requant_int8", "reset_launch_counts"]
+
+MODE_FP32, MODE_BF16, MODE_INT8 = 0, 1, 2
+_MAX_SMEM_BYTES = 232448          # 227 KB: one block's opt-in limit
+_MAX_LAYERS = 8
+_MAX_ROWS = 65535                 # gridDim.y
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc" / "cnn_eq.cu"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+LAUNCHES: Dict[str, int] = {"cnn_eq_fused": 0, "cnn_eq_fused_bf16": 0,
+                            "cnn_eq_fused_int8": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# build and binding
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the cnn_eq kernels cannot be "
+                       "built")
+
+
+def build() -> Tuple[pathlib.Path, str]:
+    """Compile csrc/cnn_eq.cu for sm_90a (once per source and flag set).
+
+    Returns (shared library path, nvcc's output). The output holds the
+    `-Xptxas -v` register, shared-memory and spill summary of each kernel.
+    Raises RuntimeError when nvcc is missing or fails.
+    """
+    tag = hashlib.sha256(CSRC.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"libcnn_eq_{tag}.so"
+    log_path = lib_path.with_suffix(".log")
+    if lib_path.exists() and log_path.exists():
+        return lib_path, log_path.read_text()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC)],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {CSRC}:\n"
+                           f"{log}")
+    os.replace(tmp, lib_path)
+    log_path.write_text(log)
+    return lib_path, log
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            lib.cnn_eq_launch.restype = ctypes.c_int
+            lib.cnn_eq_launch.argtypes = (
+                [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                + [ctypes.c_int] * 9
+                + [ctypes.c_void_p] * 4)
+            _lib = lib
+        return _lib
+
+
+# ---------------------------------------------------------------------------
+# host helpers
+# ---------------------------------------------------------------------------
+
+def _layer_spans(tile_m: int, kernels: Sequence[int],
+                 strides: Sequence[int]) -> list:
+    """Positions needed at each level to produce tile_m final positions."""
+    spans = [tile_m]
+    for k, s in zip(reversed(kernels), reversed(strides)):
+        spans.append((spans[-1] - 1) * s + k)
+    return list(reversed(spans))  # spans[0] = input samples per tile
+
+
+def dequant_int8(q: torch.Tensor, a_frac: int) -> torch.Tensor:
+    """int8 grid values → fp32 real units (inverse scale of requant_int8)."""
+    return q.float() * float(2.0 ** -a_frac)
+
+
+def cast_weights_bf16(weights) -> Tuple:
+    """bf16 deployment cast: fp32 folded weights → bf16; biases stay fp32."""
+    return tuple((w.to(torch.bfloat16), b.float()) for w, b in weights)
+
+
+def quantize_weights_int8(weights, formats) -> Tuple:
+    """fp32 folded weights → int8 at 2^w_frac; biases stay fp32.
+
+    formats[l] = (w_int, w_frac, a_int, a_frac); requires w_int+w_frac+1 ≤ 8.
+    w_int/w_frac may be per-output-channel tuples (`qat.per_channel_formats`):
+    each channel is then quantized on its own 2^w_frac[c] grid.
+    """
+    out = []
+    for (w, b), (wi, wf, _, _) in zip(weights, formats):
+        wi_col, wf_col = _wformat_cols(wi, wf)
+        bits = int(np.max(wi_col + wf_col)) + 1
+        if bits > 8:
+            raise ValueError(f"format Q{wi}.{wf} needs {bits} bits > int8")
+
+        def col(a):
+            return torch.from_numpy(
+                np.ascontiguousarray(a, np.float32).reshape(-1, 1, 1)).to(
+                    w.device)
+        hi = col(np.exp2(wi_col + wf_col) - 1.0)
+        lo = col(-np.exp2(wi_col + wf_col))
+        scale = col(np.exp2(wf_col))
+        wq = torch.minimum(torch.maximum(torch.round(w.float() * scale), lo),
+                           hi).to(torch.int8)
+        out.append((wq, b.float()))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_scales(formats, c_outs: Tuple[int, ...], device: str) -> Tuple:
+    """The int8 rescale columns on ``device``, made once per deployment:
+    a host→device copy per launch would wait for the work queued before
+    it."""
+    return tuple(torch.from_numpy(ref.rescale_column(fmt, c)).to(device)
+                 for fmt, c in zip(formats, c_outs))
+
+
+def _check_formats_int8(formats, n_layers: int) -> None:
+    if len(formats) != n_layers:
+        raise ValueError(f"{len(formats)} formats for {n_layers} layers")
+    for i, (wi, wf, ai, af) in enumerate(formats):
+        wi_col, wf_col = _wformat_cols(wi, wf)
+        if int(np.max(wi_col + wf_col)) + 1 > 8 or ai + af + 1 > 8:
+            raise ValueError(
+                f"layer {i} format (Q{wi}.{wf} w / Q{ai}.{af} a) does not "
+                f"fit int8; the int8 requant would wrap silently")
+
+
+# ---------------------------------------------------------------------------
+# the shared launch plumbing
+# ---------------------------------------------------------------------------
+
+_W_DTYPES = {MODE_FP32: torch.float32, MODE_BF16: torch.bfloat16,
+             MODE_INT8: torch.int8}
+
+
+def _check(mode: int, x: torch.Tensor, weights, strides) -> bool:
+    """Validate shapes, dtypes, devices and contiguity; returns `stacked`."""
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"x must be a (B, W) float32 tensor, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if x.shape[0] > _MAX_ROWS:
+        raise ValueError(f"at most {_MAX_ROWS} rows per launch (the grid's "
+                         f"y dimension), got {int(x.shape[0])}")
+    if not 1 <= len(weights) <= _MAX_LAYERS or len(strides) != len(weights):
+        raise ValueError(f"need 1..{_MAX_LAYERS} layers and one stride per "
+                         f"layer, got {len(weights)} and {len(strides)}")
+    stacked = weights[0][0].dim() == 4
+    c_prev = 1
+    for i, (w, b) in enumerate(weights):
+        if w.dim() != (4 if stacked else 3) or b.dim() != w.dim() - 2:
+            raise ValueError(f"layer {i}: weights must be all shared "
+                             f"(C_out, C_in, K) or all stacked "
+                             f"(B, C_out, C_in, K), biases to match")
+        if stacked and (w.shape[0] != x.shape[0] or b.shape[0] != x.shape[0]):
+            raise ValueError(
+                f"stacked weights carry {int(w.shape[0])} rows but x has "
+                f"batch {int(x.shape[0])}")
+        if int(w.shape[-2]) != c_prev or int(b.shape[-1]) != int(w.shape[-3]):
+            raise ValueError(f"layer {i}: channel mismatch, w "
+                             f"{tuple(w.shape)}, b {tuple(b.shape)}, "
+                             f"C_in expected {c_prev}")
+        c_prev = int(w.shape[-3])
+        if w.dtype != _W_DTYPES[mode] or b.dtype != torch.float32:
+            raise ValueError(f"layer {i}: expected {_W_DTYPES[mode]} weights "
+                             f"and float32 biases, got {w.dtype}, {b.dtype}")
+        if w.device != x.device or b.device != x.device:
+            raise ValueError(f"layer {i}: weights on {w.device}, x on "
+                             f"{x.device}")
+        if not (w.is_contiguous() and b.is_contiguous()):
+            raise ValueError(f"layer {i}: weights must be contiguous")
+    return stacked
+
+
+def _fused_call(name: str, mode: int, x: torch.Tensor, weights,
+                strides: Sequence[int], tile_m: int, formats=None,
+                scales=None) -> torch.Tensor:
+    """Pad, tile and run one datapath; (B, W) → (B, W//(V_p·N_os)·V_p)."""
+    strides = tuple(int(s) for s in strides)
+    stacked = _check(mode, x, weights, strides)
+    batch, width = x.shape
+    kernels = tuple(int(w.shape[-1]) for w, _ in weights)
+    v_parallel = int(weights[-1][0].shape[-3])
+    total_stride = int(np.prod(strides))
+    n_pos = width // total_stride                   # final-layer positions
+    n_syms = n_pos * v_parallel
+    if n_pos == 0 or batch == 0:
+        return x.new_zeros((batch, n_syms))
+
+    # always tile at the REQUESTED tile_m, even for a stream shorter than
+    # one tile: the result is independent of the tiling, and the serving
+    # layer's launches bucket at whole tiles
+    tile_m = max(1, int(tile_m))
+    n_tiles = -(-n_pos // tile_m)
+    halo = receptive_halo(kernels, strides)
+    spans = _layer_spans(tile_m, kernels, strides)
+    in_tile = spans[0]
+    tile_step = tile_m * total_stride
+
+    # pad: halo on the left; halo + tile rounding on the right
+    needed = (n_tiles - 1) * tile_step + in_tile
+    xp = F.pad(x, (halo, max(0, needed - width - halo))).contiguous()
+
+    if x.is_cuda:
+        out = _launch(name, mode, xp, weights, kernels, strides, spans,
+                      stacked, n_tiles, tile_step, v_parallel, formats,
+                      scales)
+    else:
+        out = _plain_tiles(mode, xp, weights, strides, tile_m, n_tiles,
+                           in_tile, tile_step, stacked, formats, scales)
+    return out[:, :n_syms]
+
+
+def _plain_tiles(mode, xp, weights, strides, tile_m, n_tiles, in_tile,
+                 tile_step, stacked, formats, scales) -> torch.Tensor:
+    """The kernel's plain version over the kernel's own tile windows."""
+    batch = xp.shape[0]
+    win = xp.unfold(1, in_tile, tile_step)[:, :n_tiles]
+    win = win.reshape(batch * n_tiles, in_tile)
+    if stacked:                      # each window row keeps its row's weights
+        weights = tuple((w.repeat_interleave(n_tiles, 0),
+                         b.repeat_interleave(n_tiles, 0))
+                        for w, b in weights)
+    if mode == MODE_INT8:
+        y = ref._stack_valid_int8(win, weights, strides, tile_m, formats,
+                                  scales)
+    else:
+        conv = (ref.conv_valid_taps_bf16 if mode == MODE_BF16
+                else ref.conv_valid_taps)
+        y = ref._stack_valid(win, weights, strides, tile_m, conv_fn=conv)
+    return y.reshape(batch, -1)
+
+
+def _launch(name, mode, xp, weights, kernels, strides, spans, stacked,
+            n_tiles, tile_step, v_parallel, formats, scales) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream; raises on any error."""
+    lib = _load()
+    batch = xp.shape[0]
+    out = torch.empty((batch, n_tiles * spans[-1] * v_parallel),
+                      dtype=torch.float32, device=xp.device)
+    n_layers = len(weights)
+    dims, aq, ptrs = [], [], []
+    for i, (w, b) in enumerate(weights):
+        dims += [kernels[i], int(w.shape[-2]), int(w.shape[-3]), strides[i],
+                 spans[i + 1]]
+        if mode == MODE_INT8:
+            _, _, ai, af = formats[i]
+            n = float(2 ** (ai + af))
+            aq += [float(2.0 ** af), -n, n - 1.0]
+            ptrs += [w.data_ptr(), b.data_ptr(), scales[i].data_ptr()]
+        else:
+            aq += [0.0, 0.0, 0.0]
+            ptrs += [w.data_ptr(), b.data_ptr(), 0]
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    c_aq = (ctypes.c_float * len(aq))(*aq)
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream(xp.device).cuda_stream
+        rc = lib.cnn_eq_launch(
+            mode, xp.data_ptr(), out.data_ptr(), batch, n_tiles,
+            xp.shape[1], out.shape[1], tile_step, spans[0], spans[-1],
+            n_layers, int(stacked), ctypes.addressof(c_dims),
+            ctypes.addressof(c_aq), ctypes.addressof(c_ptrs), stream)
+    if rc == -2:
+        raise ValueError(f"{name}: tile_m={spans[-1]} needs more than "
+                         f"{_MAX_SMEM_BYTES} bytes of shared memory per "
+                         f"block; use a smaller tile_m")
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with code {rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the three wrappers
+# ---------------------------------------------------------------------------
+
+def cnn_eq_fused(x: torch.Tensor, weights, strides: Sequence[int],
+                 tile_m: int = 64) -> torch.Tensor:
+    """Fused fp32 equalizer forward. x: (B, W) → (B, W//N_os) symbols.
+
+    weights: ((w_1, b_1), …, (w_L, b_L)), BN pre-folded, shared or stacked
+    per row; strides: (V_p, 1, …, N_os).
+    """
+    return _fused_call("cnn_eq_fused", MODE_FP32, x, weights, strides,
+                       tile_m)
+
+
+def cnn_eq_fused_bf16(x: torch.Tensor, bweights, strides: Sequence[int],
+                      tile_m: int = 64) -> torch.Tensor:
+    """Fused bf16 equalizer forward: bf16 operands, fp32 accumulation.
+
+    bweights from `cast_weights_bf16` (fp32 weights are cast here).
+    """
+    return _fused_call("cnn_eq_fused_bf16", MODE_BF16, x,
+                       cast_weights_bf16(bweights), strides, tile_m)
+
+
+def cnn_eq_fused_int8(x: torch.Tensor, qweights, strides: Sequence[int],
+                      formats, tile_m: int = 64) -> torch.Tensor:
+    """Fused INT8 equalizer forward.
+
+    qweights: ((w_q int8, b fp32), …) from `quantize_weights_int8`.
+    formats:  per-layer (w_int, w_frac, a_int, a_frac); w_int/w_frac may be
+              per-output-channel tuples. Every format must fit a signed
+              8-bit grid (ValueError otherwise), because the requant casts
+              to int8.
+    """
+    _check_formats_int8(formats, len(qweights))
+    key = tuple(tuple(tuple(int(c) for c in v) if isinstance(v, (list, tuple))
+                      else int(v) for v in fmt) for fmt in formats)
+    scales = _device_scales(key, tuple(int(w.shape[-3]) for w, _ in qweights),
+                            str(x.device))
+    return _fused_call("cnn_eq_fused_int8", MODE_INT8, x, qweights, strides,
+                       tile_m, formats=formats, scales=scales)

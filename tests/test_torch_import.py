@@ -1,0 +1,122 @@
+"""repro_torch stands alone: no jax, no repro, and no silent CPU fallback.
+
+The port must run on a host without JAX, so importing every one of its
+modules must pull in neither `jax` nor any module of the reference package.
+Its entry points default to device="cuda" and must raise — not quietly run
+on the CPU — when no card is present (this host has none; the tests that
+need one are in tests/test_torch_cuda.py).
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch import interop
+from repro_torch.configs import equalizer_ht as HT
+from repro_torch.core import autotune
+from repro_torch.core import equalizer as teq
+from repro_torch.core import qat as tqat
+from repro_torch.core.engine import EqualizerEngine
+from repro_torch.serve import ServeRuntime
+
+REPO_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+
+
+def test_port_imports_no_jax_and_no_reference_module():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(k for k in sys.modules
+                     if k == "jax" or k.startswith("jax.")
+                     or k == "repro" or k.startswith("repro."))
+        print(len(names), bad)
+        assert not bad, bad
+        assert len(names) >= 20, names
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO_SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _folded():
+    p = teq.init(torch.Generator().manual_seed(0), HT.CNN, device="cpu")
+    return teq.folded_weights(
+        teq.fold_bn(p, teq.init_bn_state(HT.CNN, device="cpu"), HT.CNN))
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: device_lib.resolve_device(),
+    lambda: device_lib.resolve_device(None),
+    lambda: interop.to_torch({"w": np.zeros(3, np.float32)}),
+    lambda: teq.init(torch.Generator().manual_seed(0), HT.CNN),
+    lambda: teq.init_bn_state(HT.CNN),
+    lambda: tqat.init_qparams(["layer0"], tqat.QATConfig()),
+    lambda: EqualizerEngine(cfg=HT.CNN, weights=_folded()),
+    lambda: autotune.platform_key("cuda"),
+    lambda: ServeRuntime(),
+])
+def test_entry_point_without_device_raises_without_card(monkeypatch, entry):
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        entry()
+
+
+def test_missing_compiler_raises_instead_of_falling_back(monkeypatch,
+                                                         tmp_path):
+    from repro_torch.kernels.cnn_eq import cnn_eq as kern
+    monkeypatch.setattr(kern.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(kern, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kern.build()
+
+
+def test_cpu_is_explicit_and_other_devices_are_refused():
+    assert device_lib.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        device_lib.resolve_device("meta")
+
+
+def test_fp32_exact_turns_tf32_off_and_restores():
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    with device_lib.fp32_exact():
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cudnn.allow_tf32 is False
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == before
+
+
+def test_interop_round_trips_trees_and_bf16():
+    import ml_dtypes
+    tree = {"conv": [{"w": np.arange(6, dtype=np.float32).reshape(2, 3),
+                      "b": np.float32(1.5)}],
+            "qat": {"layer0": {"w_int": 2.0}},
+            "folded": ((np.ones((2, 1, 3), np.int8), None),),
+            "bf": np.array([1.0078125, -3.5], dtype=ml_dtypes.bfloat16)}
+    t = interop.to_torch(tree, device="cpu")
+    assert t["conv"][0]["w"].dtype == torch.float32
+    assert t["conv"][0]["b"].dim() == 0
+    assert t["qat"]["layer0"]["w_int"] == 2.0          # python leaf kept
+    assert t["folded"][0][0].dtype == torch.int8
+    assert t["folded"][0][1] is None
+    assert t["bf"].dtype == torch.bfloat16
+    back = interop.to_numpy(t)
+    np.testing.assert_array_equal(back["conv"][0]["w"], tree["conv"][0]["w"])
+    np.testing.assert_array_equal(back["folded"][0][0], tree["folded"][0][0])
+    assert back["bf"].dtype == np.float32
+    np.testing.assert_array_equal(back["bf"], tree["bf"].astype(np.float32))
