@@ -4,10 +4,11 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
 Phases (each prints a line; any failure raises and exits non-zero with no
-result line):
+result line), in the order they run:
   1. card: `nvidia-smi` name and power limit, torch and CUDA versions;
-  2. build: nvcc builds src/repro_torch/kernels/cnn_eq/csrc/cnn_eq.cu for
-     sm_90a; prints the -Xptxas -v register / shared-memory / spill lines;
+  2. build: one nvcc per source, all started together, builds the four
+     CUDA sources (cnn_eq, volterra, quant, conv1d) for sm_90a; prints the
+     -Xptxas -v register / shared-memory / spill lines;
   3. kernel == plain: each datapath (fp32, bf16, int8) on the card at the
      paper's deployment shape (equalizer_ht: 64 rows × 7320 symbols),
      shared and per-row stacked weights, tile_m ∈ {16, 64, 256}; each
@@ -19,18 +20,38 @@ result line):
      launch count, zeroed just before, must have gone up; 4a. each kernel
      == plain bitwise at its most common serving launch shape; 4b. the same
      serving run again under torch.profiler: device busy and idle share;
-  5. times: CUDA events over many launches after warm-up at the phase-3
-     shape: kernel, plain version, and a chain of F.conv1d + ReLU (TF32
-     off) as a yardstick, beside the least time the card could take.
+  6. train: `train_equalizer` on the card for the CNN (equalizer_ht widths,
+     3-phase QAT), the FIR and the Volterra baselines on the default IM/DD
+     link (40 GBd, 31.5 km, N_os = 2), 300 steps each; every loss finite,
+     the mean loss of the last 50 steps below that of the first 50, the
+     CNN's widths frozen to integers; prints BER and ms per step;
+  7. deploy: one fresh IM/DD batch at 64 × 7320 symbols through the
+     trained parameters' deployment entry points, with every launch count
+     zeroed just before and read just after: `volterra.ops.equalize`,
+     `quant.ops.quantize_params`, `conv1d.ops.conv1d_same_lower` through
+     the CNN's three layers. Each kernel == its plain version bitwise (and
+     the Volterra kernel also on two random parameter sets, up to the
+     DSE's largest memory lengths); quantize_params == the QAT quantizer;
+     conv1d against F.conv1d (TF32 off) as a max abs error;
+  5. times: CUDA events over many calls after warm-up at the deployment
+     shapes, and device time from torch.profiler, for all six kernels:
+     kernel, plain version, and a PyTorch yardstick (a chain of F.conv1d +
+     ReLU for cnn_eq, the einsum chain of `core.volterra.apply`,
+     torch.fake_quantize_per_tensor_affine, F.conv1d), beside the least
+     time the card could take;
+  6a. last: 10 CNN training steps under torch.profiler (device busy and
+     idle share, the kernels that took the most device time).
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-Weights are random from a seed (numpy), carried in through
-`repro_torch.interop`; waveforms are PAM-2 through a short ISI filter with
-noise, also from a seed. Without a CUDA card the script exits with code 2.
+Phases 3–5 use random weights from a seed (numpy), carried in through
+`repro_torch.interop`, and waveforms of PAM-2 through a short ISI filter
+with noise, also from a seed; phases 6–7 train from seeded generators on
+the simulated link. Without a CUDA card the script exits with code 2.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import pathlib
 import subprocess
@@ -46,11 +67,27 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import interop  # noqa: E402
+from repro_torch.channels import imdd  # noqa: E402
+from repro_torch.channels.common import (ber_from_soft,  # noqa: E402
+                                         pam_decision)
 from repro_torch.configs import equalizer_ht as HT  # noqa: E402
 from repro_torch.core import equalizer as eq  # noqa: E402
+from repro_torch.core import fir, qat, train_eq  # noqa: E402
+from repro_torch.core import volterra as vol  # noqa: E402
+from repro_torch.data.equalizer_data import channel_fn  # noqa: E402
 from repro_torch.device import fp32_exact  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cnn_eq import cnn_eq as K  # noqa: E402
 from repro_torch.kernels.cnn_eq import ref as R  # noqa: E402
+from repro_torch.kernels.conv1d import conv1d as C1  # noqa: E402
+from repro_torch.kernels.conv1d import ops as C1_ops  # noqa: E402
+from repro_torch.kernels.conv1d import ref as C1_ref  # noqa: E402
+from repro_torch.kernels.quant import ops as Q_ops  # noqa: E402
+from repro_torch.kernels.quant import quant as Q  # noqa: E402
+from repro_torch.kernels.quant import ref as Q_ref  # noqa: E402
+from repro_torch.kernels.volterra import ops as V_ops  # noqa: E402
+from repro_torch.kernels.volterra import ref as V_ref  # noqa: E402
+from repro_torch.kernels.volterra import volterra as V  # noqa: E402
 from repro_torch.serve import (BatchPolicy, ServeRuntime,  # noqa: E402
                                TenantSpec)
 
@@ -73,6 +110,24 @@ KERNELS = {   # datapath → (wrapper name, TPU kernel it replaces)
 }
 BACKEND_OF = {"fp32": "fused_fp32", "bf16": "fused_bf16",
               "int8": "fused_int8"}
+# the train-then-deploy slice: its kernels, sources and the TPU kernels
+# they replace
+SOURCES = (K.CSRC, V.CSRC, Q.CSRC, C1.CSRC)
+DEPLOY_KERNELS = {
+    "volterra": ("src/repro_torch/kernels/volterra/csrc/volterra.cu",
+                 "src/repro/kernels/volterra/volterra.py:61", V.LAUNCHES),
+    "fixed_point_quantize": (
+        "src/repro_torch/kernels/quant/csrc/quant.cu",
+        "src/repro/kernels/quant/quant.py:33", Q.LAUNCHES),
+    "conv1d": ("src/repro_torch/kernels/conv1d/csrc/conv1d.cu",
+               "src/repro/kernels/conv1d/conv1d.py:46", C1.LAUNCHES),
+}
+TRAIN = train_eq.EqTrainConfig(steps=300, batch=8, seq_syms=512,
+                               eval_syms=1 << 15)
+QAT_CFG = qat.QATConfig(init_int_bits=8.0, init_frac_bits=8.0)
+FAMILIES = {"cnn": (HT.CNN, QAT_CFG), "fir": (fir.FIRConfig(), None),
+            "volterra": (vol.VolterraConfig(), None)}
+VOLTERRA_SETS = ((41, 15, 9), (121, 35, 15))    # random; the DSE's largest
 
 
 def require(cond: bool, msg: str) -> None:
@@ -305,9 +360,15 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+KERNEL_NAMES = ("cnn_eq_kernel", "volterra_kernel", "quant_kernel",
+                "conv1d_kernel")
+
+
 def device_trace(fn) -> dict:
     """One run of fn under torch.profiler: wall time, the union of device
-    activity (kernels and copies), and device time by kind."""
+    activity (kernels and copies), device time by kind (each of the port's
+    kernels by name, copies, everything else) and the six device
+    activities that took the most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -322,19 +383,24 @@ def device_trace(fn) -> dict:
                    if e.device_type == DeviceType.CUDA)
     busy_us, last = 0.0, float("-inf")
     kinds: dict = {}
+    names: dict = {}
     for start, end, name in spans:
         if end > last:
             busy_us += end - max(start, last)
             last = end
         kind = (name.split("(")[0].replace("void ", "")
-                if "cnn_eq_kernel" in name
+                if any(k in name for k in KERNEL_NAMES)
                 else "memcpy" if "emcpy" in name else "other")
-        n, t = kinds.get(kind, (0, 0.0))
-        kinds[kind] = (n + 1, t + (end - start) / 1e3)
+        for table, key in ((kinds, kind), (names, name[:80])):
+            n, t = table.get(key, (0, 0.0))
+            table[key] = (n + 1, t + (end - start) / 1e3)
+    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:6]
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "idle_share": (1.0 - busy_us / wall_us) if spans else None,
             "by_kind_ms": {k: {"count": n, "total_ms": t, "mean_ms": t / n}
-                           for k, (n, t) in kinds.items()}}
+                           for k, (n, t) in kinds.items()},
+            "top_ms": [{"name": k, "count": n, "total_ms": t}
+                       for k, (n, t) in top]}
 
 
 def conv_chain(xp: torch.Tensor, weights, strides, dtype) -> torch.Tensor:
@@ -401,12 +467,293 @@ def time_kernels(inputs: dict, tiles_used: dict, iters: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: train the three equalizer families on the card
+# ---------------------------------------------------------------------------
+
+def train_families(dev) -> dict:
+    """`train_equalizer` for CNN (3-phase QAT), FIR and Volterra on the
+    default IM/DD link, each from its own seeded card generator."""
+    fn = channel_fn("imdd", HT.CHANNEL, device=dev)
+    out = {}
+    for i, (kind, (cfg, qcfg)) in enumerate(FAMILIES.items()):
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, bn, info = train_eq.train_equalizer(
+            gen, kind, cfg, fn, TRAIN, qat_cfg=qcfg, record_every=1,
+            device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = np.array([h["loss"] for h in info["history"]])
+        require(losses.shape == (TRAIN.steps,) and bool(
+            np.isfinite(losses).all()), f"{kind}: non-finite training loss")
+        first, last = float(losses[:50].mean()), float(losses[-50:].mean())
+        require(last < first, f"{kind}: loss did not fall (first 50 steps "
+                              f"{first:.4f}, last 50 {last:.4f})")
+        if qcfg is not None:
+            widths = [float(v) for q in params["qat"].values()
+                      for v in q.values()]
+            require(all(w == np.ceil(w) for w in widths),
+                    f"{kind}: QAT widths not frozen to integers: {widths}")
+        out[kind] = {"params": params, "bn": bn, "info": info,
+                     "loss_first50": first, "loss_last50": last,
+                     "ms_per_step": wall / TRAIN.steps * 1e3,
+                     "wall_s": wall}
+    return out
+
+
+def train_trace(dev) -> dict:
+    """A short CNN run (10 steps through all three QAT phases) under
+    torch.profiler: where a training step's time goes."""
+    short = train_eq.EqTrainConfig(steps=10, batch=TRAIN.batch,
+                                   seq_syms=TRAIN.seq_syms, eval_syms=4096)
+    cfg, qcfg = FAMILIES["cnn"]
+    return device_trace(lambda: train_eq.train_equalizer(
+        torch.Generator(device=dev).manual_seed(9), "cnn", cfg,
+        channel_fn("imdd", HT.CHANNEL, device=dev), short, qat_cfg=qcfg,
+        device=dev))
+
+
+# ---------------------------------------------------------------------------
+# phase 7: deploy the trained parameters through the three kernels
+# ---------------------------------------------------------------------------
+
+def deploy_inputs(dev, trained: dict) -> dict:
+    """One fresh IM/DD batch at the deployment shape and the trained
+    parameters in the deployment entry points' forms."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rx, syms = imdd.simulate(gen, HT.CHANNEL, SYMS, batch=ROWS, device=dev)
+    cnn = trained["cnn"]
+    folded = eq.fold_bn(cnn["params"], cnn["bn"], CFG)
+    return {"rx": rx.contiguous(), "syms": syms,
+            "vol": trained["volterra"]["params"],
+            "cnn": cnn["params"], "qat": cnn["params"]["qat"],
+            "layers": [(l["w"].contiguous(), l["b"].contiguous(), s)
+                       for l, (_, _, s) in zip(folded["conv"],
+                                               CFG.layer_specs())]}
+
+
+def deploy(d: dict) -> dict:
+    """The main path of this slice: the trained parameters through each
+    deployment entry point once, on the card."""
+    y_vol = V_ops.equalize(d["vol"], d["rx"], FAMILIES["volterra"][0],
+                           device=d["rx"].device)
+    q = Q_ops.quantize_params(d["cnn"], d["qat"], device=d["rx"].device)
+    h, ins, outs = d["rx"][:, None, :], [], []
+    for i, (w, b, s) in enumerate(d["layers"]):
+        ins.append(h)
+        outs.append(C1_ops.conv1d_same_lower(h, w, b, s,
+                                             device=d["rx"].device))
+        h = torch.relu(outs[-1]) if i < len(d["layers"]) - 1 else outs[-1]
+    torch.cuda.synchronize()
+    return {"volterra": y_vol, "quant": q, "ins": ins, "outs": outs}
+
+
+def check_deploy(d: dict, run: dict) -> dict:
+    """Each kernel == its plain version bitwise on the deploy run's inputs,
+    plus the cross-checks; returns the numbers phase 7 prints."""
+    dev = d["rx"].device
+    vcfg = FAMILIES["volterra"][0]
+    out = {"max_abs_err": {}}
+    # volterra: the trained baseline, then random sets up to the DSE's
+    # largest memory lengths
+    want = V_ops.equalize(d["vol"], d["rx"], vcfg, use_kernel=False,
+                          device=dev)
+    got = run["volterra"]
+    require(got.shape == (ROWS, SYMS) and bool(torch.isfinite(got).all()),
+            f"volterra: output {tuple(got.shape)} or non-finite")
+    err = float((got - want).abs().max())
+    require(torch.equal(got, want), f"volterra kernel != plain ({err:.3e})")
+    core = vol.apply(d["vol"], d["rx"], vcfg)
+    out["volterra_ber_kernel"] = float(ber_from_soft(got, d["syms"]))
+    out["volterra_ber_core"] = float(ber_from_soft(core, d["syms"]))
+    out["volterra_kernel_vs_core_max_abs"] = float((got - core).abs().max())
+    out["volterra_decisions_differ"] = int(
+        (pam_decision(got) != pam_decision(core)).sum())
+    rng = torch.Generator().manual_seed(8)
+    for m1, m2, m3 in VOLTERRA_SETS:
+        ws = [torch.tensor(0.05), 0.3 * torch.randn(m1, generator=rng),
+              0.1 * torch.randn((m2, m2), generator=rng),
+              0.05 * torch.randn((m3, m3, m3), generator=rng)]
+        ws = [w.to(dev) for w in ws]
+        k = V.volterra(d["rx"], *ws, stride=HT.CNN.n_os)
+        p = V_ref.volterra(d["rx"], *ws, HT.CNN.n_os)
+        e = float((k - p).abs().max())
+        require(torch.equal(k, p), f"volterra ({m1}, {m2}, {m3}): kernel != "
+                                   f"plain ({e:.3e})")
+        err = max(err, e)
+    out["max_abs_err"]["volterra"] = err
+    # quant: kernel == plain == the QAT quantizer at the frozen widths
+    plain = Q_ops.quantize_params(d["cnn"], d["qat"], use_kernel=False,
+                                  device=dev)
+    err = 0.0
+    for i, (lk, lp) in enumerate(zip(run["quant"]["conv"], plain["conv"])):
+        qw = d["qat"][f"layer{i}"]
+        for key in ("w", "b"):
+            e = float((lk[key] - lp[key]).abs().max())
+            require(torch.equal(lk[key], lp[key]),
+                    f"quant layer {i} {key}: kernel != plain ({e:.3e})")
+            require(torch.equal(lk[key], qat.quantize_fixed(
+                d["cnn"]["conv"][i][key], qw["w_int"], qw["w_frac"])),
+                f"quant layer {i} {key}: != core.qat.quantize_fixed")
+            err = max(err, e)
+    qi, qf = d["qat"]["layer0"]["w_int"], d["qat"]["layer0"]["w_frac"]
+    big = Q.fixed_point_quantize(d["rx"], qi, qf)
+    require(torch.equal(big, Q_ref.fixed_point_quantize(d["rx"], qi, qf)),
+            "quant at 64 x 14640: kernel != plain")
+    out["max_abs_err"]["fixed_point_quantize"] = err
+    out["quant_formats"] = [tuple(int(v) for v in (q["w_int"], q["w_frac"]))
+                            for q in d["qat"].values()]
+    # conv1d: each layer on the deploy run's own input to it
+    err, lib_err = 0.0, 0.0
+    for i, (w, b, s) in enumerate(d["layers"]):
+        x, got_lin = run["ins"][i], run["outs"][i]
+        want = C1_ops.conv1d_same_lower(x, w, b, s, use_kernel=False,
+                                        device=dev)
+        e = float((got_lin - want).abs().max())
+        require(torch.equal(got_lin, want),
+                f"conv1d layer {i}: kernel != plain ({e:.3e})")
+        k = w.shape[-1]
+        with fp32_exact():
+            lib = F.conv1d(F.pad(x, (k // 2, k - 1 - k // 2)), w, b,
+                           stride=s)
+        lib_err = max(lib_err, float((got_lin - lib).abs().max()))
+        err = max(err, e)
+    out["max_abs_err"]["conv1d"] = err
+    out["conv1d_vs_F_conv1d_max_abs"] = lib_err
+    y = run["outs"][-1].transpose(1, 2).reshape(ROWS, -1)
+    require(y.shape == (ROWS, SYMS), f"CNN output {tuple(y.shape)}")
+    out["cnn_ber_conv1d_chain"] = float(ber_from_soft(y, d["syms"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5 (new kernels): times at the deployment shapes
+# ---------------------------------------------------------------------------
+
+def _bound(n_bytes: float, flops: float) -> tuple:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, flops / PEAK_OPS_S["fp32"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _device_ms(fn, name: str, calls: int = 20):
+    prof = device_trace(lambda: [fn() for _ in range(calls)])
+    ms = [v["mean_ms"] for k, v in prof["by_kind_ms"].items()
+          if k.startswith(name)]
+    return ms[0] if ms else None
+
+
+def time_deploy_kernels(d: dict, run: dict, iters: int) -> dict:
+    """CUDA-event ms per call, profiler device ms, plain ms, a PyTorch
+    yardstick and the bound, for each deployment kernel at the deploy
+    run's shapes."""
+    out = {}
+    x = d["rx"]
+    vcfg = FAMILIES["volterra"][0]
+    ws = [d["vol"]["w0"], d["vol"]["w1"], d["vol"].get("w2"), None]
+    m1, m2, m3 = vcfg.m1, vcfg.m2, vcfg.m3
+    macs = m1 + m2 * m2 + m2 + m3 ** 3 + m3 * m3 + m3
+    n_out = x.shape[0] * (x.shape[1] // vcfg.n_os)
+    b_ms, b_by = _bound(x.numel() * 4 + n_out * 4 + 4 * (1 + m1 + m2 * m2),
+                        2 * macs * n_out)
+    with fp32_exact():
+        t_k = cuda_ms(lambda: V.volterra(x, *ws, stride=vcfg.n_os), iters)
+        t_p = cuda_ms(lambda: V_ref.volterra(x, *ws, vcfg.n_os), 5, warmup=1)
+        t_l = cuda_ms(lambda: vol.apply(d["vol"], x, vcfg), iters)
+        t_k2 = cuda_ms(lambda: V.volterra(x, *ws, stride=vcfg.n_os), iters)
+    out["volterra"] = {
+        "ms": t_k, "ms_repeat": t_k2, "plain_ms": t_p, "library_ms": t_l,
+        "device_ms": _device_ms(lambda: V.volterra(x, *ws, stride=vcfg.n_os),
+                                "volterra_kernel"),
+        "bound_ms": b_ms, "bound_by": b_by, "flop": 2 * macs * n_out,
+        "library": "einsum chain of core.volterra.apply (unfold + 2 "
+                   "einsums, TF32 off): a chain, no single call",
+        "shape": f"{x.shape[0]}x{x.shape[1]} samples, (M1, M2, M3) = "
+                 f"({m1}, {m2}, {m3}), tile 128"}
+
+    qi, qf = d["qat"]["layer0"]["w_int"], d["qat"]["layer0"]["w_frac"]
+    i_, f_ = int(qi), int(qf)
+    bits = torch.stack([qi, qf]).float()
+    b_ms, b_by = _bound(8 * x.numel(), 5 * x.numel())
+    t_k = cuda_ms(lambda: Q.fixed_point_quantize(x, bits[0], bits[1]), iters)
+    t_p = cuda_ms(lambda: Q_ref.fixed_point_quantize(x, bits[0], bits[1]),
+                  iters)
+    t_l, lib_diff = None, None
+    if i_ + f_ < 31:
+        def lib():
+            return torch.fake_quantize_per_tensor_affine(
+                x, 2.0 ** -f_, 0, -2 ** (i_ + f_), 2 ** (i_ + f_) - 1)
+        t_l = cuda_ms(lib, iters)
+        lib_diff = float((lib() - Q.fixed_point_quantize(x, qi, qf)).abs()
+                         .max())
+    out["fixed_point_quantize"] = {
+        "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+        "library_max_abs_diff": lib_diff,
+        "device_ms": _device_ms(
+            lambda: Q.fixed_point_quantize(x, bits[0], bits[1]),
+            "quant_kernel"),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library": "torch.fake_quantize_per_tensor_affine(x, 2^-f, 0, "
+                   "-2^(i+f), 2^(i+f)-1)",
+        "shape": f"{x.shape[0]}x{x.shape[1]} floats at Q{i_}.{f_} (the "
+                 f"trained CNN's layer-0 weight format)"}
+
+    layers = []
+    for i, (w, b, s) in enumerate(d["layers"]):
+        h = run["ins"][i]
+        k = w.shape[-1]
+        xp = F.pad(h, (k // 2, k - 1 - k // 2)).contiguous()
+        n_o = (xp.shape[-1] - k) // s + 1
+        c_out, c_in = int(w.shape[0]), int(w.shape[1])
+        lb_ms, lb_by = _bound(
+            4 * (h.numel() + xp.shape[0] * c_out * n_o + w.numel() + c_out),
+            2 * xp.shape[0] * c_out * c_in * k * n_o)
+        with fp32_exact():
+            t_k = cuda_ms(lambda: C1.conv1d(xp, w, b, s), iters)
+            t_p = cuda_ms(lambda: C1_ref.conv1d(xp, w, b, s), 5, warmup=1)
+            t_l = cuda_ms(lambda: F.conv1d(xp, w, b, stride=s), iters)
+        layers.append({
+            "shape": f"{tuple(h.shape)} -> ({xp.shape[0]}, {c_out}, {n_o}),"
+                     f" stride {s}",
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+            "device_ms": _device_ms(lambda: C1.conv1d(xp, w, b, s),
+                                    "conv1d_kernel"),
+            "bound_ms": lb_ms, "bound_by": lb_by})
+
+    def total(key):
+        vals = [l[key] for l in layers]
+        return None if any(v is None for v in vals) else sum(vals)
+    out["conv1d"] = {
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "library_ms": total("library_ms"), "device_ms": total("device_ms"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": "bytes" if all(l["bound_by"] == "bytes" for l in layers)
+        else "operations",
+        "library": "F.conv1d (TF32 off) per layer, bias included",
+        "shape": f"the trained CNN's three layers at {x.shape[0]} x "
+                 f"{x.shape[1]} samples; times summed over the layers",
+        "per_layer": layers}
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def build_all() -> list:
+    """One nvcc per source, all started together; (source, lib, log, s)."""
+    def one(src):
+        t0 = time.perf_counter()
+        lib, log = _build.build(src)
+        return src, lib, log, time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        return list(pool.map(one, SOURCES))
 
 
 def main() -> int:
@@ -420,13 +767,15 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    lib, log = K.build()
-    print(f"[2] build: {lib.name} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    for line in log.splitlines():
-        if any(k in line for k in ("registers", "spill", "Compiling entry",
-                                   "smem")):
-            print(f"    ptxas: {line.strip()}")
+    built = build_all()
+    print(f"[2] build: {len(built)} sources in parallel, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for src, lib, log, secs in built:
+        print(f"    {lib.name}: {secs:.1f} s")
+        for line in log.splitlines():
+            if any(k in line for k in ("registers", "spill",
+                                       "Compiling entry", "smem")):
+                print(f"    ptxas: {line.strip()}")
 
     inputs = kernel_inputs(dev, ROWS, SYMS)
     worst = check_kernels(inputs, TILES)
@@ -467,10 +816,40 @@ def main() -> int:
           f"{json.dumps(trace)}; p50 {again['stats']['p50_latency_ms']:.3f}"
           f" ms, p99 {again['stats']['p99_latency_ms']:.3f} ms", flush=True)
 
+    trained = train_families(dev)
+    summary = {k: {"ber": v["info"]["ber"], "ms_per_step": v["ms_per_step"],
+                   "loss_first50": v["loss_first50"],
+                   "loss_last50": v["loss_last50"]}
+               for k, v in trained.items()}
+    summary["cnn"].update(bits_params=trained["cnn"]["info"]["bits_params"],
+                          bits_acts=trained["cnn"]["info"]["bits_acts"])
+    print(f"[6] train ({TRAIN.steps} steps, batch {TRAIN.batch} x "
+          f"{TRAIN.seq_syms} symbols, IM/DD 40 GBd 31.5 km; ms_per_step is "
+          f"wall time incl. init and a {TRAIN.eval_syms}-symbol eval): "
+          f"{json.dumps(summary)}", flush=True)
+
+    d = deploy_inputs(dev, trained)
+    for kern in (V, Q, C1):
+        kern.reset_launch_counts()
+    drun = deploy(d)
+    deploy_launches = {name: launches[name] for name, (_, _, launches)
+                       in DEPLOY_KERNELS.items()}
+    for name, n in deploy_launches.items():
+        require(n > 0, f"{name} was not launched on the deploy path")
+    checks = check_deploy(d, drun)
+    print(f"[7] deploy at {ROWS}x{SYMS} symbols: kernel launches "
+          f"{deploy_launches}; kernel == plain bitwise; {json.dumps(checks)}",
+          flush=True)
+
     times = time_kernels(inputs, tiles_used, iters=200)
+    dtimes = time_deploy_kernels(d, drun, iters=200)
     print(f"[5] times (ms; CUDA events, mean of 200 calls after warm-up; "
           f"device_ms from torch.profiler over 20 calls): "
-          f"{json.dumps(times)}", flush=True)
+          f"{json.dumps(times)} {json.dumps(dtimes)}", flush=True)
+    # after every other profiler session: a trace of tens of thousands of
+    # training events left the next session short of its first events
+    print(f"[6a] 10 CNN training steps (QAT, all three phases) under "
+          f"torch.profiler: {json.dumps(train_trace(dev))}", flush=True)
 
     library = {"fp32": "F.conv1d x3 + ReLU x2, fp32, TF32 off, grouped "
                        "per row",
@@ -486,7 +865,17 @@ def main() -> int:
             "max_abs_err": worst[dp], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "library": library[dp], "tile_m": t["tile_m"],
+            "device_ms": t["device_ms"], "library": library[dp],
+            "tile_m": t["tile_m"], "shape": t["shape"], "card": card})
+    for name, (source, replaces, _) in DEPLOY_KERNELS.items():
+        t = dtimes[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": deploy_launches[name],
+            "max_abs_err": checks["max_abs_err"][name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"], "library": t["library"],
             "shape": t["shape"], "card": card})
     print(card)
     print(json.dumps({"kernels": kernels}))

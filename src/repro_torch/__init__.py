@@ -3,10 +3,15 @@
 The package mirrors `repro` (the JAX reference) module for module, so each
 port module sits at the same relative path as its counterpart:
 
-  core/      equalizer topology, QAT formats, autotune, EqualizerEngine
+  core/      equalizer topology, QAT formats, autotune, EqualizerEngine;
+             the FIR and Volterra baselines and their training (train_eq)
+  channels/  simulated IM/DD and Proakis-B links
+  data/      channel frames drawn on the device for training
+  optim/     AdamW and learning-rate schedules on tensor trees
   configs/   the paper's operating points (equalizer_ht, equalizer_lp)
   kernels/   hand-written Hopper kernels, each beside its plain PyTorch
-             version (kernels/cnn_eq: the fused fp32/bf16/int8 stack)
+             version (cnn_eq: the fused fp32/bf16/int8 stack; volterra;
+             quant; conv1d)
   obs/       metrics registry, chunk tracer, Observability hub
   runtime/   straggler monitor
   serve/     chunker, engine pool, sessions, micro-batcher, ServeRuntime

@@ -16,6 +16,7 @@ from __future__ import annotations
 import contextlib
 from typing import Iterator, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -49,3 +50,11 @@ def fp32_exact() -> Iterator[None]:
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_matmul
+
+
+def as_float32(a, device: torch.device) -> torch.Tensor:
+    """A tensor or array-like as a float32 tensor on ``device`` (arrays are
+    copied, so read-only numpy views, such as JAX's, are fine)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, torch.float32)
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)

@@ -5,15 +5,18 @@ once (by `repro`'s ``eq.init``, or with numpy), handed over as numpy arrays,
 and carried across here. A tree is any nesting of dicts, lists and tuples;
 the leaves that are arrays (numpy arrays, numpy scalars, tensors) convert,
 every other leaf (python numbers, strings, None) passes through unchanged.
-This covers ``eq.init`` params, BN state, ``params["qat"]`` and folded
-``((w, b), …)`` tuples.
+This covers ``eq.init`` params, BN state, ``params["qat"]``, folded
+``((w, b), …)`` tuples, FIR and Volterra params and optimizer states (a
+NamedTuple such as ``AdamState`` keeps its class: rebuild the other
+package's with ``AdamState(*tree)``). `tree_map` and `tree_leaves` are the
+port's tree utilities (the optimizer and the training loop use them too).
 
 bfloat16 numpy arrays (the ``ml_dtypes`` dtype) become bf16 tensors; a bf16
 tensor comes back as float32 numpy, which holds every bf16 value exactly.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, List
 
 import numpy as np
 import torch
@@ -21,14 +24,33 @@ import torch
 from .device import DeviceLike, resolve_device
 
 
-def _map(tree: Any, leaf_fn) -> Any:
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leafwise over trees of the same structure. Dicts, lists,
+    tuples and NamedTuples are nodes (a NamedTuple such as ``AdamState``
+    keeps its type); None is an empty subtree; anything else is a leaf."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
-        return {k: _map(v, leaf_fn) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map(v, leaf_fn) for v in tree]
-    if isinstance(tree, tuple):
-        return tuple(_map(v, leaf_fn) for v in tree)
-    return leaf_fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        items = [tree_map(fn, v, *(r[i] for r in rest))
+                 for i, v in enumerate(tree)]
+        if hasattr(tree, "_fields"):
+            return type(tree)(*items)
+        return type(tree)(items)
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """Leaves in the reference's order (dict keys sorted, as jax.tree)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [l for v in tree for l in tree_leaves(v)]
+    return [tree]
 
 
 def _array_to_tensor(a: Any, dev: torch.device) -> Any:
@@ -56,9 +78,9 @@ def _tensor_to_array(t: Any) -> Any:
 def to_torch(tree: Any, device: DeviceLike = "cuda") -> Any:
     """numpy (or array-like) leaves → tensors on ``device``."""
     dev = resolve_device(device)
-    return _map(tree, lambda a: _array_to_tensor(a, dev))
+    return tree_map(lambda a: _array_to_tensor(a, dev), tree)
 
 
 def to_numpy(tree: Any) -> Any:
     """Tensor leaves → numpy arrays on the host (bf16 → float32)."""
-    return _map(tree, _tensor_to_array)
+    return tree_map(_tensor_to_array, tree)

@@ -1,0 +1,82 @@
+"""Build and bind the port's CUDA sources: one nvcc path for every kernel.
+
+Each kernel directory keeps its source under ``csrc/`` with a plain
+``extern "C"`` launcher. `build` compiles one source for sm_90a into a
+shared library under ``build/kernels/`` (named by a hash of the source and
+the flags, so an edited source rebuilds and an unchanged one is reused);
+`load` builds at first use, opens the library with ctypes, declares its
+functions' types and caches it for the process. Nothing here falls back:
+a missing nvcc, a failed build or a library that does not load raises.
+
+The flags keep ``--fmad=false``: every kernel fixes a scalar order of
+operations that its plain PyTorch version repeats, and an FMA contraction
+would round differently.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Callable, Dict, Tuple
+
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+_libs: Dict[pathlib.Path, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the port's CUDA kernels cannot "
+                       "be built")
+
+
+def build(csrc: pathlib.Path) -> Tuple[pathlib.Path, str]:
+    """Compile ``csrc`` for sm_90a (once per source and flag set).
+
+    Returns (shared library path, nvcc's output). The output holds the
+    `-Xptxas -v` register, shared-memory and spill summary of each kernel.
+    Raises RuntimeError when nvcc is missing or fails.
+    """
+    tag = hashlib.sha256(csrc.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"lib{csrc.stem}_{tag}.so"
+    log_path = lib_path.with_suffix(".log")
+    if lib_path.exists() and log_path.exists():
+        return lib_path, log_path.read_text()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc)],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {csrc}:\n"
+                           f"{log}")
+    os.replace(tmp, lib_path)
+    log_path.write_text(log)
+    return lib_path, log
+
+
+def load(csrc: pathlib.Path,
+         bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """The built library of ``csrc``, opened once per process; ``bind``
+    declares its functions' argtypes and restype."""
+    with _lock:
+        lib = _libs.get(csrc)
+        if lib is None:
+            path, _ = build(csrc)
+            lib = ctypes.CDLL(str(path))
+            bind(lib)
+            _libs[csrc] = lib
+        return lib

@@ -34,18 +34,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import _build
 from . import ref
 from .ref import _wformat_cols, receptive_halo, requant_int8
 
@@ -59,16 +55,9 @@ _MAX_LAYERS = 8
 _MAX_ROWS = 65535                 # gridDim.y
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc" / "cnn_eq.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
 
 LAUNCHES: Dict[str, int] = {"cnn_eq_fused": 0, "cnn_eq_fused_bf16": 0,
                             "cnn_eq_fused_int8": 0}
-
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -80,55 +69,21 @@ def reset_launch_counts() -> None:
 # build and binding
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): the cnn_eq kernels cannot be "
-                       "built")
-
-
 def build() -> Tuple[pathlib.Path, str]:
-    """Compile csrc/cnn_eq.cu for sm_90a (once per source and flag set).
+    """Compile csrc/cnn_eq.cu for sm_90a (`kernels._build.build`)."""
+    return _build.build(CSRC)
 
-    Returns (shared library path, nvcc's output). The output holds the
-    `-Xptxas -v` register, shared-memory and spill summary of each kernel.
-    Raises RuntimeError when nvcc is missing or fails.
-    """
-    tag = hashlib.sha256(CSRC.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libcnn_eq_{tag}.so"
-    log_path = lib_path.with_suffix(".log")
-    if lib_path.exists() and log_path.exists():
-        return lib_path, log_path.read_text()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC)],
-                          capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {CSRC}:\n"
-                           f"{log}")
-    os.replace(tmp, lib_path)
-    log_path.write_text(log)
-    return lib_path, log
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.cnn_eq_launch.restype = ctypes.c_int
+    lib.cnn_eq_launch.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        + [ctypes.c_int] * 9
+        + [ctypes.c_void_p] * 4)
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            lib.cnn_eq_launch.restype = ctypes.c_int
-            lib.cnn_eq_launch.argtypes = (
-                [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-                + [ctypes.c_int] * 9
-                + [ctypes.c_void_p] * 4)
-            _lib = lib
-        return _lib
+    return _build.load(CSRC, _bind)
 
 
 # ---------------------------------------------------------------------------

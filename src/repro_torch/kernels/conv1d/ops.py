@@ -1,0 +1,28 @@
+"""Public entry point of the conv1d kernel (port of
+`repro.kernels.conv1d.ops`)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ...device import DeviceLike, as_float32, resolve_device
+from .conv1d import conv1d as conv1d_kernel
+from .ref import conv1d as conv1d_ref
+
+
+def conv1d_same_lower(x, w, b, stride: int = 1, use_kernel: bool = True,
+                      tile_w: int = 256,
+                      device: DeviceLike = "cuda") -> torch.Tensor:
+    """SAME_LOWER-padded strided conv used by the equalizer layers: pads
+    (K//2, K−1−K//2), then the VALID kernel. Inputs move to ``device``;
+    ``use_kernel=False`` runs the plain version there."""
+    dev = resolve_device(device)
+    x, w, b = (as_float32(t, dev) for t in (x, w, b))
+    k = w.shape[-1]
+    xp = F.pad(x, (k // 2, k - 1 - k // 2))
+    if use_kernel:
+        return conv1d_kernel(xp, w, b, stride, tile_w=tile_w)
+    return conv1d_ref(xp, w, b, stride)
+
+
+__all__ = ["conv1d_kernel", "conv1d_ref", "conv1d_same_lower"]

@@ -8,7 +8,8 @@ no jax, so it also runs on the card's host:
 
 Each kernel must equal its plain version (`ref.py`) bitwise on the card at
 any tile width, stacked or shared weights, and the serving path must run
-through the kernels.
+through the kernels. The same holds for the Volterra, fixed-point-quantize
+and conv1d kernels, and the training path runs on the card.
 """
 import numpy as np
 import pytest
@@ -16,9 +17,19 @@ import torch
 
 from repro_torch.configs import equalizer_ht as HT
 from repro_torch.core import equalizer as teq
+from repro_torch.core import fir as tfir
+from repro_torch.core import train_eq as ttrain
 from repro_torch.core.engine import EqualizerEngine, stacked_engine_fn
+from repro_torch.data import equalizer_data as tdata
 from repro_torch.kernels.cnn_eq import cnn_eq as kern
 from repro_torch.kernels.cnn_eq import ref
+from repro_torch.kernels.conv1d import conv1d as c1_kern
+from repro_torch.kernels.conv1d import ref as c1_ref
+from repro_torch.kernels.quant import ops as q_ops
+from repro_torch.kernels.quant import quant as q_kern
+from repro_torch.kernels.quant import ref as q_ref
+from repro_torch.kernels.volterra import volterra as v_kern
+from repro_torch.kernels.volterra import ref as v_ref
 from repro_torch.serve import BatchPolicy, ServeRuntime, TenantSpec
 
 FMTS = ((2, 5, 3, 4),) * 3
@@ -128,3 +139,85 @@ def test_tile_too_large_for_shared_memory_raises(cuda_device):
     # a tile that fits still runs and equals the plain version
     assert torch.equal(kern.cnn_eq_fused(x, w, st, tile_m=1024),
                        ref.cnn_eq(x, w, st))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m1,m2,m3", [(25, 9, 0), (41, 15, 9), (121, 35, 15)])
+def test_volterra_kernel_equals_plain_on_card(cuda_device, m1, m2, m3):
+    g = torch.Generator().manual_seed(m1)
+    w0 = torch.tensor(0.05)
+    w1 = 0.3 * torch.randn(m1, generator=g)
+    w2 = 0.1 * torch.randn((m2, m2), generator=g)
+    w3 = 0.05 * torch.randn((m3, m3, m3), generator=g) if m3 else None
+    ws = [None if w is None else w.to(cuda_device) for w in (w0, w1, w2, w3)]
+    x = _x(3, 1001, seed=m2).to(cuda_device)
+    want = v_ref.volterra(x, *ws, 2)
+    for tile in (16, 128, 512):
+        before = v_kern.LAUNCHES["volterra"]
+        got = v_kern.volterra(x, *ws, stride=2, tile=tile)
+        torch.cuda.synchronize()
+        assert v_kern.LAUNCHES["volterra"] == before + 1
+        assert got.is_cuda and torch.equal(got, want), tile
+    with pytest.raises(ValueError, match="shared memory"):
+        v_kern.volterra(x, *ws, stride=2, tile=1 << 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ib,fb", [((64, 14640), 3.0, 4.0),
+                                         ((5, 1, 9), 0.0, 7.0),
+                                         ((1001,), 2.6, 5.3)])
+def test_quant_kernel_equals_plain_on_card(cuda_device, shape, ib, fb):
+    g = torch.Generator().manual_seed(len(shape))
+    x = (4 * torch.randn(shape, generator=g)).to(cuda_device)
+    bits = torch.tensor([ib, fb], device=cuda_device)
+    before = q_kern.LAUNCHES["fixed_point_quantize"]
+    got = q_kern.fixed_point_quantize(x, bits[0], bits[1])
+    torch.cuda.synchronize()
+    assert q_kern.LAUNCHES["fixed_point_quantize"] == before + 1
+    assert got.shape == x.shape
+    assert torch.equal(got, q_ref.fixed_point_quantize(x, bits[0], bits[1]))
+    # integer widths: the card's kernel equals the host's plain version
+    if float(ib).is_integer() and float(fb).is_integer():
+        assert torch.equal(got.cpu(),
+                           q_ref.fixed_point_quantize(x.cpu(), ib, fb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,k,stride", [(1, 5, 9, 8), (5, 5, 9, 1),
+                                                 (5, 8, 9, 2)])
+def test_conv1d_kernel_equals_plain_on_card(cuda_device, c_in, c_out, k,
+                                            stride):
+    g = torch.Generator().manual_seed(c_out * 10 + stride)
+    w = (0.3 * torch.randn((c_out, c_in, k), generator=g)).to(cuda_device)
+    b = torch.randn(c_out, generator=g).to(cuda_device)
+    x = torch.randn((3, c_in, 2 * 8 * 300 + 5), generator=g).to(cuda_device)
+    want = c1_ref.conv1d(x, w, b, stride)
+    for tile in (32, 256, 1024):
+        before = c1_kern.LAUNCHES["conv1d"]
+        got = c1_kern.conv1d(x, w, b, stride, tile_w=tile)
+        torch.cuda.synchronize()
+        assert c1_kern.LAUNCHES["conv1d"] == before + 1
+        assert torch.equal(got, want), tile
+
+
+@pytest.mark.cuda
+def test_training_runs_on_card_and_deploys(cuda_device):
+    cfg = ttrain.EqTrainConfig(steps=20, batch=4, seq_syms=256,
+                               eval_syms=4096)
+    fn = tdata.channel_fn("imdd", device=cuda_device)
+    params, _, info = ttrain.train_equalizer(
+        torch.Generator(device=cuda_device).manual_seed(0), "fir",
+        tfir.FIRConfig(), fn, cfg, record_every=1, device=cuda_device)
+    assert params["w"].is_cuda and 0.0 <= info["ber"] <= 0.5
+    assert all(np.isfinite(h["loss"]) for h in info["history"])
+    p = teq.init(torch.Generator().manual_seed(0), HT.CNN,
+                 device=cuda_device)
+    qp = {f"layer{i}": {k: torch.tensor(v, device=cuda_device)
+                        for k, v in QAT.items()} for i in range(3)}
+    before = q_kern.LAUNCHES["fixed_point_quantize"]
+    q = q_ops.quantize_params(p, qp, device=cuda_device)
+    assert q_kern.LAUNCHES["fixed_point_quantize"] == before + 6
+    plain = q_ops.quantize_params(p, qp, use_kernel=False,
+                                  device=cuda_device)
+    for a, b in zip(q["conv"], plain["conv"]):
+        assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])

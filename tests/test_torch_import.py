@@ -77,10 +77,11 @@ def test_entry_point_without_device_raises_without_card(monkeypatch, entry):
 
 def test_missing_compiler_raises_instead_of_falling_back(monkeypatch,
                                                          tmp_path):
+    from repro_torch.kernels import _build
     from repro_torch.kernels.cnn_eq import cnn_eq as kern
-    monkeypatch.setattr(kern.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(kern, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kern.build()
 
