@@ -6,9 +6,9 @@
 Phases (each prints a line; any failure raises and exits non-zero with no
 result line), in the order they run:
   1. card: `nvidia-smi` name and power limit, torch and CUDA versions;
-  2. build: one nvcc per source, all started together, builds the four
-     CUDA sources (cnn_eq, volterra, quant, conv1d) for sm_90a; prints the
-     -Xptxas -v register / shared-memory / spill lines;
+  2. build: one nvcc per source, all started together, builds the five
+     CUDA sources (cnn_eq, volterra, quant, conv1d, flash_attn) for sm_90a;
+     prints the -Xptxas -v register / shared-memory / spill lines;
   3. kernel == plain: each datapath (fp32, bf16, int8) on the card at the
      paper's deployment shape (equalizer_ht: 64 rows × 7320 symbols),
      shared and per-row stacked weights, tile_m ∈ {16, 64, 256}; each
@@ -39,15 +39,35 @@ result line), in the order they run:
      ReLU for cnn_eq, the einsum chain of `core.volterra.apply`,
      torch.fake_quantize_per_tensor_affine, F.conv1d), beside the least
      time the card could take;
+  8. LM serving: `repro_torch.launch.serve.serve_session` builds
+     qwen3-0.6b at full width (28 layers, d_model 1024, 16/8 heads of 128,
+     bf16, fused_attention, tp = 1) with seeded random weights on the
+     card and serves 4 × 2048-token prompts, then 32 greedy decode steps;
+     the flash-attention launch count, zeroed before each, must be 28 for
+     the prefill (one per layer) and 0 for the decode; prints prefill ms,
+     decode ms per step and tokens/s (host clock around synchronised
+     work). 8b: the kernel against its plain version on layer 0's q, k, v
+     of that prefill (bf16; rtol 1e-2, atol 2e-2) and on random inputs at
+     non-aligned shapes (f32 atol 2e-5, bf16 atol 2e-2): GQA 16/8, MQA
+     8/1, a window, q_offset > 0 with Sq < Sk, bidirectional. 8c: the
+     whole model in f32 (TF32 off), 1 × 2048 tokens: fused against the
+     chunked plain prefill, and decode at position 2047 against a prefill
+     over 2048 tokens, each within 2e-3. 8d: at the serving shape the
+     kernel's device and call time, the plain version's, the bound from
+     `attention_costs` and F.scaled_dot_product_attention as the library
+     yardstick, then one prefill and 4 decode steps under torch.profiler
+     (device idle share, top kernels);
   6a. last: 10 CNN training steps under torch.profiler (device busy and
      idle share, the kernels that took the most device time).
-The line before the last is the `kernels` JSON; the last line is
+The line before the last is the `kernels` JSON (seven kernels); the last
+line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Phases 3–5 use random weights from a seed (numpy), carried in through
 `repro_torch.interop`, and waveforms of PAM-2 through a short ISI filter
 with noise, also from a seed; phases 6–7 train from seeded generators on
-the simulated link. Without a CUDA card the script exits with code 2.
+the simulated link; phase 8 draws its weights and prompts from seeded card
+generators. Without a CUDA card the script exits with code 2.
 """
 from __future__ import annotations
 
@@ -66,6 +86,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import configs as LM_configs  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.channels import imdd  # noqa: E402
 from repro_torch.channels.common import (ber_from_soft,  # noqa: E402
@@ -82,12 +103,19 @@ from repro_torch.kernels.cnn_eq import ref as R  # noqa: E402
 from repro_torch.kernels.conv1d import conv1d as C1  # noqa: E402
 from repro_torch.kernels.conv1d import ops as C1_ops  # noqa: E402
 from repro_torch.kernels.conv1d import ref as C1_ref  # noqa: E402
+from repro_torch.kernels.flash_attn import flash_attn as FA  # noqa: E402
+from repro_torch.kernels.flash_attn import ref as FA_ref  # noqa: E402
 from repro_torch.kernels.quant import ops as Q_ops  # noqa: E402
 from repro_torch.kernels.quant import quant as Q  # noqa: E402
 from repro_torch.kernels.quant import ref as Q_ref  # noqa: E402
 from repro_torch.kernels.volterra import ops as V_ops  # noqa: E402
 from repro_torch.kernels.volterra import ref as V_ref  # noqa: E402
 from repro_torch.kernels.volterra import volterra as V  # noqa: E402
+from repro_torch.launch import serve as LM_serve  # noqa: E402
+from repro_torch.models import attention as LM_attn  # noqa: E402
+from repro_torch.models import registry as LM_registry  # noqa: E402
+from repro_torch.models import transformer as LM_tr  # noqa: E402
+from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.serve import (BatchPolicy, ServeRuntime,  # noqa: E402
                                TenantSpec)
 
@@ -112,7 +140,7 @@ BACKEND_OF = {"fp32": "fused_fp32", "bf16": "fused_bf16",
               "int8": "fused_int8"}
 # the train-then-deploy slice: its kernels, sources and the TPU kernels
 # they replace
-SOURCES = (K.CSRC, V.CSRC, Q.CSRC, C1.CSRC)
+SOURCES = (K.CSRC, V.CSRC, Q.CSRC, C1.CSRC, FA.CSRC)
 DEPLOY_KERNELS = {
     "volterra": ("src/repro_torch/kernels/volterra/csrc/volterra.cu",
                  "src/repro/kernels/volterra/volterra.py:61", V.LAUNCHES),
@@ -128,6 +156,22 @@ QAT_CFG = qat.QATConfig(init_int_bits=8.0, init_frac_bits=8.0)
 FAMILIES = {"cnn": (HT.CNN, QAT_CFG), "fir": (fir.FIRConfig(), None),
             "volterra": (vol.VolterraConfig(), None)}
 VOLTERRA_SETS = ((41, 15, 9), (121, 35, 15))    # random; the DSE's largest
+# the LM serving slice (phase 8)
+LM_ARCH = "qwen3-0.6b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+FLASH = ("flash_attention",
+         "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+         "src/repro/kernels/flash_attn/flash_attn.py:186")
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_CASES = (  # b, sq, sk, h, hkv, d, causal, window, q_offset
+    (1, 1000, 1000, 16, 8, 128, True, 0, 0),      # non-aligned, GQA 16/8
+    (1, 1000, 1000, 8, 1, 128, True, 0, 0),       # MQA 8/1
+    (1, 1000, 1000, 16, 8, 128, True, 256, 0),    # sliding window
+    (1, 700, 1000, 16, 8, 128, True, 0, 300),     # q_offset > 0, Sq < Sk
+    (1, 1000, 1000, 16, 8, 128, False, 0, 0),     # bidirectional
+    (2, 1000, 1000, 4, 2, 48, True, 0, 0),        # qwen3-reduced head dim
+)
+LM_LOGIT_TOL = 2e-3          # the reference's decode-vs-prefill bound
 
 
 def require(cond: bool, msg: str) -> None:
@@ -361,7 +405,7 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
 
 
 KERNEL_NAMES = ("cnn_eq_kernel", "volterra_kernel", "quant_kernel",
-                "conv1d_kernel")
+                "conv1d_kernel", "flash_attn_kernel")
 
 
 def device_trace(fn) -> dict:
@@ -738,6 +782,214 @@ def time_deploy_kernels(d: dict, run: dict, iters: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: LM serving (qwen3-0.6b) through the flash-attention kernel
+# ---------------------------------------------------------------------------
+
+def serve_lm(dev) -> dict:
+    """The main path of this slice: `serve_session` at full width, one
+    prefill of LM_BATCH × LM_PROMPT tokens and LM_GEN greedy decode steps,
+    the flash-attention launch count zeroed before each and read after.
+    A warm-up pass on a second cache comes first (cuBLAS handles, the
+    kernel library's first load), outside the counted run."""
+    cfg = LM_configs.get_config(LM_ARCH, tp=1, fused_attention=True)
+    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.qk_norm, cfg.dtype) ==
+            (28, 1024, 16, 8, 128, 3072, 151936, True, "bfloat16"),
+            f"{LM_ARCH} is not at full width: {cfg}")
+    max_len = LM_PROMPT + LM_GEN
+    t0 = time.perf_counter()
+    model, params, state, prefill, decode = LM_serve.serve_session(
+        cfg, LM_BATCH, LM_PROMPT, max_len, device=dev, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=dev)
+    warm = model.init_serve_state(LM_BATCH, max_len, dev)
+    logits, warm = prefill(params, {"tokens": tokens}, warm)
+    decode(params, logits.argmax(-1).to(torch.int32)[:, None], LM_PROMPT,
+           warm)
+    del warm
+    torch.cuda.synchronize()
+
+    FA.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, {"tokens": tokens}, state)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = FA.LAUNCHES["flash_attention"]
+    require(prefill_launches == cfg.n_layers,
+            f"prefill launched flash_attention {prefill_launches} times, "
+            f"expected {cfg.n_layers} (one per layer)")
+    first = logits.clone()
+
+    FA.reset_launch_counts()
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    generated = [tok]
+    t0 = time.perf_counter()
+    for i in range(LM_GEN):
+        tok, logits, state = decode(params, tok, LM_PROMPT + i, state)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_launches = FA.LAUNCHES["flash_attention"]
+    require(decode_launches == 0,
+            f"decode launched flash_attention {decode_launches} times")
+    out = torch.cat(generated, dim=1)
+    require(first.shape == (LM_BATCH, cfg.vocab_padded) and bool(
+        torch.isfinite(first.float()).all() and torch.isfinite(
+            logits.float()).all()), "LM logits: wrong shape or non-finite")
+    require(out.shape == (LM_BATCH, LM_GEN + 1) and bool(
+        ((out >= 0) & (out < cfg.vocab)).all()), "LM tokens out of range")
+    return {"cfg": cfg, "model": model, "params": params, "state": state,
+            "tokens": tokens, "generated": out, "setup_s": setup_s,
+            "prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_step": decode_s * 1e3 / LM_GEN,
+            "decode_tokens_per_s": LM_BATCH * LM_GEN / decode_s,
+            "launches": prefill_launches + decode_launches,
+            "prefill_launches": prefill_launches,
+            "decode_launches": decode_launches}
+
+
+def layer0_qkv(run: dict):
+    """Layer 0's q, k, v of the served prefill, recomputed by the port's
+    own functions from the same weights and tokens; k and v must equal
+    what the prefill wrote into layer 0's cache."""
+    cfg, params, tokens = run["cfg"], run["params"], run["tokens"]
+    lp = LM_tr._layer(params["layers"], 0)
+    h = LM_tr.embed_tokens(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    q, k, v = LM_attn.qkv(lp["attn"], rms_norm(h, lp["attn_norm"]), cfg,
+                          positions)
+    s = tokens.shape[1]
+    require(torch.equal(k, run["state"]["k"][0][:, :s]) and torch.equal(
+        v, run["state"]["v"][0][:, :s]), "layer 0's k, v differ from the "
+        "prefill's cache")
+    return q, k, v
+
+
+def check_flash(dev, q, k, v) -> dict:
+    """The kernel against its plain version: the served layer 0 (bf16,
+    rtol 1e-2 with atol 2e-2), then random inputs at non-aligned shapes."""
+    out = {}
+    got = FA.flash_attention(q, k, v)
+    want = FA_ref.flash_attention(q, k, v)
+    diff = (got.float() - want.float()).abs()
+    out["layer0_max_abs"] = float(diff.max())
+    out["layer0_max_abs_v"] = float(v.float().abs().max())
+    require(bool((diff <= 2e-2 + 1e-2 * want.float().abs()).all()),
+            f"flash_attention on layer 0: kernel != plain (max |diff| "
+            f"{out['layer0_max_abs']:.3e})")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = {}
+    for case in FLASH_CASES:
+        b, sq, sk, h, hkv, d, causal, win, qoff = case
+        for dt, tol in FLASH_TOL.items():
+            qq, kk, vv = (torch.randn(sh, generator=gen, device=dev).to(dt)
+                          for sh in ((b, sq, h, d), (b, sk, hkv, d),
+                                     (b, sk, hkv, d)))
+            g = FA.flash_attention(qq, kk, vv, causal, win, qoff)
+            w = FA_ref.flash_attention(qq, kk, vv, causal, win, qoff)
+            e = float((g.float() - w.float()).abs().max())
+            require(g.dtype == dt and bool(torch.isfinite(g.float()).all())
+                    and e <= tol, f"flash_attention {case} {dt}: max "
+                    f"|diff| {e:.3e} > {tol}")
+            key = str(dt).replace("torch.", "")
+            worst[key] = max(worst.get(key, 0.0), e)
+    out["random_max_abs"] = worst
+    return out
+
+
+def check_lm_f32(dev, tokens: torch.Tensor) -> dict:
+    """The whole model at full width in f32 (TF32 off), 1 × 2048 tokens:
+    fused against the chunked plain prefill, and decode at position s − 1
+    against a prefill over s tokens."""
+    cfg = LM_configs.get_config(LM_ARCH, tp=1, fused_attention=True,
+                                dtype="float32")
+    fused = LM_registry.build(cfg)
+    plain = LM_registry.build(LM_configs.get_config(
+        LM_ARCH, tp=1, fused_attention=False, dtype="float32"))
+    toks = tokens[:1]
+    s = toks.shape[1]
+    with fp32_exact():
+        params = fused.init(torch.Generator(device=dev).manual_seed(1), dev)
+        FA.reset_launch_counts()
+        lf, _ = fused.prefill(params, {"tokens": toks},
+                              fused.init_serve_state(1, s, dev))
+        require(FA.LAUNCHES["flash_attention"] == cfg.n_layers,
+                "f32 fused prefill did not launch the kernel per layer")
+        lp, _ = plain.prefill(params, {"tokens": toks},
+                              plain.init_serve_state(1, s, dev))
+        _, st = fused.prefill(params, {"tokens": toks[:, :s - 1]},
+                              fused.init_serve_state(1, s, dev))
+        ld, _ = fused.decode(params, toks[:, s - 1:], s - 1, st)
+        torch.cuda.synchronize()
+    out = {"max_abs_logit": float(lf.abs().max()),
+           "fused_vs_plain_max_abs": float((lf - lp).abs().max()),
+           "decode_vs_prefill_max_abs": float((ld - lf).abs().max())}
+    for key in ("fused_vs_plain_max_abs", "decode_vs_prefill_max_abs"):
+        require(out[key] < LM_LOGIT_TOL, f"f32 {LM_ARCH}: {key} "
+                f"{out[key]:.3e} >= {LM_LOGIT_TOL}")
+    del params
+    return out
+
+
+def time_flash(q, k, v, iters: int) -> dict:
+    """Kernel (CUDA events and profiler device time), plain version,
+    SDPA yardstick and bound at the serving shape."""
+    b, sq, h, d = q.shape
+    costs = FA.attention_costs(b, sq, k.shape[1], h, d, causal=True,
+                               dtype_bytes=q.element_size())
+    t_ops = costs["flops"] / PEAK_OPS_S["bf16"]
+    t_bytes = costs["hbm_bytes"] / HBM_BYTES_S
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+    t_k = cuda_ms(lambda: FA.flash_attention(q, k, v), iters, warmup=3)
+    t_p = cuda_ms(lambda: FA_ref.flash_attention(q, k, v), 5, warmup=1)
+    t_l = cuda_ms(sdpa, iters)
+    t_k2 = cuda_ms(lambda: FA.flash_attention(q, k, v), iters, warmup=3)
+    lib_diff = float((sdpa().transpose(1, 2).float()
+                      - FA.flash_attention(q, k, v).float()).abs().max())
+    return {"ms": t_k, "ms_repeat": t_k2, "plain_ms": t_p, "library_ms": t_l,
+            "device_ms": _device_ms(lambda: FA.flash_attention(q, k, v),
+                                    "flash_attn_kernel", calls=10),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": costs["flops"], "hbm_bytes": costs["hbm_bytes"],
+            "library_max_abs_diff": lib_diff,
+            "library": "F.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True) on (B, H, S, D) views",
+            "shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} "
+                     f"{str(q.dtype).replace('torch.', '')}, causal "
+                     f"({LM_ARCH} prefill, layer 0)"}
+
+
+def trace_lm(run: dict, steps: int = 4) -> dict:
+    """One prefill and `steps` decode steps of the served model under
+    torch.profiler, on a fresh cache: device busy, idle share, top
+    kernels."""
+    model, params = run["model"], run["params"]
+    st = model.init_serve_state(LM_BATCH, LM_PROMPT + steps,
+                                run["tokens"].device)
+    box = {}
+
+    def prefill():
+        box["logits"], box["st"] = model.prefill(
+            params, {"tokens": run["tokens"]}, st)
+
+    def decode():
+        tok = box["logits"].argmax(-1).to(torch.int32)[:, None]
+        for i in range(steps):
+            logits, _ = model.decode(params, tok, LM_PROMPT + i, box["st"])
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+    return {"prefill": device_trace(prefill),
+            f"decode_{steps}_steps": device_trace(decode)}
+
+
+# ---------------------------------------------------------------------------
 
 def card_line() -> str:
     return subprocess.run(
@@ -846,6 +1098,33 @@ def main() -> int:
     print(f"[5] times (ms; CUDA events, mean of 200 calls after warm-up; "
           f"device_ms from torch.profiler over 20 calls): "
           f"{json.dumps(times)} {json.dumps(dtimes)}", flush=True)
+
+    lm = serve_lm(dev)
+    print(f"[8] LM serving: {lm['cfg'].name} (28 layers, bf16, "
+          f"fused_attention, tp=1; seeded weights, set-up "
+          f"{lm['setup_s']:.2f} s) on {LM_BATCH} x {LM_PROMPT}-token prompts"
+          f" + {LM_GEN} greedy decode steps: prefill {lm['prefill_ms']:.3f} "
+          f"ms, decode {lm['decode_ms_per_step']:.3f} ms/step, "
+          f"{lm['decode_tokens_per_s']:.1f} tokens/s; flash_attention "
+          f"launches: prefill {lm['prefill_launches']}, decode "
+          f"{lm['decode_launches']}; row 0 tokens "
+          f"{lm['generated'][0, :8].tolist()}", flush=True)
+    q0, k0, v0 = layer0_qkv(lm)
+    fchecks = check_flash(dev, q0, k0, v0)
+    print(f"[8b] flash_attention kernel vs plain: {json.dumps(fchecks)}",
+          flush=True)
+    f32 = check_lm_f32(dev, lm["tokens"])
+    print(f"[8c] {LM_ARCH} f32 at full width, 1 x {LM_PROMPT} tokens (TF32 "
+          f"off), bound {LM_LOGIT_TOL}: {json.dumps(f32)}", flush=True)
+    ftimes = time_flash(q0, k0, v0, iters=50)
+    print(f"[8d] flash_attention times (ms; CUDA events, mean of 50 calls; "
+          f"device_ms from torch.profiler over 10 calls): "
+          f"{json.dumps(ftimes)}; profiled prefill and decode steps: "
+          f"{json.dumps(trace_lm(lm))}", flush=True)
+    flash_launches = lm["launches"]
+    del lm, q0, k0, v0
+    torch.cuda.empty_cache()
+
     # after every other profiler session: a trace of tens of thousands of
     # training events left the next session short of its first events
     print(f"[6a] 10 CNN training steps (QAT, all three phases) under "
@@ -877,6 +1156,14 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "library": t["library"],
             "shape": t["shape"], "card": card})
+    kernels.append({
+        "name": FLASH[0], "route": "cuda", "source": FLASH[1],
+        "replaces": FLASH[2], "launches": flash_launches,
+        "max_abs_err": fchecks["layer0_max_abs"], "ms": ftimes["ms"],
+        "plain_ms": ftimes["plain_ms"], "bound_ms": ftimes["bound_ms"],
+        "bound_by": ftimes["bound_by"], "library_ms": ftimes["library_ms"],
+        "device_ms": ftimes["device_ms"], "library": ftimes["library"],
+        "shape": ftimes["shape"], "card": card})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,14 @@ port module sits at the same relative path as its counterpart:
   data/      channel frames drawn on the device for training
   optim/     AdamW and learning-rate schedules on tensor trees
   configs/   the paper's operating points (equalizer_ht, equalizer_lp)
+             and the dense LM architectures (`get_config(arch)`)
   kernels/   hand-written Hopper kernels, each beside its plain PyTorch
              version (cnn_eq: the fused fp32/bf16/int8 stack; volterra;
-             quant; conv1d)
+             quant; conv1d; flash_attn: the attention forward)
+  models/    the dense LM transformer's serving path: config, attention,
+             MLP, prefill and decode over ring-buffer KV caches
+  parallel/  head-count resolution for tensor parallelism
+  launch/    serving steps and the batched prefill + decode driver
   obs/       metrics registry, chunk tracer, Observability hub
   runtime/   straggler monitor
   serve/     chunker, engine pool, sessions, micro-batcher, ServeRuntime

@@ -1,0 +1,61 @@
+"""Uniform model interface over the architecture families.
+
+Port of `repro.models.registry`. `build(cfg)` returns a `Model` whose
+methods are what the serving launcher calls. Only the dense family is
+ported; the others raise NotImplementedError naming their ROADMAP item.
+Training (`loss_fn`) comes with the LM training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from ..device import DeviceLike
+from . import transformer
+from .common import ModelConfig
+
+_NOT_PORTED = {
+    "moe": "MoE transformer (mixtral, moonshot)",
+    "vlm": "VLM prefix-LM (llava)",
+    "hybrid": "zamba2 hybrid",
+    "ssm": "xlstm",
+    "encdec": "whisper encoder-decoder",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    init: Callable[..., Any]              # (generator, device) → params
+    init_serve_state: Callable[..., Any]  # (batch, max_len, device) → state
+    prefill: Callable[..., Any]           # (params, batch, state) → (logits, state)
+    decode: Callable[..., Any]            # (params, token, pos, state) → (logits, state)
+
+
+def _transformer_model(cfg: ModelConfig) -> Model:
+    def init(generator, device: DeviceLike = "cuda"):
+        return transformer.init(generator, cfg, device)
+
+    def init_serve_state(batch: int, max_len: int,
+                         device: DeviceLike = "cuda"):
+        return transformer.init_cache(cfg, batch, max_len, device)
+
+    def prefill(params, batch, state):
+        return transformer.prefill(params, batch["tokens"], cfg, state,
+                                   embed_prefix=batch.get("embed_prefix"))
+
+    def decode(params, token, pos, state):
+        return transformer.decode_step(params, token, pos, state, cfg)
+
+    return Model(cfg=cfg, init=init, init_serve_state=init_serve_state,
+                 prefill=prefill, decode=decode)
+
+
+def build(cfg: ModelConfig) -> Model:
+    if cfg.family == "dense":
+        return _transformer_model(cfg)
+    if cfg.family in _NOT_PORTED:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({_NOT_PORTED[cfg.family]}) is not "
+            f"ported yet (ROADMAP Queue 1 item 13)")
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -9,12 +9,17 @@ no jax, so it also runs on the card's host:
 Each kernel must equal its plain version (`ref.py`) bitwise on the card at
 any tile width, stacked or shared weights, and the serving path must run
 through the kernels. The same holds for the Volterra, fixed-point-quantize
-and conv1d kernels, and the training path runs on the card.
+and conv1d kernels, and the training path runs on the card. The
+flash-attention kernel agrees with its plain version within f32 atol 2e-5
+and bf16 atol 2e-2 (its online softmax sums in another order, so not
+bitwise), and LM serving launches it once per layer per prefill and never
+while decoding.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs as lm_configs
 from repro_torch.configs import equalizer_ht as HT
 from repro_torch.core import equalizer as teq
 from repro_torch.core import fir as tfir
@@ -25,11 +30,15 @@ from repro_torch.kernels.cnn_eq import cnn_eq as kern
 from repro_torch.kernels.cnn_eq import ref
 from repro_torch.kernels.conv1d import conv1d as c1_kern
 from repro_torch.kernels.conv1d import ref as c1_ref
+from repro_torch.kernels.flash_attn import flash_attn as fa
+from repro_torch.kernels.flash_attn import ref as fa_ref
 from repro_torch.kernels.quant import ops as q_ops
 from repro_torch.kernels.quant import quant as q_kern
 from repro_torch.kernels.quant import ref as q_ref
 from repro_torch.kernels.volterra import volterra as v_kern
 from repro_torch.kernels.volterra import ref as v_ref
+from repro_torch.launch import serve as lm_serve
+from repro_torch.models import registry as lm_registry
 from repro_torch.serve import BatchPolicy, ServeRuntime, TenantSpec
 
 FMTS = ((2, 5, 3, 4),) * 3
@@ -221,3 +230,89 @@ def test_training_runs_on_card_and_deploys(cuda_device):
                                   device=cuda_device)
     for a, b in zip(q["conv"], plain["conv"]):
         assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+
+
+# ---------------------------------------------------------------------------
+# the LM serving slice: the flash-attention kernel
+# ---------------------------------------------------------------------------
+
+FLASH_GRID = [  # b, sq, sk, h, hkv, d, causal, window, q_offset
+    (2, 128, 128, 4, 4, 64, True, 0, 0),
+    (1, 256, 256, 4, 2, 64, True, 64, 0),       # GQA + sliding window
+    (2, 100, 100, 2, 2, 32, True, 0, 0),        # non-block-aligned
+    (1, 1, 320, 4, 4, 64, True, 0, 319),        # decode: 1 query at offset
+    (2, 64, 192, 2, 2, 64, False, 0, 0),        # bidirectional
+    (1, 96, 96, 8, 1, 16, True, 0, 0),          # MQA
+    (1, 40, 40, 4, 2, 48, True, 0, -5),         # rows with no valid key
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SERVING_SHAPE = (2, 2048, 2048, 16, 8, 128, True, 0, 0)   # qwen3-0.6b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", [
+    (c, dt) for c in FLASH_GRID for dt in (torch.float32, torch.bfloat16)]
+    + [(SERVING_SHAPE, torch.bfloat16)])
+def test_flash_attention_kernel_agrees_with_plain_on_card(cuda_device, case,
+                                                          dtype):
+    b, sq, sk, h, hkv, d, causal, win, qoff = case
+    g = torch.Generator().manual_seed(sq + d)
+    q, k, v = (torch.randn(s, generator=g).to(cuda_device, dtype)
+               for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=win,
+                             q_offset=qoff)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa_ref.flash_attention(q, k, v, causal, win, qoff)
+    assert got.is_cuda and got.dtype == dtype and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[dtype], err
+    if qoff < 0:
+        assert bool((got[:, :-qoff] == 0).all())
+    # strided views: k and v read in place from one (B, S, 2, Hkv, D) tensor
+    kv = torch.stack([k, v], dim=2)
+    got2 = fa.flash_attention(q, kv[:, :, 0], kv[:, :, 1], causal=causal,
+                              window=win, q_offset=qoff)
+    assert torch.equal(got2, got)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_on_card(cuda_device):
+    q = torch.randn(1, 8, 2, 24, device=cuda_device)
+    h = torch.randn(1, 8, 2, 16, device=cuda_device)
+    before = fa.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="share one type"):
+        fa.flash_attention(h, h.half(), h.half())
+    assert fa.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.cuda
+def test_reduced_qwen3_serving_launches_flash_once_per_layer(cuda_device):
+    cfg = lm_configs.get_config("qwen3-0.6b", reduced=True, tp=1,
+                                fused_attention=True)
+    model, params, state, prefill, decode = lm_serve.serve_session(
+        cfg, 2, 32, 40, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 32), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(1))
+    fa.reset_launch_counts()
+    logits, state = prefill(params, {"tokens": toks}, state)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == cfg.n_layers
+    fa.reset_launch_counts()
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    for i in range(4):
+        tok, logits, state = decode(params, tok, 32 + i, state)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 0
+    assert bool(torch.isfinite(logits).all())
+    # the same prefill through the chunked plain path (f32, TF32 off)
+    plain = lm_registry.build(lm_configs.get_config("qwen3-0.6b", True,
+                                                    tp=1))
+    lg, _ = plain.prefill(params, {"tokens": toks},
+                          plain.init_serve_state(2, 40, cuda_device))
+    fused_lg, _ = model.prefill(params, {"tokens": toks},
+                                model.init_serve_state(2, 40, cuda_device))
+    assert float((lg - fused_lg).abs().max()) < 1e-4

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs as lm_configs
 from repro_torch import device as device_lib
 from repro_torch import interop
 from repro_torch.configs import equalizer_ht as HT
@@ -22,6 +23,8 @@ from repro_torch.core import autotune
 from repro_torch.core import equalizer as teq
 from repro_torch.core import qat as tqat
 from repro_torch.core.engine import EqualizerEngine
+from repro_torch.launch import serve as lm_serve
+from repro_torch.models import transformer as lm_transformer
 from repro_torch.serve import ServeRuntime
 
 REPO_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
@@ -41,6 +44,32 @@ def test_port_imports_no_jax_and_no_reference_module():
         print(len(names), bad)
         assert not bad, bad
         assert len(names) >= 20, names
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO_SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+LM_MODULES = ("repro_torch.models.common", "repro_torch.models.attention",
+              "repro_torch.models.mlp", "repro_torch.models.transformer",
+              "repro_torch.models.registry", "repro_torch.parallel.sharding",
+              "repro_torch.configs.qwen3_0_6b", "repro_torch.configs.shapes",
+              "repro_torch.kernels.flash_attn.flash_attn",
+              "repro_torch.kernels.flash_attn.ops",
+              "repro_torch.kernels.flash_attn.ref",
+              "repro_torch.launch.steps", "repro_torch.launch.serve")
+
+
+@pytest.mark.parametrize("name", LM_MODULES)
+def test_lm_serving_modules_import_without_jax(name):
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({name!r})
+        bad = sorted(k for k in sys.modules
+                     if k == "jax" or k.startswith("jax.")
+                     or k == "repro" or k.startswith("repro."))
+        assert not bad, bad
     """)
     env = dict(os.environ, PYTHONPATH=REPO_SRC)
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -68,6 +97,14 @@ def _folded():
     lambda: EqualizerEngine(cfg=HT.CNN, weights=_folded()),
     lambda: autotune.platform_key("cuda"),
     lambda: ServeRuntime(),
+    lambda: lm_serve.serve_session(
+        lm_configs.get_config("qwen3-0.6b", True, tp=1), 1, 4, 8),
+    lambda: lm_serve.main(["--batch", "1", "--prompt-len", "4", "--gen",
+                           "1"]),
+    lambda: lm_transformer.init(torch.Generator(),
+                                lm_configs.get_config("qwen3-0.6b", True)),
+    lambda: lm_transformer.init_cache(
+        lm_configs.get_config("qwen3-0.6b", True), 1, 8),
 ])
 def test_entry_point_without_device_raises_without_card(monkeypatch, entry):
     _no_card(monkeypatch)
