@@ -6,9 +6,10 @@
 Phases (each prints a line; any failure raises and exits non-zero with no
 result line), in the order they run:
   1. card: `nvidia-smi` name and power limit, torch and CUDA versions;
-  2. build: one nvcc per source, all started together, builds the five
-     CUDA sources (cnn_eq, volterra, quant, conv1d, flash_attn) for sm_90a;
-     prints the -Xptxas -v register / shared-memory / spill lines;
+  2. build: one nvcc per source, all started together, builds the six
+     CUDA sources (cnn_eq, volterra, quant, conv1d, flash_attn,
+     flash_attn_bwd) for sm_90a; prints the -Xptxas -v register /
+     shared-memory / spill lines;
   3. kernel == plain: each datapath (fp32, bf16, int8) on the card at the
      paper's deployment shape (equalizer_ht: 64 rows × 7320 symbols),
      shared and per-row stacked weights, tile_m ∈ {16, 64, 256}; each
@@ -44,7 +45,8 @@ result line), in the order they run:
      bf16, fused_attention, tp = 1) with seeded random weights on the
      card and serves 4 × 2048-token prompts, then 32 greedy decode steps;
      the flash-attention launch count, zeroed before each, must be 28 for
-     the prefill (one per layer) and 0 for the decode; prints prefill ms,
+     the prefill (one per layer, and no training kernel) and 0 for the
+     decode; prints prefill ms,
      decode ms per step and tokens/s (host clock around synchronised
      work). 8b: the kernel against its plain version on layer 0's q, k, v
      of that prefill (bf16; rtol 1e-2, atol 2e-2) and on random inputs at
@@ -57,25 +59,55 @@ result line), in the order they run:
      `attention_costs` and F.scaled_dot_product_attention as the library
      yardstick, then one prefill and 4 decode steps under torch.profiler
      (device idle share, top kernels);
-  6a. last: 10 CNN training steps under torch.profiler (device busy and
-     idle share, the kernels that took the most device time).
-The line before the last is the `kernels` JSON (seven kernels); the last
+  9. LM training: `repro_torch.launch.train.build` at qwen3-0.6b's full
+     width (fused_attention, remat, tp = 1, AdamW lr 3e-4 with
+     grad_clip_norm 1.0) and its train step on 2 × (4 × 2048) tokens a
+     step from the reference's token stream: one warm-up step, then 4
+     timed steps; every loss finite; per step exactly 112
+     flash_attention_fwd (a forward and a remat forward per layer and
+     microbatch), 56 flash_attention_bwd_dkv, 56 flash_attention_bwd_dq
+     and 0 flash_attention launches; prints ms per step (host clock around
+     synchronised steps), tokens/s, max_memory_allocated and the losses.
+     9b: the three training kernels against their plain versions on layer
+     0 of the trained model (bf16) and at random non-aligned shapes (S =
+     100, 130, 2049; window 0 and 48; GQA 2 and 4; f32 and bf16): o f32
+     2e-5 (bf16 2e-2 + 1e-2·|o|), lse 1e-5, backward f32 5e-4, bf16
+     1e-2·|want| + 1e-3·max|want|. 9c: one f32 microbatch of 1 × 2048 at
+     full width (TF32 off): loss within 1e-4 and every gradient leaf
+     within 1e-3·max|leaf| of the plain attention path. 9d: each training
+     kernel's device and call time at the training shape, its plain
+     version's, its bound (its own products — 2, 4 and 3 — at the bf16
+     tensor-core peak) and the library yardstick (SDPA's forward, and its
+     backward through autograd); 9e: the training CLI
+     (`launch.train.run`) at qwen3-0.6b widths and 2 layers with a failure
+     injected before step 2 and a checkpoint every step: 1 restart,
+     finite losses, 3 checkpoints;
+  6a. 10 CNN training steps under torch.profiler (device busy and idle
+     share, the kernels that took the most device time);
+  9d (last): one full-width LM train step under torch.profiler, after a
+     warm-up step inside the profiler's schedule: idle share and the top
+     device activities.
+The line before the last is the `kernels` JSON (ten kernels); the last
 line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Phases 3–5 use random weights from a seed (numpy), carried in through
 `repro_torch.interop`, and waveforms of PAM-2 through a short ISI filter
 with noise, also from a seed; phases 6–7 train from seeded generators on
-the simulated link; phase 8 draws its weights and prompts from seeded card
-generators. Without a CUDA card the script exits with code 2.
+the simulated link; phases 8 and 9 draw their weights from seeded card
+generators, phase 9 its tokens from the reference's seeded stream. Without
+a CUDA card the script exits with code 2.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -95,6 +127,7 @@ from repro_torch.configs import equalizer_ht as HT  # noqa: E402
 from repro_torch.core import equalizer as eq  # noqa: E402
 from repro_torch.core import fir, qat, train_eq  # noqa: E402
 from repro_torch.core import volterra as vol  # noqa: E402
+from repro_torch.data import PipelineConfig, lm_batches  # noqa: E402
 from repro_torch.data.equalizer_data import channel_fn  # noqa: E402
 from repro_torch.device import fp32_exact  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -111,7 +144,10 @@ from repro_torch.kernels.quant import ref as Q_ref  # noqa: E402
 from repro_torch.kernels.volterra import ops as V_ops  # noqa: E402
 from repro_torch.kernels.volterra import ref as V_ref  # noqa: E402
 from repro_torch.kernels.volterra import volterra as V  # noqa: E402
+from repro_torch.interop import (tree_leaves,  # noqa: E402
+                                 tree_named_leaves, tree_unflatten)
 from repro_torch.launch import serve as LM_serve  # noqa: E402
+from repro_torch.launch import train as LM_train  # noqa: E402
 from repro_torch.models import attention as LM_attn  # noqa: E402
 from repro_torch.models import registry as LM_registry  # noqa: E402
 from repro_torch.models import transformer as LM_tr  # noqa: E402
@@ -140,7 +176,7 @@ BACKEND_OF = {"fp32": "fused_fp32", "bf16": "fused_bf16",
               "int8": "fused_int8"}
 # the train-then-deploy slice: its kernels, sources and the TPU kernels
 # they replace
-SOURCES = (K.CSRC, V.CSRC, Q.CSRC, C1.CSRC, FA.CSRC)
+SOURCES = (K.CSRC, V.CSRC, Q.CSRC, C1.CSRC, FA.CSRC, FA.CSRC_BWD)
 DEPLOY_KERNELS = {
     "volterra": ("src/repro_torch/kernels/volterra/csrc/volterra.cu",
                  "src/repro/kernels/volterra/volterra.py:61", V.LAUNCHES),
@@ -172,6 +208,39 @@ FLASH_CASES = (  # b, sq, sk, h, hkv, d, causal, window, q_offset
     (2, 1000, 1000, 4, 2, 48, True, 0, 0),        # qwen3-reduced head dim
 )
 LM_LOGIT_TOL = 2e-3          # the reference's decode-vs-prefill bound
+# the LM training slice (phase 9): microbatches of 4 x 2048 tokens, accum 2
+LM_TRAIN_MB, LM_TRAIN_SEQ, LM_TRAIN_ACCUM, LM_TRAIN_STEPS = 4, 2048, 2, 4
+LM_TRAIN_LR = 3e-4
+FLASH_SRC = "src/repro_torch/kernels/flash_attn/csrc/"
+FLASH_TPU = "src/repro/kernels/flash_attn/flash_attn.py:"
+TRAIN_KERNELS = {   # name → (source, TPU kernel's pallas_call, products)
+    "flash_attention_fwd": (FLASH_SRC + "flash_attn.cu", FLASH_TPU + "282",
+                            2),
+    "flash_attention_bwd_dkv": (FLASH_SRC + "flash_attn_bwd.cu",
+                                FLASH_TPU + "342", 4),
+    "flash_attention_bwd_dq": (FLASH_SRC + "flash_attn_bwd.cu",
+                               FLASH_TPU + "366", 3),
+}
+TRAIN_CASES = (  # b, s, h, hkv, d, window: non-aligned S, GQA 2 and 4
+    (1, 100, 8, 4, 128, 0),
+    (1, 130, 16, 4, 128, 48),
+    (2, 130, 8, 2, 128, 0),
+    (1, 2049, 16, 8, 128, 0),
+    (1, 2049, 16, 4, 128, 48),
+)
+LSE_TOL = 1e-5               # lse: f32 math in both, any input type
+BWD_F32_TOL = 5e-4           # the reference's bound on its own backward
+# bf16 backward: kernel and plain round the same f32 result once, so they
+# differ by at most one bf16 ulp (≤ 2^-7·|want|) plus f32 sum-order noise
+BWD_BF16_RTOL, BWD_BF16_ATOL_REL = 1e-2, 1e-3
+# [9e]: the training CLI at qwen3-0.6b widths and 2 layers, a failure
+# injected before step 2, a checkpoint every step
+LM_CLI_ARGS = ("--arch", LM_ARCH, "--full", "--layers", "2", "--steps", "3",
+               "--batch", "4", "--seq", "512", "--accum", "2",
+               "--ckpt-every", "1", "--fail-at", "2")
+# [9c]: fused vs plain in f32 at full width, stated before the first run:
+# |loss| difference and each gradient leaf's max |diff| / max |leaf|
+TRAIN_F32_LOSS_TOL, TRAIN_F32_GRAD_TOL = 1e-4, 1e-3
 
 
 def require(cond: bool, msg: str) -> None:
@@ -405,26 +474,42 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
 
 
 KERNEL_NAMES = ("cnn_eq_kernel", "volterra_kernel", "quant_kernel",
-                "conv1d_kernel", "flash_attn_kernel")
+                "conv1d_kernel", "flash_attn_kernel", "flash_bwd_dkv_kernel",
+                "flash_bwd_dq_kernel")
 
 
-def device_trace(fn) -> dict:
+def device_trace(fn, warmup=None) -> dict:
     """One run of fn under torch.profiler: wall time, the union of device
     activity (kernels and copies), device time by kind (each of the port's
     kernels by name, copies, everything else) and the six device
-    activities that took the most time."""
+    activities that took the most time. With ``warmup``, the session has
+    a schedule of one warm-up and one active step: warmup() runs in the
+    warm-up step and only fn() is recorded."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    sched = (schedule(wait=0, warmup=1, active=1) if warmup is not None
+             else None)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    box = {}   # a scheduled session clears its events when its cycle ends
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=sched, on_trace_ready=lambda p: box.update(
+                     events=list(p.events()))) as prof:
+        if warmup is not None:
+            warmup()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        if sched is not None:
+            prof.step()
+    events = box["events"] if sched is not None else prof.events()
+    # a scheduled step's "ProfilerStep#" annotation is recorded on the
+    # device too and spans the whole step: it is no device work
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("ProfilerStep"))
     busy_us, last = 0.0, float("-inf")
     kinds: dict = {}
     names: dict = {}
@@ -821,6 +906,9 @@ def serve_lm(dev) -> dict:
     require(prefill_launches == cfg.n_layers,
             f"prefill launched flash_attention {prefill_launches} times, "
             f"expected {cfg.n_layers} (one per layer)")
+    require(all(n == 0 for k, n in FA.LAUNCHES.items()
+                if k != "flash_attention"),
+            f"prefill launched training kernels: {FA.LAUNCHES}")
     first = logits.clone()
 
     FA.reset_launch_counts()
@@ -990,6 +1078,346 @@ def trace_lm(run: dict, steps: int = 4) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: LM training (qwen3-0.6b) through the flash forward/backward kernels
+# ---------------------------------------------------------------------------
+
+def train_lm(dev) -> dict:
+    """The main path of this slice: `launch.train.build` at full width and
+    its train step, one warm-up step, then LM_TRAIN_STEPS timed steps of
+    LM_TRAIN_ACCUM × (LM_TRAIN_MB × LM_TRAIN_SEQ) tokens from the
+    reference's token stream. The launch counts are zeroed after the
+    warm-up and each step's share of them is checked."""
+    cfg = LM_configs.get_config(LM_ARCH, tp=1, fused_attention=True)
+    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.qk_norm, cfg.dtype,
+             cfg.remat, cfg.train_accum) ==
+            (28, 1024, 16, 8, 128, 3072, 151936, True, "bfloat16", True,
+             LM_TRAIN_ACCUM), f"{LM_ARCH} is not at full width: {cfg}")
+    t0 = time.perf_counter()
+    init_state, step = LM_train.build(cfg, LM_TRAIN_LR, LM_TRAIN_ACCUM, dev)
+    params, opt = init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    batches = lm_batches(PipelineConfig(
+        seq_len=LM_TRAIN_SEQ, global_batch=LM_TRAIN_MB * LM_TRAIN_ACCUM,
+        accum=LM_TRAIN_ACCUM), cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, next(batches))
+    warm_loss = float(m["loss"])
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    n = cfg.n_layers
+    want = {"flash_attention": 0,
+            "flash_attention_fwd": 2 * n * LM_TRAIN_ACCUM,
+            "flash_attention_bwd_dkv": n * LM_TRAIN_ACCUM,
+            "flash_attention_bwd_dq": n * LM_TRAIN_ACCUM}
+    FA.reset_launch_counts()
+    losses, step_ms, host = [], [], []
+    gc_box = {"ms": 0.0}
+
+    def on_gc(phase, info):   # host time in Python's garbage collector
+        if phase == "start":
+            gc_box["t0"] = time.perf_counter()
+        else:
+            gc_box["ms"] += (time.perf_counter() - gc_box["t0"]) * 1e3
+    gc.callbacks.append(on_gc)
+    try:
+        for i in range(LM_TRAIN_STEPS):
+            batch = next(batches)
+            torch.cuda.synchronize()
+            before = dict(FA.LAUNCHES)
+            mem0, gc0 = torch.cuda.memory_stats(), gc_box["ms"]
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            mem1 = torch.cuda.memory_stats()
+            host.append({  # what else the step waited on
+                "gc_ms": gc_box["ms"] - gc0,
+                "device_mallocs": mem1.get("num_device_alloc", 0)
+                - mem0.get("num_device_alloc", 0),
+                "device_frees": mem1.get("num_device_free", 0)
+                - mem0.get("num_device_free", 0),
+                "alloc_retries": mem1["num_alloc_retries"]
+                - mem0["num_alloc_retries"],
+                "reserved_gib": mem1["reserved_bytes.all.current"] / 2 ** 30})
+            got = {k: n - before[k] for k, n in FA.LAUNCHES.items()}
+            require(got == want, f"train step {i} launched {got}, expected "
+                                 f"{want}")
+    finally:
+        gc.callbacks.remove(on_gc)
+    launches = dict(FA.LAUNCHES)
+    require(bool(np.isfinite([warm_loss] + losses).all()),
+            f"non-finite training loss: {[warm_loss] + losses}")
+    require(int(opt.step) == LM_TRAIN_STEPS + 1, "optimizer step count")
+    tokens = LM_TRAIN_ACCUM * LM_TRAIN_MB * LM_TRAIN_SEQ
+    return {"cfg": cfg, "params": params, "opt": opt, "step": step,
+            "batches": batches, "setup_s": setup_s, "warmup_ms": warm_ms,
+            "losses": [warm_loss] + losses, "step_ms": step_ms,
+            "mean_step_ms": float(np.mean(step_ms)),
+            "median_step_ms": float(np.median(step_ms)),
+            "step_host": host,
+            "tokens_per_step": tokens,
+            "tokens_per_s": tokens / (np.mean(step_ms) / 1e3),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": launches, "launches_per_step": want}
+
+
+def train_layer0(run: dict, seed: int = 21):
+    """Layer 0's q, k, v of the trained model on a fresh microbatch of the
+    run's stream, and a seeded cotangent do, all bf16 at (4, 2048, ·)."""
+    cfg, params = run["cfg"], run["params"]
+    tokens = next(run["batches"])["tokens"][0]
+    with torch.no_grad():
+        lp = LM_tr._layer(params["layers"], 0)
+        h = LM_tr.embed_tokens(params, tokens, cfg)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        q, k, v = LM_attn.qkv(lp["attn"], rms_norm(h, lp["attn_norm"]), cfg,
+                              positions)
+    gen = torch.Generator(device=tokens.device).manual_seed(seed)
+    do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    return q, k, v, do
+
+
+def _bwd_err(got, want, dtype) -> tuple:
+    """(max |diff|, within the stated bound)."""
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        return float(diff.max()), float(diff.max()) <= BWD_F32_TOL
+    w = want.float().abs()
+    ok = bool((diff <= BWD_BF16_RTOL * w
+               + BWD_BF16_ATOL_REL * float(w.max())).all())
+    return float(diff.max()), ok
+
+
+def check_train_kernels(dev, q, k, v, do, causal=True, window=0) -> dict:
+    """Each training kernel against its plain version on the same inputs:
+    the forward with lse, then dK/dV and dQ from the plain forward's o and
+    lse. Returns the max |diff| per output; raises past the bounds."""
+    dt = q.dtype
+    o, lse = FA.flash_attention_fwd(q, k, v, causal, window)
+    wo, wl = FA_ref.flash_attention_fwd(q, k, v, causal, window)
+    e_o = float((o.float() - wo.float()).abs().max())
+    e_l = float((lse - wl).abs().max())
+    o_ok = (e_o <= FLASH_TOL[dt] if dt == torch.float32 else bool(
+        ((o.float() - wo.float()).abs()
+         <= 2e-2 + 1e-2 * wo.float().abs()).all()))
+    require(o_ok and e_l <= LSE_TOL and bool(torch.isfinite(lse).all()),
+            f"flash_attention_fwd {tuple(q.shape)} {dt}: o {e_o:.3e}, "
+            f"lse {e_l:.3e}")
+    delta = FA_ref.attention_delta(wo, do)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, wl, delta, causal,
+                                        window)
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, wl, delta, causal, window)
+    wdk, wdv = FA_ref.flash_attention_bwd_dkv(q, k, v, do, wl, delta,
+                                              causal, window)
+    wdq = FA_ref.flash_attention_bwd_dq(q, k, v, do, wl, delta, causal,
+                                        window)
+    out = {"o": e_o, "lse": e_l}
+    for name, got, want in (("dq", dq, wdq), ("dk", dk, wdk),
+                            ("dv", dv, wdv)):
+        e, ok = _bwd_err(got, want, dt)
+        require(ok and got.dtype == dt and got.shape == want.shape,
+                f"flash backward {name} {tuple(q.shape)} {dt}: max |diff| "
+                f"{e:.3e} outside the bound")
+        out[name] = e
+    return out
+
+
+def check_train_random(dev) -> dict:
+    """The training kernels against their plain versions at random
+    non-aligned shapes, f32 and bf16: worst max |diff| per dtype."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    worst = {}
+    for b, s, h, hkv, d, win in TRAIN_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(sh, generator=gen, device=dev).to(dt)
+                           for sh in ((b, s, h, d), (b, s, hkv, d),
+                                      (b, s, hkv, d), (b, s, h, d)))
+            errs = check_train_kernels(dev, q, k, v, do, window=win)
+            key = str(dt).replace("torch.", "")
+            for name, e in errs.items():
+                worst.setdefault(key, {})
+                worst[key][name] = max(worst[key].get(name, 0.0), e)
+    return worst
+
+
+def _loss_grads(model, params, toks):
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = model.loss_fn(tree_unflatten(params, leaves),
+                            {"tokens": toks, "labels": toks})
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), grads
+
+
+def check_train_f32(dev, tokens: torch.Tensor) -> dict:
+    """One f32 microbatch of 1 × LM_TRAIN_SEQ at full width (TF32 off):
+    loss and every gradient leaf through the fused kernels against the
+    chunked plain attention path, within the bounds stated above."""
+    cfg = LM_configs.get_config(LM_ARCH, tp=1, fused_attention=True,
+                                dtype="float32")
+    fused = LM_registry.build(cfg)
+    plain = LM_registry.build(LM_configs.get_config(
+        LM_ARCH, tp=1, fused_attention=False, dtype="float32"))
+    toks = tokens[:1]
+    with fp32_exact():
+        params = fused.init(torch.Generator(device=dev).manual_seed(2), dev)
+        FA.reset_launch_counts()
+        lf, gf = _loss_grads(fused, params, toks)
+        counts = dict(FA.LAUNCHES)
+        lp, gp = _loss_grads(plain, params, toks)
+        torch.cuda.synchronize()
+    n = cfg.n_layers
+    require(counts == {"flash_attention": 0, "flash_attention_fwd": 2 * n,
+                       "flash_attention_bwd_dkv": n,
+                       "flash_attention_bwd_dq": n},
+            f"f32 fused step launched {counts}")
+    names = [name for name, _ in tree_named_leaves(params)]
+    ratios = {name: float((a - b).abs().max()) / max(
+        float(b.abs().max()), 1e-30) for name, a, b in zip(names, gf, gp)}
+    worst = max(ratios, key=ratios.get)
+    out = {"loss_fused": lf, "loss_plain": lp,
+           "loss_abs_diff": abs(lf - lp), "worst_leaf": worst,
+           "worst_grad_diff_over_max": ratios[worst],
+           "wq_grad_max_abs": float(gf[names.index("layers/attn/wq")]
+                                    .abs().max()),
+           "grad_diff_over_max": ratios}
+    require(out["loss_abs_diff"] < TRAIN_F32_LOSS_TOL,
+            f"f32 loss fused {lf} vs plain {lp}")
+    require(out["worst_grad_diff_over_max"] <= TRAIN_F32_GRAD_TOL,
+            f"f32 gradient {worst}: max |fused − plain| / max |plain| "
+            f"{ratios[worst]:.3e} > {TRAIN_F32_GRAD_TOL}")
+    require(out["wq_grad_max_abs"] > 0, "no gradient reached wq")
+    del params, gf, gp
+    return out
+
+
+def time_train_kernels(q, k, v, do, iters: int) -> dict:
+    """At the training shape: each kernel's CUDA-event and profiler device
+    time, its plain version's, its bound (its own products at the bf16
+    tensor-core peak against its bytes at the HBM rate) and the library
+    yardstick: F.scaled_dot_product_attention's forward for the forward,
+    its backward through autograd (dq, dk and dv together) for the two
+    backward kernels."""
+    b, s, h, d = q.shape
+    o, lse = FA.flash_attention_fwd(q, k, v)
+    delta = FA_ref.attention_delta(o, do)
+    product = FA.attention_costs(b, s, s, h, d)["flops"] / 2   # one QKᵀ
+    el = q.element_size()
+    qb, kb, rows = q.numel() * el, k.numel() * el, b * s * h * 4
+    n_bytes = {   # each input read once, each output written once
+        "flash_attention_fwd": qb + 2 * kb + qb + rows,
+        "flash_attention_bwd_dkv": qb + 2 * kb + qb + 2 * rows + 2 * kb,
+        "flash_attention_bwd_dq": qb + 2 * kb + qb + 2 * rows + qb,
+    }
+    calls = {
+        "flash_attention_fwd": (lambda: FA.flash_attention_fwd(q, k, v),
+                                lambda: FA_ref.flash_attention_fwd(q, k, v)),
+        "flash_attention_bwd_dkv": (
+            lambda: FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+            lambda: FA_ref.flash_attention_bwd_dkv(q, k, v, do, lse, delta)),
+        "flash_attention_bwd_dq": (
+            lambda: FA.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+            lambda: FA_ref.flash_attention_bwd_dq(q, k, v, do, lse, delta)),
+    }
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    gt = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qt, kt, vt), gt,
+                                   retain_graph=True)
+    t_fwd = cuda_ms(sdpa_fwd, iters)
+    t_bwd = cuda_ms(sdpa_bwd, iters)
+    lib_dq, lib_dk, lib_dv = sdpa_bwd()
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    lib_diff = {n_: float((a.transpose(1, 2).float() - g.float()).abs()
+                          .max()) for n_, a, g in (("dq", lib_dq, dq),
+                                                   ("dk", lib_dk, dk),
+                                                   ("dv", lib_dv, dv))}
+    shape = (f"q/do {tuple(q.shape)}, k/v {tuple(k.shape)} "
+             f"{str(q.dtype).replace('torch.', '')}, causal ({LM_ARCH} "
+             f"training microbatch, layer 0)")
+    out = {}
+    for name, (kern, plain) in calls.items():
+        _, _, products = TRAIN_KERNELS[name]
+        t_ops = products * product / PEAK_OPS_S["bf16"]
+        t_bytes = n_bytes[name] / HBM_BYTES_S
+        t_k = cuda_ms(kern, iters, warmup=3)
+        t_p = cuda_ms(plain, 3, warmup=1)
+        t_k2 = cuda_ms(kern, iters, warmup=3)
+        kernel_name = ("flash_attn_kernel" if name == "flash_attention_fwd"
+                       else "flash_bwd_dkv_kernel" if name.endswith("dkv")
+                       else "flash_bwd_dq_kernel")
+        fwd = name == "flash_attention_fwd"
+        out[name] = {
+            "ms": t_k, "ms_repeat": t_k2, "plain_ms": t_p,
+            "library_ms": t_fwd if fwd else t_bwd,
+            "device_ms": _device_ms(kern, kernel_name, calls=10),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": products * product, "bytes": n_bytes[name],
+            "library": ("F.scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True) forward" if fwd else
+                        "backward of F.scaled_dot_product_attention("
+                        "is_causal=True, enable_gqa=True) through autograd "
+                        "(dq, dk, dv together)"),
+            "shape": shape}
+    out["library_bwd_max_abs_diff"] = lib_diff
+    return out
+
+
+def trace_train_step(run: dict) -> dict:
+    """One full-width train step under torch.profiler, after one step in
+    the profiler's warm-up window: wall, device busy, idle share, device
+    time by kind and the top device activities."""
+    box = {"params": run["params"], "opt": run["opt"]}
+    batches = [next(run["batches"]) for _ in range(2)]
+
+    def one(i):
+        box["params"], box["opt"], m = run["step"](box["params"], box["opt"],
+                                                   batches[i])
+        box["loss"] = float(m["loss"])
+    return device_trace(lambda: one(1), warmup=lambda: one(0))
+
+
+def train_cli(dev) -> dict:
+    """`launch.train`'s CLI run on the card at qwen3-0.6b widths and 2
+    layers: a failure injected before step 2 and a checkpoint every step,
+    into a temporary directory removed afterwards."""
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    argv = ["--device", str(dev), *LM_CLI_ARGS, "--ckpt-dir", ckpt_dir]
+    try:
+        t0 = time.perf_counter()
+        out = LM_train.run(argv)
+        wall = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in pathlib.Path(
+            ckpt_dir, "step_00000003").iterdir())
+        kept = sorted(p.name for p in pathlib.Path(ckpt_dir).iterdir())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    require(out["restarts"] == 1 and out["steps"] == 3,
+            f"CLI run: {out['steps']} steps, {out['restarts']} restarts")
+    require(len(out["losses"]) == 3 and bool(np.isfinite(
+        out["losses"]).all()), f"CLI losses {out['losses']}")
+    require(kept == ["step_00000001", "step_00000002", "step_00000003"],
+            f"checkpoints kept: {kept}")
+    return {"argv": " ".join(argv[:-1] + ["<tmp>"]), "wall_s": wall,
+            "restarts": out["restarts"], "losses": out["losses"],
+            "checkpoint_gb": ckpt_bytes / 1e9,
+            "straggler": out["straggler"]}
+
+
+# ---------------------------------------------------------------------------
 
 def card_line() -> str:
     return subprocess.run(
@@ -1125,10 +1553,58 @@ def main() -> int:
     del lm, q0, k0, v0
     torch.cuda.empty_cache()
 
-    # after every other profiler session: a trace of tens of thousands of
-    # training events left the next session short of its first events
+    tr = train_lm(dev)
+    print(f"[9] LM training: {tr['cfg'].name} (28 layers, bf16, "
+          f"fused_attention, remat, tp=1; AdamW lr {LM_TRAIN_LR}, "
+          f"grad_clip_norm 1.0; seeded weights, set-up {tr['setup_s']:.2f} "
+          f"s) on {LM_TRAIN_ACCUM} x ({LM_TRAIN_MB} x {LM_TRAIN_SEQ}) = "
+          f"{tr['tokens_per_step']} tokens per step: warm-up "
+          f"{tr['warmup_ms']:.1f} ms, then {LM_TRAIN_STEPS} steps of "
+          f"{json.dumps(tr['step_ms'])} ms (mean {tr['mean_step_ms']:.1f} "
+          f"ms, median {tr['median_step_ms']:.1f} ms, "
+          f"{tr['tokens_per_s']:.1f} tokens/s at the mean); losses "
+          f"{json.dumps(tr['losses'])}; max_memory_allocated "
+          f"{tr['peak_mem_gib']:.2f} GiB; launches per step "
+          f"{json.dumps(tr['launches_per_step'])}, over the timed steps "
+          f"{json.dumps(tr['launches'])}; per step, garbage-collector ms, "
+          f"cudaMalloc and cudaFree calls, allocator retries and reserved "
+          f"GiB: {json.dumps(tr['step_host'])}", flush=True)
+    tr_launches = tr["launches"]
+    q1, k1, v1, do1 = train_layer0(tr)
+    layer0 = check_train_kernels(dev, q1, k1, v1, do1)
+    random_errs = check_train_random(dev)
+    print(f"[9b] training kernels vs plain (o f32 {FLASH_TOL[torch.float32]}"
+          f", bf16 2e-2 + 1e-2·|o|; lse {LSE_TOL}; backward f32 "
+          f"{BWD_F32_TOL}, bf16 {BWD_BF16_RTOL}·|want| + "
+          f"{BWD_BF16_ATOL_REL}·max|want|): trained layer 0 "
+          f"{json.dumps(layer0)}; random {json.dumps(random_errs)}",
+          flush=True)
+    f32_train = check_train_f32(dev, next(tr["batches"])["tokens"][0])
+    print(f"[9c] {LM_ARCH} f32 at full width, 1 x {LM_TRAIN_SEQ} tokens "
+          f"(TF32 off), fused vs plain attention: bounds loss "
+          f"{TRAIN_F32_LOSS_TOL}, gradient {TRAIN_F32_GRAD_TOL}·max|leaf|: "
+          f"{json.dumps(f32_train)}", flush=True)
+    torch.cuda.empty_cache()
+    ttimes = time_train_kernels(q1, k1, v1, do1, iters=20)
+    print(f"[9d] training kernel times (ms; CUDA events, mean of 20 calls; "
+          f"device_ms from torch.profiler over 10 calls): "
+          f"{json.dumps(ttimes)}", flush=True)
+    del q1, k1, v1, do1
+    cli = train_cli(dev)
+    print(f"[9e] CLI: python -m repro_torch.launch.train {cli['argv']}: "
+          f"{json.dumps({k: v for k, v in cli.items() if k != 'argv'})}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # after every other profiler session but the last: a trace of tens of
+    # thousands of training events left the next session short of its
+    # first events (the last one warms up inside its profiler schedule)
     print(f"[6a] 10 CNN training steps (QAT, all three phases) under "
           f"torch.profiler: {json.dumps(train_trace(dev))}", flush=True)
+    print(f"[9d] one full-width LM train step under torch.profiler (after "
+          f"a warm-up step in the profiler's schedule): "
+          f"{json.dumps(trace_train_step(tr))}", flush=True)
+    del tr
 
     library = {"fp32": "F.conv1d x3 + ReLU x2, fp32, TF32 off, grouped "
                        "per row",
@@ -1164,6 +1640,18 @@ def main() -> int:
         "bound_by": ftimes["bound_by"], "library_ms": ftimes["library_ms"],
         "device_ms": ftimes["device_ms"], "library": ftimes["library"],
         "shape": ftimes["shape"], "card": card})
+    for name, (source, replaces, _) in TRAIN_KERNELS.items():
+        t = ttimes[name]
+        err = (layer0["o"] if name == "flash_attention_fwd" else
+               max(layer0["dk"], layer0["dv"]) if name.endswith("dkv")
+               else layer0["dq"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": tr_launches[name],
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "library": t["library"], "shape": t["shape"], "card": card})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,16 +7,19 @@ the leaves that are arrays (numpy arrays, numpy scalars, tensors) convert,
 every other leaf (python numbers, strings, None) passes through unchanged.
 This covers ``eq.init`` params, BN state, ``params["qat"]``, folded
 ``((w, b), …)`` tuples, FIR and Volterra params and optimizer states (a
-NamedTuple such as ``AdamState`` keeps its class: rebuild the other
-package's with ``AdamState(*tree)``). `tree_map` and `tree_leaves` are the
-port's tree utilities (the optimizer and the training loop use them too).
+NamedTuple such as ``AdamState`` keeps its class: `adam_state_to_torch`
+rebuilds the port's from the reference's, and the reference's
+``AdamState(*to_numpy(state))`` takes the port's back). `tree_map`,
+`tree_leaves`, `tree_named_leaves` and `tree_unflatten` are the port's tree
+utilities (the optimizer, the training loops and the checkpoints use them
+too).
 
 bfloat16 numpy arrays (the ``ml_dtypes`` dtype) become bf16 tensors; a bf16
 tensor comes back as float32 numpy, which holds every bf16 value exactly.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +56,50 @@ def tree_leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
+def tree_named_leaves(tree: Any, prefix: Tuple[str, ...] = ()
+                      ) -> List[Tuple[str, Any]]:
+    """(name, leaf) in `tree_leaves` order, named as the reference's
+    `repro.parallel.sharding._path_str` names a path: dict keys, NamedTuple
+    field names and sequence indices joined with "/" (for the trainer's
+    ``(params, opt_state)``: ``0/layers/attn/wq``, ``1/step``,
+    ``1/mu/embed``)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [nl for k in sorted(tree)
+                for nl in tree_named_leaves(tree[k], prefix + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        names = getattr(tree, "_fields", None) or [str(i) for i in
+                                                   range(len(tree))]
+        return [nl for name, v in zip(names, tree)
+                for nl in tree_named_leaves(v, prefix + (name,))]
+    return [("/".join(prefix), tree)]
+
+
+def tree_unflatten(template: Any, leaves: List[Any]) -> Any:
+    """A tree shaped like ``template`` with ``leaves`` in `tree_leaves`
+    order (dict keys sorted)."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            vals = {k: build(node[k]) for k in sorted(node)}
+            return {k: vals[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            items = [build(v) for v in node]
+            if hasattr(node, "_fields"):
+                return type(node)(*items)
+            return type(node)(items)
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
+
+
 def _array_to_tensor(a: Any, dev: torch.device) -> Any:
     if isinstance(a, torch.Tensor):
         return a.to(dev)
@@ -84,3 +131,11 @@ def to_torch(tree: Any, device: DeviceLike = "cuda") -> Any:
 def to_numpy(tree: Any) -> Any:
     """Tensor leaves → numpy arrays on the host (bf16 → float32)."""
     return tree_map(_tensor_to_array, tree)
+
+
+def adam_state_to_torch(state: Any, device: DeviceLike = "cuda") -> Any:
+    """The reference's ``AdamState(step, mu, nu)`` (arrays or numpy) → the
+    port's `optim.adam.AdamState` on ``device``."""
+    from .optim.adam import AdamState
+    step, mu, nu = state
+    return AdamState(*to_torch((step, mu, nu), device))

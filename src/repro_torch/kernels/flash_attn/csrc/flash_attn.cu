@@ -1,8 +1,11 @@
 // Flash-attention forward for Hopper (sm_90a): causal or bidirectional,
 // sliding window, GQA, a query offset; f32 or bf16 inputs.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attn/flash_attn.py::
-// flash_attention (_flash_kernel). Bound from Python with ctypes
+// Replaces the TPU kernels src/repro/kernels/flash_attn/flash_attn.py::
+// flash_attention (_flash_kernel) and flash_attention_fwd
+// (_flash_fwd_lse_kernel): one template, whose LSE flag adds the row
+// logsumexp the backward needs; the serving instances (LSE = false) do
+// not compute or write it. Bound from Python with ctypes
 // (src/repro_torch/kernels/flash_attn/flash_attn.py).
 //
 // What it computes. q (B, Sq, H, D), k/v (B, Sk, Hkv, D) → o (B, Sq, H, D):
@@ -12,7 +15,9 @@
 //           and  (window <= 0 or j > q_offset + i - window);
 // o = softmax(scale · q·kᵀ over the valid keys) · v, with the softmax and
 // both products in f32 and o cast to q's type. A row with no valid key is
-// 0, as in the TPU kernel (its l = 0 guard), not the mean of v.
+// 0, as in the TPU kernel (its l = 0 guard), not the mean of v. With LSE,
+// lse (B, Sq, H) f32 gets m + log(l) of the scaled scores, or NEG_INF
+// (-1e30) for a row with no valid key.
 //
 // Grid: one block per (q tile of BQ rows, b·H + h); there is no k-block
 // grid axis. Each block walks the K/V tiles its rows can see, staging each
@@ -53,6 +58,7 @@
 #define BK 64                  // keys per staged tile
 #define NTHREADS 256           // 16 row groups × 16 key/column lanes
 #define MAX_SMEM_BYTES 232448  // 227 KB, the opt-in limit of one block
+#define NEG_INF_F (-1e30f)     // lse of a row with no valid key
 
 enum { DT_F32 = 0, DT_BF16 = 1 };
 
@@ -61,6 +67,7 @@ struct FParams {
   const void* k;
   const void* v;
   void* o;                       // (B, Sq, H, D), contiguous, q's type
+  float* lse;                    // (B, Sq, H), contiguous; LSE instances
   long long q_sb, q_ss, q_sh;    // element strides of b, s, h (d is 1)
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -97,7 +104,7 @@ __device__ __forceinline__ void stage(float* dst, int ld, const T* src,
   }
 }
 
-template <typename T, int NC>
+template <typename T, int NC, bool LSE>
 __global__ void __launch_bounds__(NTHREADS)
 flash_attn_kernel(const FParams p) {
   constexpr int D = 16 * NC;
@@ -232,10 +239,15 @@ flash_attn_kernel(const FParams p) {
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       store_out(o, base + tc + 16 * c, l[i] > 0.0f ? acc[i][c] / l[i] : 0.0f);
+    if constexpr (LSE) {
+      if (tc == 0)
+        p.lse[(static_cast<long long>(b) * p.seq_q + row) * p.heads + h] =
+            l[i] > 0.0f ? m[i] + logf(l[i]) : NEG_INF_F;
+    }
   }
 }
 
-template <typename T, int NC>
+template <typename T, int NC, bool LSE>
 static int launch(const FParams& p, int n_qtiles, int n_bh,
                   cudaStream_t stream) {
   constexpr int D = 16 * NC;
@@ -243,7 +255,7 @@ static int launch(const FParams& p, int n_qtiles, int n_bh,
       sizeof(float) * (static_cast<size_t>(BQ + BK) * (D + 1) + BK * D +
                        BQ * (BK + 1));
   if (smem > MAX_SMEM_BYTES) return -2;
-  auto kern = flash_attn_kernel<T, NC>;
+  auto kern = flash_attn_kernel<T, NC, LSE>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -255,41 +267,39 @@ static int launch(const FParams& p, int n_qtiles, int n_bh,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool LSE>
 static int launch_d(const FParams& p, int d, int n_qtiles, int n_bh,
                     cudaStream_t stream) {
   switch (d) {
-    case 16:  return launch<T, 1>(p, n_qtiles, n_bh, stream);
-    case 32:  return launch<T, 2>(p, n_qtiles, n_bh, stream);
-    case 48:  return launch<T, 3>(p, n_qtiles, n_bh, stream);
-    case 64:  return launch<T, 4>(p, n_qtiles, n_bh, stream);
-    case 80:  return launch<T, 5>(p, n_qtiles, n_bh, stream);
-    case 96:  return launch<T, 6>(p, n_qtiles, n_bh, stream);
-    case 112: return launch<T, 7>(p, n_qtiles, n_bh, stream);
-    case 128: return launch<T, 8>(p, n_qtiles, n_bh, stream);
+    case 16:  return launch<T, 1, LSE>(p, n_qtiles, n_bh, stream);
+    case 32:  return launch<T, 2, LSE>(p, n_qtiles, n_bh, stream);
+    case 48:  return launch<T, 3, LSE>(p, n_qtiles, n_bh, stream);
+    case 64:  return launch<T, 4, LSE>(p, n_qtiles, n_bh, stream);
+    case 80:  return launch<T, 5, LSE>(p, n_qtiles, n_bh, stream);
+    case 96:  return launch<T, 6, LSE>(p, n_qtiles, n_bh, stream);
+    case 112: return launch<T, 7, LSE>(p, n_qtiles, n_bh, stream);
+    case 128: return launch<T, 8, LSE>(p, n_qtiles, n_bh, stream);
     default:  return -3;
   }
 }
 
-// Returns 0, a cudaError_t code, or -1 (bad arguments) / -2 (the tile needs
-// more shared memory than one block can have) / -3 (unsupported head dim).
-//   strides: 9 element strides, (b, s, h) of q, then of k, then of v.
-extern "C" int flash_attn_launch(int dtype, const void* q, const void* k,
-                                 const void* v, void* o, int batch,
-                                 int seq_q, int seq_k, int heads,
-                                 int kv_heads, int head_dim,
-                                 const long long* strides, int causal,
-                                 int window, int q_offset, float scale,
-                                 void* stream) {
+template <bool LSE>
+static int fwd_launch(int dtype, const void* q, const void* k, const void* v,
+                      void* o, float* lse, int batch, int seq_q, int seq_k,
+                      int heads, int kv_heads, int head_dim,
+                      const long long* strides, int causal, int window,
+                      int q_offset, float scale, void* stream) {
   if (batch < 1 || seq_q < 1 || seq_k < 1 || heads < 1 || kv_heads < 1 ||
       heads % kv_heads != 0 || static_cast<long long>(batch) * heads > 65535 ||
-      window < 0 || (dtype != DT_F32 && dtype != DT_BF16))
+      window < 0 || (dtype != DT_F32 && dtype != DT_BF16) ||
+      (LSE && lse == nullptr))
     return -1;
   FParams p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
@@ -304,6 +314,37 @@ extern "C" int flash_attn_launch(int dtype, const void* q, const void* k,
   const int n_qtiles = (seq_q + BQ - 1) / BQ;
   const int n_bh = batch * heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) return launch_d<float>(p, head_dim, n_qtiles, n_bh, s);
-  return launch_d<__nv_bfloat16>(p, head_dim, n_qtiles, n_bh, s);
+  if (dtype == DT_F32)
+    return launch_d<float, LSE>(p, head_dim, n_qtiles, n_bh, s);
+  return launch_d<__nv_bfloat16, LSE>(p, head_dim, n_qtiles, n_bh, s);
+}
+
+// Returns 0, a cudaError_t code, or -1 (bad arguments) / -2 (the tile needs
+// more shared memory than one block can have) / -3 (unsupported head dim).
+//   strides: 9 element strides, (b, s, h) of q, then of k, then of v.
+extern "C" int flash_attn_launch(int dtype, const void* q, const void* k,
+                                 const void* v, void* o, int batch,
+                                 int seq_q, int seq_k, int heads,
+                                 int kv_heads, int head_dim,
+                                 const long long* strides, int causal,
+                                 int window, int q_offset, float scale,
+                                 void* stream) {
+  return fwd_launch<false>(dtype, q, k, v, o, nullptr, batch, seq_q, seq_k,
+                           heads, kv_heads, head_dim, strides, causal,
+                           window, q_offset, scale, stream);
+}
+
+// The training forward: as flash_attn_launch, and lse (B, Sq, H) f32.
+extern "C" int flash_attn_fwd_lse_launch(int dtype, const void* q,
+                                         const void* k, const void* v,
+                                         void* o, float* lse, int batch,
+                                         int seq_q, int seq_k, int heads,
+                                         int kv_heads, int head_dim,
+                                         const long long* strides,
+                                         int causal, int window,
+                                         int q_offset, float scale,
+                                         void* stream) {
+  return fwd_launch<true>(dtype, q, k, v, o, lse, batch, seq_q, seq_k,
+                          heads, kv_heads, head_dim, strides, causal, window,
+                          q_offset, scale, stream);
 }

@@ -1,23 +1,35 @@
-"""The flash-attention forward kernel on Hopper: wrapper, build, binding.
+"""The flash-attention kernels on Hopper: wrappers, build, binding.
 
-Port of `repro.kernels.flash_attn.flash_attn.flash_attention`. One CUDA
-source (csrc/flash_attn.cu, built for sm_90a at first use by
-`kernels._build`, bound with ctypes). The kernel reads q (B, Sq, H, D) and
-k/v (B, Sk, Hkv, D) in place through their strides, so the wrapper pads,
-moves and repeats nothing: it checks, allocates the output and launches.
+Port of `repro.kernels.flash_attn.flash_attn`: `flash_attention` (serving
+forward), `flash_attention_fwd` (training forward, also returning the row
+logsumexp) and `flash_attention_bwd` (dq, dk, dv), whose two kernels also
+have their own wrappers, `flash_attention_bwd_dkv` and
+`flash_attention_bwd_dq`. Two CUDA sources, each built for sm_90a at first
+use by `kernels._build` and bound with ctypes: csrc/flash_attn.cu (the
+forward, with and without lse) and csrc/flash_attn_bwd.cu (the dK/dV and
+dQ kernels). The kernels read q, do (B, Sq, H, D) and k/v (B, Sk, Hkv, D)
+in place through their strides, so the wrappers pad, move and repeat
+nothing: they check, allocate the outputs and launch. The backward's
+delta = rowsum(do ⊙ o) is computed in plain PyTorch before its launches,
+as the reference computes it outside Pallas.
 
-Where the work runs. On a CUDA tensor the wrapper launches the kernel, or
+Where the work runs. On a CUDA tensor a wrapper launches its kernel, or
 raises (a failed build, a refused launch): there is no fallback. On a CPU
-tensor it runs the plain version (`ref.flash_attention`), which has the
-kernel's semantics (GQA by index, 0 for a row with no valid key).
+tensor it runs the plain version of the same name in `ref`, which has the
+kernel's semantics (GQA by index, 0 for a row with no valid key, NEG_INF
+lse for it, dk/dv summed over the GQA group).
 
-What it takes: f32 or bf16, one type for q, k and v; a head dim that is a
-multiple of 16 up to 128 (`HEAD_DIMS`); Hkv dividing H; unit stride along
-D. Anything else raises, on either device.
+What they take: f32 or bf16, one type for q, k, v (and do); a head dim
+that is a multiple of 16 up to 128 (`HEAD_DIMS`); Hkv dividing H; unit
+stride along D; lse and delta (B, Sq, H) f32. Anything else raises, on
+either device.
 
-`LAUNCHES` counts kernel launches (bumped only where the kernel is
-launched); `reset_launch_counts` zeroes it. `attention_costs` is the
-reference's analytical flop and byte count of one call.
+`LAUNCHES` counts kernel launches, one key per kernel (bumped only where
+that kernel is launched): ``flash_attention`` (serving), and the training
+path's ``flash_attention_fwd``, ``flash_attention_bwd_dkv`` and
+``flash_attention_bwd_dq``; `reset_launch_counts` zeroes them.
+`attention_costs` is the reference's analytical flop and byte count of one
+forward call.
 """
 from __future__ import annotations
 
@@ -32,19 +44,25 @@ from .. import _build
 from . import ref
 
 __all__ = ["HEAD_DIMS", "LAUNCHES", "attention_costs", "build",
-           "flash_attention", "reset_launch_counts"]
+           "build_bwd", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+           "flash_attention_fwd", "reset_launch_counts"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attn.cu"
+CSRC_BWD = CSRC.with_name("flash_attn_bwd.cu")
 HEAD_DIMS = tuple(range(16, 129, 16))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BH = 65535                   # gridDim.y = B·H
 _INT32 = 2 ** 31
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_fwd": 0,
+                            "flash_attention_bwd_dkv": 0,
+                            "flash_attention_bwd_dq": 0}
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def build() -> Tuple[pathlib.Path, str]:
@@ -52,12 +70,31 @@ def build() -> Tuple[pathlib.Path, str]:
     return _build.build(CSRC)
 
 
+def build_bwd() -> Tuple[pathlib.Path, str]:
+    """Compile csrc/flash_attn_bwd.cu for sm_90a."""
+    return _build.build(CSRC_BWD)
+
+
+_SHAPE_ARGS = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+_TAIL_ARGS = [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attn_launch.restype = ctypes.c_int
     lib.flash_attn_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-        + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 3
-        + [ctypes.c_float, ctypes.c_void_p])
+        [ctypes.c_int] + [ctypes.c_void_p] * 4 + _SHAPE_ARGS + _TAIL_ARGS)
+    lib.flash_attn_fwd_lse_launch.restype = ctypes.c_int
+    lib.flash_attn_fwd_lse_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + _SHAPE_ARGS + _TAIL_ARGS)
+
+
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    lib.flash_attn_bwd_dkv_launch.restype = ctypes.c_int
+    lib.flash_attn_bwd_dkv_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 8 + _SHAPE_ARGS + _TAIL_ARGS)
+    lib.flash_attn_bwd_dq_launch.restype = ctypes.c_int
+    lib.flash_attn_bwd_dq_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 7 + _SHAPE_ARGS + _TAIL_ARGS)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -98,18 +135,72 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {window}, {q_offset}")
 
 
+def _check_bwd(q: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+               delta: torch.Tensor) -> None:
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do must match q: got {tuple(do.shape)} {do.dtype}"
+                         f" on {do.device}, q {tuple(q.shape)} {q.dtype} on "
+                         f"{q.device}")
+    if do.stride(-1) != 1:
+        raise ValueError(f"do needs unit stride along D, got strides "
+                         f"{do.stride()}")
+    rows = tuple(q.shape[:3])
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (tuple(t.shape) != rows or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous f32 (B, Sq, H) = "
+                             f"{rows} tensor on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _strides(*ts: torch.Tensor):
+    """(b, s, h) element strides of each tensor, as a C long long array."""
+    vals = [s for t in ts for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _shape_args(q: torch.Tensor, k: torch.Tensor) -> tuple:
+    b, sq, h, d = q.shape
+    return b, sq, k.shape[1], h, k.shape[2], d
+
+
 def _launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
             v: torch.Tensor, out: torch.Tensor, causal: bool, window: int,
-            q_offset: int, stream: int) -> int:
-    """Marshal one call of `flash_attn_launch`; returns its code."""
-    b, sq, h, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v)
-                                        for s in t.stride()[:3]))
-    return lib.flash_attn_launch(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, sq, sk, h, hkv, d, strides, int(bool(causal)),
-        window, q_offset, 1.0 / math.sqrt(d), stream)
+            q_offset: int, stream: int, lse=None) -> int:
+    """Marshal one call of `flash_attn_launch` (or, with ``lse``, of
+    `flash_attn_fwd_lse_launch`); returns its code."""
+    tail = (_strides(q, k, v), int(bool(causal)), window, q_offset,
+            1.0 / math.sqrt(q.shape[-1]), stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if lse is None:
+        return lib.flash_attn_launch(_DTYPES[q.dtype], *ptrs,
+                                     *_shape_args(q, k), *tail)
+    return lib.flash_attn_fwd_lse_launch(_DTYPES[q.dtype], *ptrs,
+                                         lse.data_ptr(), *_shape_args(q, k),
+                                         *tail)
+
+
+def _launch_bwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                delta: torch.Tensor, outs, causal: bool, window: int,
+                q_offset: int, stream: int) -> int:
+    """Marshal one call of `flash_attn_bwd_dq_launch` (``outs`` = (dq,))
+    or `flash_attn_bwd_dkv_launch` (``outs`` = (dk, dv)); returns its
+    code."""
+    fn = (lib.flash_attn_bwd_dq_launch if len(outs) == 1
+          else lib.flash_attn_bwd_dkv_launch)
+    return fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+              *(t.data_ptr() for t in outs), *_shape_args(q, k),
+              _strides(q, k, v, do), int(bool(causal)), window, q_offset,
+              1.0 / math.sqrt(q.shape[-1]), stream)
+
+
+def _raise_on(rc: int, name: str, d: int) -> None:
+    if rc == -3:
+        raise ValueError(f"{name}: head dim {d} has no kernel instance")
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with code {rc}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -129,14 +220,97 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _launch(lib, q, k, v, out, causal, window, q_offset, stream)
-    if rc == -3:
-        raise ValueError(f"flash_attention: head dim {q.shape[-1]} has no "
-                         f"kernel instance")
-    if rc != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed with code "
-                           f"{rc}")
+    _raise_on(rc, "flash_attention", q.shape[-1])
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0,
+                        q_offset: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`flash_attention`'s output and the row logsumexp of the scaled
+    scores: (o (B, Sq, H, D) in q.dtype, lse (B, Sq, H) f32), lse NEG_INF
+    (−1e30) for a row with no valid key. The training forward."""
+    _check(q, k, v, window, q_offset)
+    if not q.is_cuda:
+        return ref.flash_attention_fwd(q, k, v, causal, window, q_offset)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    lib = _build.load(CSRC, _bind)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _launch(lib, q, k, v, out, causal, window, q_offset, stream,
+                     lse=lse)
+    _raise_on(rc, "flash_attention_fwd", q.shape[-1])
+    LAUNCHES["flash_attention_fwd"] += 1
+    return out, lse
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor,
+                            causal: bool = True, window: int = 0,
+                            q_offset: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv), each (B, Sk, Hkv, D) in q.dtype, the GQA group summed in
+    f32: the dK/dV kernel. ``delta`` is rowsum(do ⊙ o) (B, Sq, H) f32."""
+    _check(q, k, v, window, q_offset)
+    _check_bwd(q, do, lse, delta)
+    if not q.is_cuda:
+        return ref.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                           window, q_offset)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    lib = _build.load(CSRC_BWD, _bind_bwd)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _launch_bwd(lib, q, k, v, do, lse, delta, (dk, dv), causal,
+                         window, q_offset, stream)
+    _raise_on(rc, "flash_attention_bwd_dkv", q.shape[-1])
+    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, do: torch.Tensor,
+                           lse: torch.Tensor, delta: torch.Tensor,
+                           causal: bool = True, window: int = 0,
+                           q_offset: int = 0) -> torch.Tensor:
+    """dq (B, Sq, H, D) in q.dtype: the dQ kernel."""
+    _check(q, k, v, window, q_offset)
+    _check_bwd(q, do, lse, delta)
+    if not q.is_cuda:
+        return ref.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal,
+                                          window, q_offset)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lib = _build.load(CSRC_BWD, _bind_bwd)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _launch_bwd(lib, q, k, v, do, lse, delta, (dq,), causal,
+                         window, q_offset, stream)
+    _raise_on(rc, "flash_attention_bwd_dq", q.shape[-1])
+    LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True, window: int = 0,
+                        q_offset: int = 0):
+    """(dq, dk, dv) of `flash_attention_fwd` at output cotangent ``do``:
+    dq at H heads, dk and dv at Hkv heads (the GQA group summed). delta is
+    computed here in plain PyTorch, then the dK/dV and the dQ kernels
+    run."""
+    if o.shape != q.shape:
+        raise ValueError(f"o must match q: got {tuple(o.shape)}, q "
+                         f"{tuple(q.shape)}")
+    delta = ref.attention_delta(o, do)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, window,
+                                     q_offset)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, window,
+                                q_offset)
+    return dq, dk, dv
 
 
 def attention_costs(b: int, sq: int, sk: int, h: int, d: int,

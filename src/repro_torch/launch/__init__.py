@@ -1,3 +1,5 @@
-"""Launchers of the port (`repro.launch` counterparts). So far the serving
-path: `steps` (prefill and greedy decode steps) and `serve` (the batched
-prefill + decode driver, ``python -m repro_torch.launch.serve``)."""
+"""Launchers of the port (`repro.launch` counterparts): `steps` (the
+gradient-accumulating train step, prefill and greedy decode steps),
+`train` (the LM training driver, ``python -m repro_torch.launch.train``)
+and `serve` (the batched prefill + decode driver,
+``python -m repro_torch.launch.serve``)."""

@@ -6,9 +6,13 @@ EXPANDED to per-Q-head replicas (on one card, tp = 1: neither happens).
 
 Two causal paths, chosen as the reference chooses them
 (`attend_causal`):
-  * fused — prefill (an int ``q_offset`` and more than one query): the
-    hand-written CUDA flash-attention kernel (`kernels.flash_attn`), which
-    reads the kv heads in place (GQA by index);
+  * fused — an int ``q_offset`` and more than one query: the hand-written
+    CUDA flash-attention kernels (`kernels.flash_attn`), which read the kv
+    heads in place (GQA by index). Where a gradient is wanted (grad mode on
+    and q, k or v requiring grad) it is `_FusedCausal`, the reference's
+    `custom_vjp` `_fused_causal`: the forward kernel with lse, then the
+    dK/dV and dQ kernels. Otherwise (serving prefill) it is the plain
+    forward kernel `flash_attention`, whose output has no gradient;
   * plain — `_attend_causal_xla`: scores materialized per Q-CHUNK of
     ``q_chunk`` rows, the K/V band sliced per chunk for sliding windows
     (the reference's XLA-level path, here plain PyTorch).
@@ -24,7 +28,8 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..kernels.flash_attn import flash_attention
+from ..kernels.flash_attn import (flash_attention, flash_attention_bwd,
+                                  flash_attention_fwd)
 from ..parallel import sharding
 from .common import ModelConfig, dense_init, rms_norm, rope
 
@@ -87,13 +92,42 @@ def _attend_dense(q, k, v, mask, scale):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+class _FusedCausal(torch.autograd.Function):
+    """Flash attention with its backward in the flash kernels (port of the
+    reference's `_fused_causal` custom VJP). The forward saves q, k, v, o
+    and lse; q_offset, window and q_chunk get no gradient (the reference's
+    ``nondiff_argnums``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset: int, window: int, q_chunk: int):
+        o, lse = flash_attention_fwd(q, k, v, causal=True, window=window,
+                                     q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.q_offset, ctx.window = q_offset, window
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        if g.stride(-1) != 1:
+            g = g.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g, causal=True,
+                                         window=ctx.window,
+                                         q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None
+
+
 def attend_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_offset: Offset = 0, window: int = 0,
                   q_chunk: int = 1024, fused: bool = False) -> torch.Tensor:
     """Causal (optionally sliding-window) attention, q (B, Sq, Hq, D),
-    k/v (B, Sk, Hkv, D). ``fused`` takes the flash kernel where the
-    reference does: an int q_offset and more than one query."""
+    k/v (B, Sk, Hkv, D). ``fused`` takes the flash kernels where the
+    reference does: an int q_offset and more than one query; with a
+    gradient wanted through `_FusedCausal`, else the serving forward."""
     if fused and isinstance(q_offset, int) and q.shape[1] > 1:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _FusedCausal.apply(q, k, v, q_offset, window, q_chunk)
         return flash_attention(q, k, v, causal=True, window=window,
                                q_offset=q_offset)
     return _attend_causal_xla(q, k, v, q_offset, window, q_chunk)

@@ -1,7 +1,7 @@
 """Shared model machinery: config, norms, RoPE, init helpers.
 
-Port of `repro.models.common` (forward numerics only; the custom VJP of
-`rms_norm` comes with the LM training slice).
+Port of `repro.models.common`. `rms_norm` carries the reference's custom
+VJP as a `torch.autograd.Function`.
 """
 from __future__ import annotations
 
@@ -82,13 +82,42 @@ class ModelConfig:
 # Numerics
 # ---------------------------------------------------------------------------
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with f32 internal math, cast back to x's type."""
+def _rms_norm_impl(x: torch.Tensor, scale: torch.Tensor,
+                   eps: float) -> torch.Tensor:
     dt = x.dtype
     xf = x.float()
     xf = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
     return (xf * scale.float()).to(dt)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The reference's `custom_vjp` (`repro.models.common._rms_bwd`): the
+    backward in f32, dx in x's type, dscale summed over every leading axis
+    in scale's type."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rms_norm_impl(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        xf, gf = x.float(), g.float()
+        r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + ctx.eps)
+        xhat = xf * r
+        gs = gf * scale.float()
+        dx = r * (gs - xhat * (gs * xhat).mean(dim=-1, keepdim=True))
+        dscale = (gf * xhat).sum(dim=tuple(range(x.dim() - 1)))
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with f32 internal math, cast back to x's type; its gradient
+    is the reference's (f32 math, cotangents in the stream's type)."""
+    return _RMSNorm.apply(x, scale, eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

@@ -1,9 +1,9 @@
 """Uniform model interface over the architecture families.
 
 Port of `repro.models.registry`. `build(cfg)` returns a `Model` whose
-methods are what the serving launcher calls. Only the dense family is
-ported; the others raise NotImplementedError naming their ROADMAP item.
-Training (`loss_fn`) comes with the LM training slice.
+methods are what the launchers call: `loss_fn` for training, prefill and
+decode for serving. Only the dense family is ported; the others raise
+NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ _NOT_PORTED = {
 class Model:
     cfg: ModelConfig
     init: Callable[..., Any]              # (generator, device) → params
+    loss_fn: Callable[..., Any]           # (params, batch) → (loss, aux)
     init_serve_state: Callable[..., Any]  # (batch, max_len, device) → state
     prefill: Callable[..., Any]           # (params, batch, state) → (logits, state)
     decode: Callable[..., Any]            # (params, token, pos, state) → (logits, state)
@@ -35,6 +36,9 @@ class Model:
 def _transformer_model(cfg: ModelConfig) -> Model:
     def init(generator, device: DeviceLike = "cuda"):
         return transformer.init(generator, cfg, device)
+
+    def loss_fn(params, batch):
+        return transformer.loss_fn(params, batch, cfg)
 
     def init_serve_state(batch: int, max_len: int,
                          device: DeviceLike = "cuda"):
@@ -47,7 +51,8 @@ def _transformer_model(cfg: ModelConfig) -> Model:
     def decode(params, token, pos, state):
         return transformer.decode_step(params, token, pos, state, cfg)
 
-    return Model(cfg=cfg, init=init, init_serve_state=init_serve_state,
+    return Model(cfg=cfg, init=init, loss_fn=loss_fn,
+                 init_serve_state=init_serve_state,
                  prefill=prefill, decode=decode)
 
 

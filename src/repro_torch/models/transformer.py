@@ -1,9 +1,10 @@
-"""Decoder-only transformer stack, dense GQA family (serving path).
+"""Decoder-only transformer stack, dense GQA family.
 
-Port of the serving half of `repro.models.transformer`: pre-RMSNorm
+Port of `repro.models.transformer` for the dense family: pre-RMSNorm
 blocks, RoPE, GQA attention (`models.attention`), SwiGLU or GELU MLP
-(`models.mlp`), and the ring-buffer KV cache of capacity
-min(max_len, window). Covers internlm2, deepseek, smollm and qwen3.
+(`models.mlp`), the training forward and loss, and the ring-buffer KV
+cache of capacity min(max_len, window). Covers internlm2, deepseek, smollm
+and qwen3.
 
 Where the reference scans over the stacked layer params, the port loops
 over them in Python (eager PyTorch: one layer's ops at a time), and where
@@ -14,9 +15,14 @@ goes through the flash kernel when ``cfg.fused_attention`` is set; decode
 attends over the cache with the dense `_attend_dense`, as the reference
 does (it left decode to XLA).
 
-`forward`, `loss_fn` and `cross_entropy` (training) come with the LM
-training slice; the MoE and VLM variants with their families (ROADMAP
-Queue 1 item 13).
+Training (`forward`, `cross_entropy`, `loss_fn`): with ``cfg.remat`` each
+layer body runs under `torch.utils.checkpoint` (non-reentrant), where the
+reference wraps it in `jax.checkpoint`: its activations are dropped after
+the forward and recomputed in the backward, so a fused-attention layer
+launches the forward kernel twice per backward pass. The stacked layer
+params are split with one `unbind` per leaf, so each leaf's gradient is
+stacked once, not scattered into a zero (L, ...) tensor per layer. The MoE
+and VLM variants come with their families (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..parallel import sharding
@@ -105,6 +112,77 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
     if embed_prefix is not None:
         h = torch.cat([embed_prefix.to(h.dtype), h], dim=1)
     return h
+
+
+# ---------------------------------------------------------------------------
+# forward (train / eval, no cache)
+# ---------------------------------------------------------------------------
+
+def _unbind_layers(stacked: Dict[str, Any], n: int) -> list:
+    """The stacked (L, ...) layer params as n per-layer dicts of views,
+    one `unbind` per leaf."""
+    def split(tree):
+        if isinstance(tree, dict):
+            parts = {k: split(v) for k, v in tree.items()}
+            return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+        return tree.unbind(0)
+    return split(stacked)
+
+
+def _body(h: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig,
+          positions: torch.Tensor):
+    h, _, aux = layer_apply(lp, h, cfg, positions)
+    return h, aux
+
+
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
+            embed_prefix: Optional[torch.Tensor] = None):
+    """tokens: (B, S_txt) [+ prefix (B, P, d)] → (logits (B, S, V_pad),
+    aux). Layers are rematerialized in the backward when ``cfg.remat``
+    (the body draws no random numbers, so no RNG state is kept)."""
+    _dense_only(cfg)
+    h = embed_tokens(params, tokens, cfg, embed_prefix)
+    positions = torch.arange(h.shape[1], device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in _unbind_layers(params["layers"], cfg.n_layers):
+        if remat:
+            h, a = checkpoint(_body, h, lp, cfg, positions,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            h, a = _body(h, lp, cfg, positions)
+        aux = aux + a
+    h = rms_norm(h, params["final_norm"])
+    logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])
+    return logits, aux
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab: int) -> torch.Tensor:
+    """Mean CE in f32 over (B, S); padded vocab entries masked to −1e30
+    before the logsumexp. The reference picks the label's logit as
+    sum(where(iota == label, lf, 0)), which equals lf[label] exactly; a
+    gather takes the same value without a (B, S, V) index tensor."""
+    lf = logits.float()
+    v_pad = lf.shape[-1]
+    if v_pad > vocab:
+        pad = torch.arange(v_pad, device=lf.device) >= vocab
+        lf = lf.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(lf, dim=-1)                         # (B, S)
+    picked = lf.gather(-1, labels[..., None].long())[..., 0]
+    return (lse - picked).mean()
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """batch: tokens (B, S), labels (B, S) [, embed_prefix (B, P, d)] →
+    (ce + 1e-2 · aux, {"ce", "aux"}). With a prefix, the loss covers only
+    the text positions."""
+    prefix = batch.get("embed_prefix")
+    logits, aux = forward(params, batch["tokens"], cfg, embed_prefix=prefix)
+    if prefix is not None:
+        logits = logits[:, prefix.shape[1]:, :]
+    ce = cross_entropy(logits[:, :-1, :], batch["labels"][:, 1:], cfg.vocab)
+    return ce + 1e-2 * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,14 @@ and conv1d kernels, and the training path runs on the card. The
 flash-attention kernel agrees with its plain version within f32 atol 2e-5
 and bf16 atol 2e-2 (its online softmax sums in another order, so not
 bitwise), and LM serving launches it once per layer per prefill and never
-while decoding.
+while decoding. The training kernels (forward with lse, dK/dV, dQ) agree
+with their plain versions (o f32 atol 2e-5 / bf16 2e-2, lse atol 1e-5,
+backward f32 atol 5e-4 — the bound the reference holds its own backward
+to — and bf16 within one bf16 rounding: |diff| ≤ 1e-2·|want| +
+1e-3·max|want|, since kernel and plain both round an f32 result once and
+their f32 sums differ only in order); a fused model's loss has gradients
+through attention on the card, and training launches the three training
+kernels and never the serving one.
 """
 import numpy as np
 import pytest
@@ -37,7 +44,11 @@ from repro_torch.kernels.quant import quant as q_kern
 from repro_torch.kernels.quant import ref as q_ref
 from repro_torch.kernels.volterra import volterra as v_kern
 from repro_torch.kernels.volterra import ref as v_ref
+from repro_torch.data import pipeline as lm_data
+from repro_torch.device import fp32_exact
+from repro_torch.interop import tree_leaves, tree_unflatten
 from repro_torch.launch import serve as lm_serve
+from repro_torch.launch import train as lm_train
 from repro_torch.models import registry as lm_registry
 from repro_torch.serve import BatchPolicy, ServeRuntime, TenantSpec
 
@@ -316,3 +327,169 @@ def test_reduced_qwen3_serving_launches_flash_once_per_layer(cuda_device):
     fused_lg, _ = model.prefill(params, {"tokens": toks},
                                 model.init_serve_state(2, 40, cuda_device))
     assert float((lg - fused_lg).abs().max()) < 1e-4
+
+
+TRAIN_GRID = [  # b, s, h, hkv, d, causal, window, q_offset
+    (1, 100, 4, 2, 128, True, 0, 0),
+    (1, 130, 8, 2, 128, True, 48, 0),
+    (2, 2049, 4, 2, 128, True, 0, 0),
+    (1, 96, 4, 1, 48, True, 0, -5),        # rows with no valid key
+    (1, 64, 2, 2, 64, False, 0, 0),        # bidirectional
+]
+
+
+def _train_inputs(case, dtype, dev):
+    b, s, h, hkv, d = case[:5]
+    g = torch.Generator().manual_seed(s + h + d)
+    return [torch.randn(sh, generator=g).to(dev, dtype)
+            for sh in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d),
+                       (b, s, h, d))]
+
+
+def _bwd_close(got, want, dtype, what):
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 5e-4, (what, float(diff.max()))
+    else:
+        w = want.float().abs()
+        assert bool((diff <= 1e-2 * w + 1e-3 * float(w.max())).all()), (
+            what, float(diff.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRAIN_GRID)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_flash_kernels_agree_with_plain_on_card(cuda_device, case,
+                                                         dtype):
+    _, _, _, _, _, causal, win, qoff = case
+    q, k, v, do = _train_inputs(case, dtype, cuda_device)
+    fa.reset_launch_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, win, qoff)
+    wo, wlse = fa_ref.flash_attention_fwd(q, k, v, causal, win, qoff)
+    assert float((o.float() - wo.float()).abs().max()) <= FLASH_TOL[dtype]
+    assert float((lse - wlse).abs().max()) <= 1e-5
+    assert torch.equal(o, fa.flash_attention(q, k, v, causal, win, qoff))
+    delta = fa_ref.attention_delta(wo, do)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, wlse, delta, causal,
+                                        win, qoff)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, wlse, delta, causal, win,
+                                   qoff)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_attention": 1, "flash_attention_fwd": 1,
+                           "flash_attention_bwd_dkv": 1,
+                           "flash_attention_bwd_dq": 1}
+    wdk, wdv = fa_ref.flash_attention_bwd_dkv(q, k, v, do, wlse, delta,
+                                              causal, win, qoff)
+    wdq = fa_ref.flash_attention_bwd_dq(q, k, v, do, wlse, delta, causal,
+                                        win, qoff)
+    for name, got, want in (("dq", dq, wdq), ("dk", dk, wdk),
+                            ("dv", dv, wdv)):
+        assert got.dtype == dtype and got.shape == want.shape, name
+        _bwd_close(got, want, dtype, name)
+    if qoff < 0:
+        assert bool((lse[:, :-qoff] == -1e30).all())
+        assert bool((dq[:, :-qoff] == 0).all())
+    # k and v read in place as strided views of one tensor
+    kv = torch.stack([k, v], dim=2)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, kv[:, :, 0], kv[:, :, 1], do,
+                                          wlse, delta, causal, win, qoff)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+@pytest.mark.cuda
+def test_training_flash_kernels_refuse_on_card(cuda_device):
+    q = torch.randn(1, 8, 2, 16, device=cuda_device)
+    lse = torch.zeros(1, 8, 2, device=cuda_device)
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_dq(q, q, q, q, lse[:, :4], lse)
+    with pytest.raises(ValueError, match="do must match"):
+        fa.flash_attention_bwd_dkv(q, q, q, q.double(), lse, lse)
+    assert sum(fa.LAUNCHES.values()) == 0
+
+
+def _grads(model, params, toks):
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = model.loss_fn(tree_unflatten(params, leaves),
+                            {"tokens": toks, "labels": toks})
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.cuda
+def test_fused_model_has_gradients_through_attention_on_card(cuda_device):
+    """The fused branch once returned the kernel's output with no grad_fn,
+    so nothing reached wq, wk, wv, q_norm or k_norm on the card. Its
+    gradients must now be nonzero and equal the plain path's (f32, TF32
+    off), and the step must launch only the training kernels."""
+    cfg = lm_configs.get_config("qwen3-0.6b", True, tp=1,
+                                fused_attention=True)
+    fused = lm_registry.build(cfg)
+    plain = lm_registry.build(lm_configs.get_config("qwen3-0.6b", True,
+                                                    tp=1))
+    params = fused.init(torch.Generator(cuda_device).manual_seed(0),
+                        cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 100), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(1))
+    with fp32_exact():
+        fa.reset_launch_counts()
+        lf, gf = _grads(fused, params, toks)
+        torch.cuda.synchronize()
+        counts = dict(fa.LAUNCHES)
+        lp, gp = _grads(plain, params, toks)
+    n = cfg.n_layers
+    assert counts == {"flash_attention": 0, "flash_attention_fwd": 2 * n,
+                      "flash_attention_bwd_dkv": n,
+                      "flash_attention_bwd_dq": n}
+    assert abs(float(lf) - float(lp)) < 1e-5
+    leaves = tree_leaves(params)
+    attn = params["layers"]["attn"]
+    for key in ("wq", "wk", "wv", "q_norm", "k_norm"):
+        i = next(j for j, t in enumerate(leaves) if t is attn[key])
+        assert float(gf[i].abs().max()) > 0, key
+    for a, b in zip(gf, gp):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_serving_prefill_launches_only_the_serving_kernel(cuda_device):
+    cfg = lm_configs.get_config("qwen3-0.6b", reduced=True, tp=1,
+                                fused_attention=True)
+    model, params, state, prefill, _ = lm_serve.serve_session(
+        cfg, 2, 32, 40, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 32), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(1))
+    for ctx in (torch.enable_grad, torch.no_grad):
+        fa.reset_launch_counts()
+        with ctx():
+            logits, _ = prefill(params, {"tokens": toks},
+                                model.init_serve_state(2, 40, cuda_device))
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES == {"flash_attention": cfg.n_layers,
+                               "flash_attention_fwd": 0,
+                               "flash_attention_bwd_dkv": 0,
+                               "flash_attention_bwd_dq": 0}
+        assert logits.grad_fn is None
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_launches_training_kernels(cuda_device):
+    cfg = lm_configs.get_config("qwen3-0.6b", True, tp=1,
+                                fused_attention=True)
+    init_state, train_step = lm_train.build(cfg, 3e-4, 2, cuda_device)
+    params, opt_state = init_state()
+    batches = lm_data.lm_batches(lm_data.PipelineConfig(
+        seq_len=128, global_batch=4, accum=2), cfg, cuda_device)
+    losses = []
+    for _ in range(3):
+        fa.reset_launch_counts()
+        params, opt_state, m = train_step(params, opt_state, next(batches))
+        losses.append(float(m["loss"]))
+        n = cfg.n_layers
+        assert fa.LAUNCHES == {"flash_attention": 0,
+                               "flash_attention_fwd": 2 * n * 2,
+                               "flash_attention_bwd_dkv": n * 2,
+                               "flash_attention_bwd_dq": n * 2}
+    assert all(np.isfinite(losses))
+    assert int(opt_state.step) == 3

@@ -23,7 +23,9 @@ from repro_torch.core import autotune
 from repro_torch.core import equalizer as teq
 from repro_torch.core import qat as tqat
 from repro_torch.core.engine import EqualizerEngine
+from repro_torch.data import pipeline as lm_data
 from repro_torch.launch import serve as lm_serve
+from repro_torch.launch import train as lm_train
 from repro_torch.models import transformer as lm_transformer
 from repro_torch.serve import ServeRuntime
 
@@ -63,6 +65,27 @@ LM_MODULES = ("repro_torch.models.common", "repro_torch.models.attention",
 
 @pytest.mark.parametrize("name", LM_MODULES)
 def test_lm_serving_modules_import_without_jax(name):
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({name!r})
+        bad = sorted(k for k in sys.modules
+                     if k == "jax" or k.startswith("jax.")
+                     or k == "repro" or k.startswith("repro."))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO_SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+TRAIN_MODULES = ("repro_torch.launch.train", "repro_torch.data.pipeline",
+                 "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+                 "repro_torch.runtime.fault")
+
+
+@pytest.mark.parametrize("name", TRAIN_MODULES)
+def test_lm_training_modules_import_without_jax(name):
     code = textwrap.dedent(f"""
         import importlib, sys
         importlib.import_module({name!r})
@@ -158,3 +181,45 @@ def test_interop_round_trips_trees_and_bf16():
     np.testing.assert_array_equal(back["folded"][0][0], tree["folded"][0][0])
     assert back["bf"].dtype == np.float32
     np.testing.assert_array_equal(back["bf"], tree["bf"].astype(np.float32))
+
+
+def _tiny_state():
+    from repro_torch.optim import AdamW
+    params = {"w": torch.zeros(2)}
+    return params, AdamW().init(params)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda tmp: lm_train.build(lm_configs.get_config("qwen3-0.6b", True),
+                               3e-4, 1),
+    lambda tmp: lm_train.main(["--steps", "1", "--batch", "2", "--seq",
+                               "8", "--ckpt-dir", str(tmp)]),
+    lambda tmp: lm_train.run(["--steps", "1", "--batch", "2", "--seq", "8",
+                              "--ckpt-dir", str(tmp)]),
+    lambda tmp: lm_data.lm_batches(lm_data.PipelineConfig(8, 2),
+                                   lm_configs.get_config("qwen3-0.6b", True)),
+    lambda tmp: _saved(tmp).restore(_tiny_state(), device="cuda"),
+], ids=["build", "main", "run", "lm_batches", "restore"])
+def test_training_entry_points_raise_without_card(monkeypatch, tmp_path,
+                                                  entry):
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        entry(tmp_path)
+
+
+def _saved(tmp):
+    from repro_torch.checkpoint import CheckpointManager
+    ckpt = CheckpointManager(str(tmp / "ckpt"))
+    ckpt.save(1, _tiny_state())
+    return ckpt
+
+
+def test_flash_backward_build_raises_without_compiler(monkeypatch,
+                                                      tmp_path):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        fa.build_bwd()
