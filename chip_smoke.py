@@ -6,9 +6,9 @@
 Phases (each prints a line; any failure raises and exits non-zero with no
 result line), in the order they run:
   1. card: `nvidia-smi` name and power limit, torch and CUDA versions;
-  2. build: one nvcc per source, all started together, builds the six
+  2. build: one nvcc per source, all started together, builds the seven
      CUDA sources (cnn_eq, volterra, quant, conv1d, flash_attn,
-     flash_attn_bwd) for sm_90a; prints the -Xptxas -v register /
+     flash_attn_bwd, slstm) for sm_90a; prints the -Xptxas -v register /
      shared-memory / spill lines;
   3. kernel == plain: each datapath (fp32, bf16, int8) on the card at the
      paper's deployment shape (equalizer_ht: 64 rows × 7320 symbols),
@@ -84,17 +84,45 @@ result line), in the order they run:
      finite losses, 3 checkpoints;
   6a. 10 CNN training steps under torch.profiler (device busy and idle
      share, the kernels that took the most device time);
+  10. xlstm serving: `launch.serve.serve_session` builds xlstm-125m at
+     full width (12 blocks, sLSTM at 3 and 9, d_model 768, 4 heads, vocab
+     50304, bf16, tp = 1; 141 225 296 parameters) with seeded random
+     weights on the card and serves 4 × 2048-token prompts, then 32 greedy
+     decode steps; with the counts zeroed before each, slstm_fused must
+     launch exactly 2 times in the prefill and 64 over the decode (one per
+     sLSTM block and step) and no flash kernel at all; every logit finite;
+     prints prefill ms, decode ms per step, tokens/s (host clock around
+     synchronised work) and the peak memory the run added. 10b: the kernel
+     against its plain version (f32, TF32 off) and a float64 run of the
+     plain version, on block 3's xg and state from that prefill (recomputed,
+     and reproducing the prefill's state bitwise) and on random inputs with
+     a nonzero state at (B, S, nh, dh) = (4, 2048, 4, 192), (1, 65, 2, 8),
+     (3, 17, 1, 32), (2, 1, 4, 192), (1, 300, 4, 100), xg and r each f32
+     and bf16: within atol 1e-4, or 4 × the plain version's own distance
+     from float64 where f32 cannot resolve 1e-4 (see SLSTM_ATOL); a split
+     at 700 of 2048 steps bitwise equal to one pass; and the f32-vs-float64
+     distance of the plain version at the reference test's r ~ 0.3·N
+     (printed: that recurrence is chaotic at dh = 192). 10c: the whole
+     model in f32 at full width (TF32 off): the card's prefill logits over
+     1 × 512 tokens against the same weights on the host (device="cpu"),
+     and decode at position 2047 after a 2047-token prefill against a
+     2048-token prefill, each within 2e-3. 10d: the kernel's call and
+     device time at the serving shape, the plain version's, the bound from
+     `slstm_costs` (operations at the FP32 peak; the recurrence makes 2048
+     dependent steps), then one prefill and 4 decode steps under
+     torch.profiler (idle share, top kernels, the kernel's share of the
+     prefill);
   9d (last): one full-width LM train step under torch.profiler, after a
      warm-up step inside the profiler's schedule: idle share and the top
      device activities.
-The line before the last is the `kernels` JSON (ten kernels); the last
+The line before the last is the `kernels` JSON (eleven kernels); the last
 line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Phases 3–5 use random weights from a seed (numpy), carried in through
 `repro_torch.interop`, and waveforms of PAM-2 through a short ISI filter
 with noise, also from a seed; phases 6–7 train from seeded generators on
-the simulated link; phases 8 and 9 draw their weights from seeded card
+the simulated link; phases 8, 9 and 10 draw their weights from seeded card
 generators, phase 9 its tokens from the reference's seeded stream. Without
 a CUDA card the script exits with code 2.
 """
@@ -143,6 +171,8 @@ from repro_torch.kernels.quant import quant as Q  # noqa: E402
 from repro_torch.kernels.quant import ref as Q_ref  # noqa: E402
 from repro_torch.kernels.volterra import ops as V_ops  # noqa: E402
 from repro_torch.kernels.volterra import ref as V_ref  # noqa: E402
+from repro_torch.kernels.slstm import ref as SL_ref  # noqa: E402
+from repro_torch.kernels.slstm import slstm as SL  # noqa: E402
 from repro_torch.kernels.volterra import volterra as V  # noqa: E402
 from repro_torch.interop import (tree_leaves,  # noqa: E402
                                  tree_named_leaves, tree_unflatten)
@@ -151,6 +181,7 @@ from repro_torch.launch import train as LM_train  # noqa: E402
 from repro_torch.models import attention as LM_attn  # noqa: E402
 from repro_torch.models import registry as LM_registry  # noqa: E402
 from repro_torch.models import transformer as LM_tr  # noqa: E402
+from repro_torch.models import xlstm as XL  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.serve import (BatchPolicy, ServeRuntime,  # noqa: E402
                                TenantSpec)
@@ -176,7 +207,7 @@ BACKEND_OF = {"fp32": "fused_fp32", "bf16": "fused_bf16",
               "int8": "fused_int8"}
 # the train-then-deploy slice: its kernels, sources and the TPU kernels
 # they replace
-SOURCES = (K.CSRC, V.CSRC, Q.CSRC, C1.CSRC, FA.CSRC, FA.CSRC_BWD)
+SOURCES = (K.CSRC, V.CSRC, Q.CSRC, C1.CSRC, FA.CSRC, FA.CSRC_BWD, SL.CSRC)
 DEPLOY_KERNELS = {
     "volterra": ("src/repro_torch/kernels/volterra/csrc/volterra.cu",
                  "src/repro/kernels/volterra/volterra.py:61", V.LAUNCHES),
@@ -241,6 +272,30 @@ LM_CLI_ARGS = ("--arch", LM_ARCH, "--full", "--layers", "2", "--steps", "3",
 # [9c]: fused vs plain in f32 at full width, stated before the first run:
 # |loss| difference and each gradient leaf's max |diff| / max |leaf|
 TRAIN_F32_LOSS_TOL, TRAIN_F32_GRAD_TOL = 1e-4, 1e-3
+# the xlstm serving slice (phase 10): xlstm-125m at full width, 4 x 2048
+# tokens + 32 decode steps, as phase 8; its parameter count from
+# jax.eval_shape of the reference's init
+XL_ARCH, XL_PARAMS = "xlstm-125m", 141_225_296
+SLSTM = ("slstm_fused", "src/repro_torch/kernels/slstm/csrc/slstm.cu",
+         "src/repro/kernels/slstm/slstm.py:86")
+SLSTM_CASES = ((4, 2048, 4, 192), (1, 65, 2, 8), (3, 17, 1, 32),
+               (2, 1, 4, 192), (1, 300, 4, 100))   # b, s, nh, dh
+SLSTM_SPLIT = 700
+# [10b] kernel vs plain, stated before the first run: atol 1e-4 (the
+# reference's bound on its own kernel, tests/test_slstm_kernel.py:26)
+# wherever f32 resolves 1e-4 over the sequence. Where it cannot, the bound
+# is SLSTM_ENVELOPE x the plain version's own distance from a float64 run
+# of the same function: under the model's forget offset m grows by ~1 a
+# step, and at |m| ~ 2048 one f32 ulp is 2.4e-4, so two f32 orders of the
+# recurrent sum part by more than 1e-4 in m (and in c, n) whatever the
+# kernel does. A case counts only if f32 resolves it: plain vs float64
+# within SLSTM_RESOLVED x max(1, |x|) (a chaotic case measures f32, not
+# the kernel).
+SLSTM_ATOL, SLSTM_ENVELOPE, SLSTM_RESOLVED = 1e-4, 4.0, 1e-3
+# [10c]: f32 at full width, card vs host over this many tokens, and decode
+# vs prefill at LM_PROMPT; both within LM_LOGIT_TOL, stated before the
+# first run
+XL_F32_TOKENS = 512
 
 
 def require(cond: bool, msg: str) -> None:
@@ -475,7 +530,7 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
 
 KERNEL_NAMES = ("cnn_eq_kernel", "volterra_kernel", "quant_kernel",
                 "conv1d_kernel", "flash_attn_kernel", "flash_bwd_dkv_kernel",
-                "flash_bwd_dq_kernel")
+                "flash_bwd_dq_kernel", "slstm_kernel")
 
 
 def device_trace(fn, warmup=None) -> dict:
@@ -1418,6 +1473,312 @@ def train_cli(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: xlstm serving (xlstm-125m) through the fused sLSTM kernel
+# ---------------------------------------------------------------------------
+
+def serve_xlstm(dev) -> dict:
+    """The main path of this slice: `serve_session` for xlstm-125m at full
+    width, one prefill of LM_BATCH × LM_PROMPT tokens and LM_GEN greedy
+    decode steps, the kernels' launch counts zeroed before each and read
+    after. A warm-up prefill and decode step on a second state come first,
+    outside the counted run."""
+    cfg = LM_configs.get_config(XL_ARCH, tp=1, fused_attention=True)
+    require((cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.vocab,
+             cfg.slstm_at, cfg.expand, cfg.d_conv, cfg.ssd_chunk,
+             cfg.dtype) == ("ssm", 12, 768, 4, 50304, (3, 9), 2, 4, 64,
+                            "bfloat16"),
+            f"{XL_ARCH} is not at full width: {cfg}")
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, params, state, prefill, decode = LM_serve.serve_session(
+        cfg, LM_BATCH, LM_PROMPT, LM_PROMPT + LM_GEN, device=dev, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    require(n_params == XL_PARAMS, f"{XL_ARCH}: {n_params} parameters, "
+            f"expected {XL_PARAMS}")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=dev)
+    logits, warm = prefill(params, {"tokens": tokens},
+                           model.init_serve_state(LM_BATCH, 0, dev))
+    decode(params, logits.argmax(-1).to(torch.int32)[:, None], LM_PROMPT,
+           warm)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    n_slstm = len(cfg.slstm_at)
+    FA.reset_launch_counts()
+    SL.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, {"tokens": tokens}, state)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = SL.LAUNCHES["slstm_fused"]
+    require(prefill_launches == n_slstm,
+            f"prefill launched slstm_fused {prefill_launches} times, "
+            f"expected {n_slstm} (one per sLSTM block)")
+    require(all(n == 0 for n in FA.LAUNCHES.values()),
+            f"xlstm prefill launched flash kernels: {FA.LAUNCHES}")
+    first, prefill_state = logits.clone(), state
+
+    SL.reset_launch_counts()
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    generated = [tok]
+    t0 = time.perf_counter()
+    for i in range(LM_GEN):
+        tok, logits, state = decode(params, tok, LM_PROMPT + i, state)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_launches = SL.LAUNCHES["slstm_fused"]
+    require(decode_launches == n_slstm * LM_GEN,
+            f"decode launched slstm_fused {decode_launches} times, expected "
+            f"{n_slstm * LM_GEN} ({n_slstm} per step)")
+    require(all(n == 0 for n in FA.LAUNCHES.values()),
+            f"xlstm decode launched flash kernels: {FA.LAUNCHES}")
+    out = torch.cat(generated, dim=1)
+    require(first.shape == (LM_BATCH, cfg.vocab_padded) and bool(
+        torch.isfinite(first.float()).all() and torch.isfinite(
+            logits.float()).all()), "xlstm logits: wrong shape or non-finite")
+    require(out.shape == (LM_BATCH, LM_GEN + 1) and bool(
+        ((out >= 0) & (out < cfg.vocab)).all()), "xlstm tokens out of range")
+    return {"cfg": cfg, "model": model, "params": params,
+            "prefill_state": prefill_state, "tokens": tokens,
+            "generated": out, "setup_s": setup_s, "n_params": n_params, "prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_step": decode_s * 1e3 / LM_GEN,
+            "decode_tokens_per_s": LM_BATCH * LM_GEN / decode_s,
+            "peak_mem_gib": (torch.cuda.max_memory_allocated() - base)
+            / 2 ** 30,
+            "launches": prefill_launches + decode_launches,
+            "prefill_launches": prefill_launches,
+            "decode_launches": decode_launches}
+
+
+def block3_inputs(run: dict):
+    """Block 3's (the first sLSTM block's) xg, r and starting state in the
+    served prefill, recomputed by the port's own block functions from the
+    same weights and tokens; the kernel on them must end in the state the
+    prefill returned for block 3, bitwise."""
+    cfg, params, model = run["cfg"], run["params"], run["model"]
+    tokens = run["tokens"]
+    i3 = cfg.slstm_at[0]
+    states = model.init_serve_state(tokens.shape[0], 0, tokens.device)
+    h = params["embed"][tokens].to(cfg.param_dtype())
+    for i in range(i3):
+        h, _ = XL.mlstm_block_apply(params["blocks"][i]["mlstm"], h, cfg,
+                                    states[i])
+    p = params["blocks"][i3]["slstm"]
+    hc, _ = XL._conv_causal(rms_norm(h, p["norm"]), p["conv_w"],
+                            p["conv_b"], states[i3]["conv"])
+    xg = hc @ p["slstm_w"] + p["slstm_b"][None, None, :].to(hc.dtype)
+    cell0 = tuple(states[i3]["cell"])
+    _, got = SL.slstm_fused(xg, p["slstm_r"], cell0, cfg.n_heads)
+    require(all(torch.equal(a, w) for a, w in
+                zip(got, run["prefill_state"][i3]["cell"])),
+            "block 3's recomputed xg does not reproduce the prefill's state")
+    return xg, p["slstm_r"], cell0
+
+
+def slstm_random(gen, b, s, nh, dh, x_dt, r_dt, r_scale=None,
+                 f_offset=1.0):
+    """Random sLSTM inputs on the card: xg 0.5·N with the model's forget
+    offset (slstm_b puts 1 on f), r ~ N(0, r_scale²) (default 0.3/sqrt(dh):
+    unit-order recurrent pre-activations at every dh), and a nonzero state
+    (c ~ N, n ~ U(0.5, 2), h ~ 0.5·N, m ~ N)."""
+    dev = gen.device
+    d = nh * dh
+    xg = 0.5 * torch.randn((b, s, 4, d), generator=gen, device=dev)
+    xg[:, :, 2] += f_offset
+    scale = 0.3 / np.sqrt(dh) if r_scale is None else r_scale
+    r = scale * torch.randn((4, nh, dh, dh), generator=gen, device=dev)
+    st = (torch.randn((b, d), generator=gen, device=dev),
+          0.5 + 1.5 * torch.rand((b, d), generator=gen, device=dev),
+          0.5 * torch.randn((b, d), generator=gen, device=dev),
+          torch.randn((b, d), generator=gen, device=dev))
+    return xg.reshape(b, s, 4 * d).to(x_dt), r.to(r_dt), st
+
+
+def slstm_agreement(xg, r, st, nh: int, what: str) -> dict:
+    """The kernel against its plain version (f32, TF32 off) and both
+    against the plain version in float64, for hs and each state. Holds
+    max |kernel − plain| ≤ max(SLSTM_ATOL, SLSTM_ENVELOPE · max |plain −
+    float64|), and that the case is resolvable in f32 at all: max |plain −
+    float64| ≤ SLSTM_RESOLVED · max(1, max |float64|). Returns the errors."""
+    with fp32_exact():
+        got = SL.slstm_fused(xg, r, st, nh)
+        want = SL_ref.slstm_fused(xg, r, st, nh)
+        truth = SL_ref.slstm_fused(xg, r, st, nh, dtype=torch.float64)
+    out = {}
+    for name, g, w, t in zip(("hs", "c", "n", "h", "m"), (got[0], *got[1]),
+                             (want[0], *want[1]), (truth[0], *truth[1])):
+        require(g.dtype == torch.float32 and bool(torch.isfinite(g).all()),
+                f"slstm_fused {what}: {name} not finite f32")
+        kp = float((g - w).abs().max())
+        p64 = float((w.double() - t).abs().max())
+        k64 = float((g.double() - t).abs().max())
+        mag = float(t.abs().max())
+        require(p64 <= SLSTM_RESOLVED * max(1.0, mag),
+                f"slstm_fused {what}: {name} is not resolvable in f32 "
+                f"(plain vs float64 {p64:.3e} at |x| {mag:.3e})")
+        bound = max(SLSTM_ATOL, SLSTM_ENVELOPE * p64)
+        require(kp <= bound, f"slstm_fused {what}: {name} kernel vs plain "
+                f"{kp:.3e} > {bound:.3e} (plain vs float64 {p64:.3e})")
+        out[name] = {"kernel_vs_plain": kp, "plain_vs_f64": p64,
+                     "kernel_vs_f64": k64, "max_abs": mag}
+    return out
+
+
+def check_slstm(dev, xg3, r3, cell3) -> dict:
+    """[10b]: the kernel against its plain version on the served block 3
+    and on random inputs at SLSTM_CASES in each input type; the split at
+    SLSTM_SPLIT bitwise; and the conditioning of the reference test's
+    r ~ 0.3·N at the serving shape (printed, not a check of the kernel)."""
+    nh = r3.shape[1]
+    out = {"block3": slstm_agreement(xg3, r3, cell3, nh, "block 3")}
+    gen = torch.Generator(device=dev).manual_seed(13)
+    worst: dict = {}
+    for case in SLSTM_CASES:
+        for x_dt in (torch.float32, torch.bfloat16):
+            for r_dt in (torch.float32, torch.bfloat16):
+                xg, r, st = slstm_random(gen, *case, x_dt, r_dt)
+                errs = slstm_agreement(xg, r, st, case[2],
+                                       f"{case} {x_dt} {r_dt}")
+                key = str(case)
+                worst[key] = {n: max(worst.get(key, {}).get(n, 0.0),
+                                     e["kernel_vs_plain"])
+                              for n, e in errs.items()}
+    out["random_kernel_vs_plain"] = worst
+    b, s, nh, dh = SLSTM_CASES[0]
+    xg, r, st = slstm_random(gen, b, s, nh, dh, torch.bfloat16,
+                             torch.bfloat16)
+    full, fst = SL.slstm_fused(xg, r, st, nh)
+    h1, st1 = SL.slstm_fused(xg[:, :SLSTM_SPLIT], r, st, nh)
+    h2, st2 = SL.slstm_fused(xg[:, SLSTM_SPLIT:], r, st1, nh)
+    require(torch.equal(torch.cat([h1, h2], 1), full) and all(
+        torch.equal(a, w) for a, w in zip(st2, fst)),
+        f"slstm_fused: split at {SLSTM_SPLIT} of {s} is not bitwise")
+    out["split_bitwise"] = True
+    xg, r, st = slstm_random(gen, b, s, nh, dh, torch.float32,
+                             torch.float32, r_scale=0.3, f_offset=0.0)
+    with fp32_exact():
+        p32, _ = SL_ref.slstm_fused(xg, r, st, nh)
+        p64, _ = SL_ref.slstm_fused(xg, r, st, nh, dtype=torch.float64)
+    out["conditioning_r_0.3N"] = {
+        "plain_f32_vs_f64_hs": float((p32.double() - p64).abs().max()),
+        "max_abs_hs": float(p64.abs().max())}
+    return out
+
+
+def check_xlstm_f32(dev, tokens: torch.Tensor) -> dict:
+    """[10c]: the whole model in f32 at full width (TF32 off), seed 0: the
+    card's prefill logits over 1 × XL_F32_TOKENS tokens against the same
+    weights run on the host (device="cpu", the plain versions); and decode
+    at position s − 1 after an (s − 1)-token prefill against an s-token
+    prefill's last logits, on the card."""
+    cfg = LM_configs.get_config(XL_ARCH, tp=1, dtype="float32")
+    model = LM_registry.build(cfg)
+    cpu = torch.device("cpu")
+    toks = tokens[:1]
+    s = toks.shape[1]
+    short = toks[:, :XL_F32_TOKENS]
+    with fp32_exact():
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        SL.reset_launch_counts()
+        lc, _ = model.prefill(params, {"tokens": short},
+                              model.init_serve_state(1, 0, dev))
+        require(SL.LAUNCHES["slstm_fused"] == len(cfg.slstm_at),
+                "f32 prefill did not launch the kernel per sLSTM block")
+        lf, _ = model.prefill(params, {"tokens": toks},
+                              model.init_serve_state(1, 0, dev))
+        _, st = model.prefill(params, {"tokens": toks[:, :s - 1]},
+                              model.init_serve_state(1, 0, dev))
+        ld, _ = model.decode(params, toks[:, s - 1:], s - 1, st)
+        torch.cuda.synchronize()
+    host = interop.tree_map(lambda t: t.to(cpu), params)
+    del params
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lh, _ = model.prefill(host, {"tokens": short.to(cpu)},
+                              model.init_serve_state(1, 0, cpu))
+    host_s = time.perf_counter() - t0
+    out = {"max_abs_logit": float(lc.abs().max()),
+           "card_vs_host_max_abs": float((lc.cpu() - lh).abs().max()),
+           "decode_vs_prefill_max_abs": float((ld - lf).abs().max()),
+           "host_prefill_s": host_s}
+    for key in ("card_vs_host_max_abs", "decode_vs_prefill_max_abs"):
+        require(out[key] < LM_LOGIT_TOL, f"f32 {XL_ARCH}: {key} "
+                f"{out[key]:.3e} >= {LM_LOGIT_TOL}")
+    return out
+
+
+def time_slstm(xg, r, st, iters: int) -> dict:
+    """[10d]: the kernel's call time (CUDA events) on the served block 3's
+    inputs at the serving shape, the plain version's time (a Python loop
+    over S steps: few calls), and the bound from `slstm_costs`. Its device
+    time comes from the profiled prefill (`trace_xlstm`), at the same
+    shape: a short profiler session right after [6a]'s 20 k-event trace
+    recorded none of its kernel events. No single PyTorch call computes an
+    sLSTM (`nn.LSTM` is another cell), so there is no library time."""
+    b, s, _ = xg.shape
+    _, nh, dh, _ = r.shape
+    costs = SL.slstm_costs(b, s, nh, dh, xg.dtype, r.dtype)
+    t_ops = costs["flops"] / PEAK_OPS_S["fp32"]
+    t_bytes = costs["bytes"] / HBM_BYTES_S
+    with fp32_exact():
+        t_k = cuda_ms(lambda: SL.slstm_fused(xg, r, st, nh), iters,
+                      warmup=3)
+        t_p = cuda_ms(lambda: SL_ref.slstm_fused(xg, r, st, nh), 3,
+                      warmup=1)
+        t_k2 = cuda_ms(lambda: SL.slstm_fused(xg, r, st, nh), iters,
+                       warmup=3)
+    return {"ms": t_k, "ms_repeat": t_k2, "plain_ms": t_p,
+            "library_ms": None, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": costs["flops"], "bytes": costs["bytes"],
+            "dependent_steps": s,
+            "library": "none: no single PyTorch call computes the sLSTM "
+                       "(nn.LSTM is another cell)",
+            "shape": f"xg {tuple(xg.shape)} "
+                     f"{str(xg.dtype).replace('torch.', '')}, r "
+                     f"{tuple(r.shape)} "
+                     f"{str(r.dtype).replace('torch.', '')} ({XL_ARCH} "
+                     f"prefill, block 3)"}
+
+
+def trace_xlstm(run: dict, steps: int = 4) -> dict:
+    """One prefill and `steps` decode steps of the served model under
+    torch.profiler, each after a warm-up run in the profiler's schedule:
+    device busy, idle share, top kernels, and the sLSTM kernel's device ms
+    per launch and share of the prefill's device time."""
+    model, params, tokens = run["model"], run["params"], run["tokens"]
+    dev = tokens.device
+    box = {}
+
+    def prefill():
+        box["logits"], box["st"] = model.prefill(
+            params, {"tokens": tokens}, model.init_serve_state(
+                LM_BATCH, 0, dev))
+
+    def decode():
+        tok = box["logits"].argmax(-1).to(torch.int32)[:, None]
+        st = box["st"]
+        for i in range(steps):
+            logits, st = model.decode(params, tok, LM_PROMPT + i, st)
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+    pre = device_trace(prefill, warmup=prefill)
+    sl = [v for k, v in pre["by_kind_ms"].items()
+          if k.startswith("slstm_kernel")]
+    n_sl, sl_ms = sum(v["count"] for v in sl), sum(v["total_ms"] for v in sl)
+    pre["slstm_device_ms"] = sl_ms / n_sl if n_sl else None
+    pre["slstm_share_of_busy"] = (sl_ms / pre["device_busy_ms"]
+                                  if pre["device_busy_ms"] else None)
+    return {"prefill": pre,
+            f"decode_{steps}_steps": device_trace(decode, warmup=decode)}
+
+
+# ---------------------------------------------------------------------------
 
 def card_line() -> str:
     return subprocess.run(
@@ -1601,6 +1962,40 @@ def main() -> int:
     # first events (the last one warms up inside its profiler schedule)
     print(f"[6a] 10 CNN training steps (QAT, all three phases) under "
           f"torch.profiler: {json.dumps(train_trace(dev))}", flush=True)
+
+    xl = serve_xlstm(dev)
+    print(f"[10] xlstm serving: {xl['cfg'].name} (12 blocks, sLSTM at "
+          f"{list(xl['cfg'].slstm_at)}, d_model 768, 4 heads, bf16, tp=1; "
+          f"{xl['n_params']} parameters, seeded, set-up "
+          f"{xl['setup_s']:.2f} s) on {LM_BATCH} x {LM_PROMPT}-token prompts"
+          f" + {LM_GEN} greedy decode steps: prefill {xl['prefill_ms']:.3f} "
+          f"ms, decode {xl['decode_ms_per_step']:.3f} ms/step, "
+          f"{xl['decode_tokens_per_s']:.1f} tokens/s; max_memory_allocated "
+          f"{xl['peak_mem_gib']:.3f} GiB above what was allocated before; "
+          f"slstm_fused launches: prefill {xl['prefill_launches']}, decode "
+          f"{xl['decode_launches']}; flash launches 0; row 0 tokens "
+          f"{xl['generated'][0, :8].tolist()}", flush=True)
+    xg3, r3, c3 = block3_inputs(xl)
+    schecks = check_slstm(dev, xg3, r3, c3)
+    print(f"[10b] slstm_fused kernel vs plain (atol {SLSTM_ATOL}, or "
+          f"{SLSTM_ENVELOPE} x the plain version's distance from float64; "
+          f"resolvable: plain vs float64 <= {SLSTM_RESOLVED} x max(1, |x|))"
+          f": {json.dumps(schecks)}", flush=True)
+    xf32 = check_xlstm_f32(dev, xl["tokens"])
+    print(f"[10c] {XL_ARCH} f32 at full width (TF32 off), bound "
+          f"{LM_LOGIT_TOL}: card vs host over 1 x {XL_F32_TOKENS} tokens, "
+          f"decode at {LM_PROMPT - 1} vs prefill over {LM_PROMPT}: "
+          f"{json.dumps(xf32)}", flush=True)
+    xtrace = trace_xlstm(xl)
+    stimes = time_slstm(xg3, r3, c3, iters=20)
+    stimes["device_ms"] = xtrace["prefill"]["slstm_device_ms"]
+    print(f"[10d] slstm_fused times (ms; CUDA events, mean of 20 calls; "
+          f"device_ms from the profiled prefill's launches): "
+          f"{json.dumps(stimes)}; profiled prefill and decode steps: "
+          f"{json.dumps(xtrace)}", flush=True)
+    slstm_launches = xl["launches"]
+    del xl, xg3, r3, c3
+    torch.cuda.empty_cache()
     print(f"[9d] one full-width LM train step under torch.profiler (after "
           f"a warm-up step in the profiler's schedule): "
           f"{json.dumps(trace_train_step(tr))}", flush=True)
@@ -1652,6 +2047,15 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
             "library": t["library"], "shape": t["shape"], "card": card})
+    kernels.append({
+        "name": SLSTM[0], "route": "cuda", "source": SLSTM[1],
+        "replaces": SLSTM[2], "launches": slstm_launches,
+        "max_abs_err": schecks["block3"]["hs"]["kernel_vs_plain"],
+        "ms": stimes["ms"], "plain_ms": stimes["plain_ms"],
+        "bound_ms": stimes["bound_ms"], "bound_by": stimes["bound_by"],
+        "library_ms": stimes["library_ms"],
+        "device_ms": stimes["device_ms"], "library": stimes["library"],
+        "shape": stimes["shape"], "card": card})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

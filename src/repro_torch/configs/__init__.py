@@ -1,16 +1,17 @@
 """Configurations the port runs: the paper's equalizer operating points
-(equalizer_ht, equalizer_lp) and the dense LM architectures, by --arch id.
+(equalizer_ht, equalizer_lp) and the LM architectures, by --arch id.
 
 Port of `repro.configs`. `ARCHS` lists only the architectures the port
-builds (`models.registry.build`); the other families of the reference
-(MoE, VLM, hybrid, ssm, encdec) come with ROADMAP Queue 1 item 13.
+builds (`models.registry.build`): the dense transformers and xlstm-125m
+(family "ssm"); the other families of the reference (MoE, VLM, hybrid,
+encdec) come with ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from . import (deepseek_7b, equalizer_ht, equalizer_lp, internlm2_1_8b,
-               qwen3_0_6b, smollm_135m)
+               qwen3_0_6b, smollm_135m, xlstm_125m)
 from .shapes import LONG_CONTEXT_ARCHS, SHAPES, ShapeSpec, long_500k_runnable
 
 _MODULES = {
@@ -18,6 +19,7 @@ _MODULES = {
     "deepseek-7b": deepseek_7b,
     "smollm-135m": smollm_135m,
     "qwen3-0.6b": qwen3_0_6b,
+    "xlstm-125m": xlstm_125m,
 }
 
 ARCHS = tuple(_MODULES)

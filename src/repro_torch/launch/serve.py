@@ -1,17 +1,21 @@
 """Batched serving driver: prefill + greedy decode loop.
 
 Port of `repro.launch.serve`. Requests are grouped into a fixed batch,
-prefilled once, then decoded step by step with the KV ring caches written
-in place. On one card (tp = 1), with prefill attention in the hand-written
-flash kernel (``fused_attention=True``):
+prefilled once, then decoded step by step: a dense transformer writes its
+KV ring caches in place, xlstm carries its recurrent states from step to
+step. On one card (tp = 1), with prefill attention in the hand-written
+flash kernel (``fused_attention=True``) and every sLSTM block's recurrence
+in the hand-written sLSTM kernel:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --full --batch 4 --prompt-len 64 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --full
 
 Without ``--full`` it serves the REDUCED config; ``--device cpu`` runs the
 plain PyTorch versions on the host (the default, ``cuda``, raises without a
 card). Weights are random, from a seed; prompts come from a seeded
-generator.
+generator. The log says how often each kernel was launched (0 on the host,
+where the wrappers run their plain versions).
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ import torch
 
 from .. import configs
 from ..device import DeviceLike, resolve_device
+from ..kernels.flash_attn import flash_attn
+from ..kernels.slstm import slstm
 from ..models import registry
 from . import steps as steps_lib
 
@@ -70,6 +76,8 @@ def main(argv=None) -> int:
     batch = {"tokens": torch.randint(0, cfg.vocab,
                                      (args.batch, args.prompt_len),
                                      generator=gen, device=dev)}
+    flash_attn.reset_launch_counts()
+    slstm.reset_launch_counts()
     _sync(dev)
     t0 = time.perf_counter()
     logits, state = prefill(params, batch, state)
@@ -90,6 +98,8 @@ def main(argv=None) -> int:
     log.info("%s on %s: prefill %.3fs; decode %d steps in %.3fs "
              "(%.1f tok/s, %.2f ms/tok)", cfg.name, dev, t_prefill, args.gen,
              t_decode, tput, 1e3 * t_decode / max(args.gen, 1))
+    log.info("kernel launches: %s",
+             {**flash_attn.LAUNCHES, **slstm.LAUNCHES})
     log.info("sample row 0: %s", toks_out[0, :16].tolist())
     return 0
 

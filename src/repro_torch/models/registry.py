@@ -2,8 +2,9 @@
 
 Port of `repro.models.registry`. `build(cfg)` returns a `Model` whose
 methods are what the launchers call: `loss_fn` for training, prefill and
-decode for serving. Only the dense family is ported; the others raise
-NotImplementedError naming their ROADMAP item.
+decode for serving. The dense family (`transformer`) and the ssm family
+(`xlstm`) are ported; the others raise NotImplementedError naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -11,14 +12,13 @@ import dataclasses
 from typing import Any, Callable
 
 from ..device import DeviceLike
-from . import transformer
+from . import transformer, xlstm
 from .common import ModelConfig
 
 _NOT_PORTED = {
     "moe": "MoE transformer (mixtral, moonshot)",
     "vlm": "VLM prefix-LM (llava)",
     "hybrid": "zamba2 hybrid",
-    "ssm": "xlstm",
     "encdec": "whisper encoder-decoder",
 }
 
@@ -56,9 +56,34 @@ def _transformer_model(cfg: ModelConfig) -> Model:
                  prefill=prefill, decode=decode)
 
 
+def _xlstm_model(cfg: ModelConfig) -> Model:
+    def init(generator, device: DeviceLike = "cuda"):
+        return xlstm.init(generator, cfg, device)
+
+    def loss_fn(params, batch):
+        return xlstm.loss_fn(params, batch, cfg)
+
+    def init_serve_state(batch: int, max_len: int,
+                         device: DeviceLike = "cuda"):
+        return xlstm.init_states(cfg, batch, device)
+
+    def prefill(params, batch, state):
+        return xlstm.prefill(params, batch["tokens"], cfg, state)
+
+    def decode(params, token, pos, state):
+        return xlstm.decode_step(params, token, pos, state, cfg)
+
+    return Model(cfg=cfg, init=init, loss_fn=loss_fn,
+                 init_serve_state=init_serve_state,
+                 prefill=prefill, decode=decode)
+
+
+_FAMILIES = {"dense": _transformer_model, "ssm": _xlstm_model}
+
+
 def build(cfg: ModelConfig) -> Model:
-    if cfg.family == "dense":
-        return _transformer_model(cfg)
+    if cfg.family in _FAMILIES:
+        return _FAMILIES[cfg.family](cfg)
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({_NOT_PORTED[cfg.family]}) is not "

@@ -20,7 +20,11 @@ to — and bf16 within one bf16 rounding: |diff| ≤ 1e-2·|want| +
 1e-3·max|want|, since kernel and plain both round an f32 result once and
 their f32 sums differ only in order); a fused model's loss has gradients
 through attention on the card, and training launches the three training
-kernels and never the serving one.
+kernels and never the serving one. The sLSTM kernel agrees with its plain
+version within atol 1e-4 (the reference's bound on its own kernel) at
+dh = 192 and dh = 8 in f32 and bf16, a split pass equals one pass bitwise,
+the wrapper refuses a bad type, a bad shape and autograd, and xlstm
+serving launches it once per sLSTM block per prefill and decode step.
 """
 import numpy as np
 import pytest
@@ -42,10 +46,13 @@ from repro_torch.kernels.flash_attn import ref as fa_ref
 from repro_torch.kernels.quant import ops as q_ops
 from repro_torch.kernels.quant import quant as q_kern
 from repro_torch.kernels.quant import ref as q_ref
+from repro_torch.kernels.slstm import ref as sl_ref
+from repro_torch.kernels.slstm import slstm as sl_kern
 from repro_torch.kernels.volterra import volterra as v_kern
 from repro_torch.kernels.volterra import ref as v_ref
 from repro_torch.data import pipeline as lm_data
 from repro_torch.device import fp32_exact
+from repro_torch import interop
 from repro_torch.interop import tree_leaves, tree_unflatten
 from repro_torch.launch import serve as lm_serve
 from repro_torch.launch import train as lm_train
@@ -493,3 +500,106 @@ def test_train_step_on_card_launches_training_kernels(cuda_device):
                                "flash_attention_bwd_dq": n * 2}
     assert all(np.isfinite(losses))
     assert int(opt_state.step) == 3
+
+
+SLSTM_GRID = [(2, 64, 4, 192), (1, 65, 2, 8), (3, 17, 1, 32),
+              (2, 1, 4, 192)]                       # b, s, nh, dh
+
+
+def _slstm_inputs(case, dtype, dev, seed=0):
+    """xg 0.5·N with the model's forget offset (+1 on f), r ~ N(0, 0.09/dh)
+    and a nonzero state, drawn on the host from a seed."""
+    b, s, nh, dh = case
+    d = nh * dh
+    g = torch.Generator().manual_seed(seed + s + dh)
+    xg = 0.5 * torch.randn((b, s, 4, d), generator=g)
+    xg[:, :, 2] += 1.0
+    r = 0.3 / np.sqrt(dh) * torch.randn((4, nh, dh, dh), generator=g)
+    st = (torch.randn((b, d), generator=g),
+          0.5 + 1.5 * torch.rand((b, d), generator=g),
+          0.5 * torch.randn((b, d), generator=g),
+          torch.randn((b, d), generator=g))
+    return (xg.reshape(b, s, 4 * d).to(dev, dtype), r.to(dev, dtype),
+            tuple(t.to(dev) for t in st))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SLSTM_GRID)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_kernel_agrees_with_plain_on_card(cuda_device, case, dtype):
+    """atol 1e-4, the reference's bound on its own kernel: at these
+    sequence lengths f32 resolves it (the plain version's TF32 is off)."""
+    xg, r, st = _slstm_inputs(case, dtype, cuda_device)
+    before = sl_kern.LAUNCHES["slstm_fused"]
+    with fp32_exact():
+        got, gst = sl_kern.slstm_fused(xg, r, st, case[2])
+        want, wst = sl_ref.slstm_fused(xg, r, st, case[2])
+    torch.cuda.synchronize()
+    assert sl_kern.LAUNCHES["slstm_fused"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (
+        case[0], case[1], case[2] * case[3])
+    for name, a, w in zip(("hs", "c", "n", "h", "m"), (got, *gst),
+                          (want, *wst)):
+        assert float((a - w).abs().max()) <= 1e-4, (name, float(
+            (a - w).abs().max()))
+
+
+@pytest.mark.cuda
+def test_slstm_split_is_bitwise_on_card(cuda_device):
+    """A pass over [0, s1) then one over [s1, S) from the returned state
+    equals one pass bitwise (a deterministic kernel, state in f32)."""
+    xg, r, st = _slstm_inputs((2, 300, 4, 192), torch.bfloat16, cuda_device)
+    full, fst = sl_kern.slstm_fused(xg, r, st, 4)
+    h1, st1 = sl_kern.slstm_fused(xg[:, :101], r, st, 4)
+    h2, st2 = sl_kern.slstm_fused(xg[:, 101:], r, st1, 4)
+    assert torch.equal(torch.cat([h1, h2], 1), full)
+    assert all(torch.equal(a, w) for a, w in zip(st2, fst))
+
+
+@pytest.mark.cuda
+def test_slstm_refuses_on_card(cuda_device):
+    xg, r, st = _slstm_inputs((1, 8, 2, 16), torch.float32, cuda_device)
+    before = sl_kern.LAUNCHES["slstm_fused"]
+    with pytest.raises(ValueError, match="must be one of"):
+        sl_kern.slstm_fused(xg.half(), r, st, 2)
+    with pytest.raises(ValueError, match="does not fit"):
+        sl_kern.slstm_fused(xg, r[:, :1].contiguous(), st, 2)
+    with pytest.raises(ValueError, match="state c"):
+        sl_kern.slstm_fused(xg, r, (st[0].cpu(),) + st[1:], 2)
+    leaf = xg.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        sl_kern.slstm_fused(leaf, r, st, 2)
+    assert sl_kern.LAUNCHES["slstm_fused"] == before
+    with torch.no_grad():                  # no autograd: the kernel runs
+        sl_kern.slstm_fused(leaf, r, st, 2)
+    assert sl_kern.LAUNCHES["slstm_fused"] == before + 1
+
+
+@pytest.mark.cuda
+def test_reduced_xlstm_serving_launches_slstm_per_block_and_step(
+        cuda_device):
+    cfg = lm_configs.get_config("xlstm-125m", reduced=True, tp=1)
+    model, params, state, prefill, decode = lm_serve.serve_session(
+        cfg, 2, 32, 36, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 32), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(1))
+    n = len(cfg.slstm_at)
+    fa.reset_launch_counts()
+    sl_kern.reset_launch_counts()
+    logits, state = prefill(params, {"tokens": toks}, state)
+    torch.cuda.synchronize()
+    assert sl_kern.LAUNCHES["slstm_fused"] == n
+    first = logits
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    for i in range(4):
+        tok, logits, state = decode(params, tok, 32 + i, state)
+    torch.cuda.synchronize()
+    assert sl_kern.LAUNCHES["slstm_fused"] == n * 5
+    assert all(v == 0 for v in fa.LAUNCHES.values())
+    assert bool(torch.isfinite(logits).all())
+    # the same prefill on the host (the plain versions), f32, TF32 off
+    host = interop.tree_map(lambda t: t.cpu(), params)
+    want, _ = model.prefill(host, {"tokens": toks.cpu()},
+                            model.init_serve_state(2, 36, "cpu"))
+    err = float((first.cpu() - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err

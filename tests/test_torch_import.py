@@ -27,6 +27,7 @@ from repro_torch.data import pipeline as lm_data
 from repro_torch.launch import serve as lm_serve
 from repro_torch.launch import train as lm_train
 from repro_torch.models import transformer as lm_transformer
+from repro_torch.models import xlstm as lm_xlstm
 from repro_torch.serve import ServeRuntime
 
 REPO_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
@@ -100,6 +101,28 @@ def test_lm_training_modules_import_without_jax(name):
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+SSM_MODULES = ("repro_torch.models.xlstm", "repro_torch.configs.xlstm_125m",
+               "repro_torch.kernels.slstm", "repro_torch.kernels.slstm.slstm",
+               "repro_torch.kernels.slstm.ops",
+               "repro_torch.kernels.slstm.ref")
+
+
+@pytest.mark.parametrize("name", SSM_MODULES)
+def test_xlstm_serving_modules_import_without_jax(name):
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({name!r})
+        bad = sorted(k for k in sys.modules
+                     if k == "jax" or k.startswith("jax.")
+                     or k == "repro" or k.startswith("repro."))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO_SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -128,6 +151,14 @@ def _folded():
                                 lm_configs.get_config("qwen3-0.6b", True)),
     lambda: lm_transformer.init_cache(
         lm_configs.get_config("qwen3-0.6b", True), 1, 8),
+    lambda: lm_serve.serve_session(
+        lm_configs.get_config("xlstm-125m", True, tp=1), 1, 4, 8),
+    lambda: lm_serve.main(["--arch", "xlstm-125m", "--batch", "1",
+                           "--prompt-len", "4", "--gen", "1"]),
+    lambda: lm_xlstm.init(torch.Generator(),
+                          lm_configs.get_config("xlstm-125m", True)),
+    lambda: lm_xlstm.init_states(lm_configs.get_config("xlstm-125m", True),
+                                 1),
 ])
 def test_entry_point_without_device_raises_without_card(monkeypatch, entry):
     _no_card(monkeypatch)
@@ -223,3 +254,13 @@ def test_flash_backward_build_raises_without_compiler(monkeypatch,
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fa.build_bwd()
+
+
+def test_slstm_build_raises_without_compiler(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.slstm import slstm as kern
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kern.build()

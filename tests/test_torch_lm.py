@@ -53,7 +53,8 @@ from repro_torch.models import transformer as ttr
 from repro_torch.parallel import sharding as tsharding
 
 KEY = jax.random.PRNGKey(0)
-PORTED = ("qwen3-0.6b", "smollm-135m", "internlm2-1.8b", "deepseek-7b")
+PORTED = ("qwen3-0.6b", "smollm-135m", "internlm2-1.8b", "deepseek-7b",
+          "xlstm-125m")
 F32_ATOL = 5e-6        # single ops at |y| ≲ 10: a few f32 ulps
 B, S, MAX_LEN, STEPS = 2, 24, 48, 4
 
@@ -118,15 +119,28 @@ def test_archs_list_only_what_the_port_builds():
     with pytest.raises(ValueError, match="unknown arch"):
         tconfigs.get_config("mixtral-8x22b")
     for arch in tconfigs.ARCHS:
-        assert treg.build(tconfigs.get_config(arch, True)).cfg.family == \
-            "dense"
+        assert treg.build(tconfigs.get_config(arch, True)).cfg.family == (
+            "ssm" if arch == "xlstm-125m" else "dense")
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "hybrid", "ssm",
-                                    "encdec"])
+@pytest.mark.parametrize("family", ["moe", "vlm", "hybrid", "encdec"])
 def test_unported_families_raise_naming_their_roadmap_item(family):
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         treg.build(tcommon.ModelConfig(family=family))
+
+
+def test_ssm_family_builds_and_its_prefill_runs():
+    cfg = tconfigs.get_config("xlstm-125m", reduced=True)
+    model = treg.build(cfg)
+    assert model.cfg.family == "ssm"
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 9),
+                         generator=torch.Generator().manual_seed(1))
+    logits, state = model.prefill(params, {"tokens": toks},
+                                  model.init_serve_state(2, 16, "cpu"))
+    assert logits.shape == (2, cfg.vocab_padded)
+    assert len(state) == cfg.n_layers
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_moe_layers_raise():
