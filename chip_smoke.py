@@ -51,14 +51,18 @@ result line), in the order they run:
      work). 8b: the kernel against its plain version on layer 0's q, k, v
      of that prefill (bf16; rtol 1e-2, atol 2e-2) and on random inputs at
      non-aligned shapes (f32 atol 2e-5, bf16 atol 2e-2): GQA 16/8, MQA
-     8/1, a window, q_offset > 0 with Sq < Sk, bidirectional. 8c: the
+     8/1, a window, q_offset > 0 with Sq < Sk, bidirectional, and the
+     bf16 tensor-core tiles' edges (S = 63, 64, 65, 129, 2049; D = 80,
+     112; a window ending inside a tile). 8c: the
      whole model in f32 (TF32 off), 1 × 2048 tokens: fused against the
      chunked plain prefill, and decode at position 2047 against a prefill
      over 2048 tokens, each within 2e-3. 8d: at the serving shape the
      kernel's device and call time, the plain version's, the bound from
      `attention_costs` and F.scaled_dot_product_attention as the library
-     yardstick, then one prefill and 4 decode steps under torch.profiler
-     (device idle share, top kernels);
+     yardstick, the achieved TFLOP/s, the share of the bound, the factor
+     against SDPA and the f32 instance's device time at the same shape,
+     then one prefill and 4 decode steps under torch.profiler (device idle
+     share, top kernels);
   9. LM training: `repro_torch.launch.train.build` at qwen3-0.6b's full
      width (fused_attention, remat, tp = 1, AdamW lr 3e-4 with
      grad_clip_norm 1.0) and its train step on 2 × (4 × 2048) tokens a
@@ -78,7 +82,8 @@ result line), in the order they run:
      kernel's device and call time at the training shape, its plain
      version's, its bound (its own products — 2, 4 and 3 — at the bf16
      tensor-core peak) and the library yardstick (SDPA's forward, and its
-     backward through autograd); 9e: the training CLI
+     backward through autograd), and for the forward with lse the same
+     four figures as 8d; 9e: the training CLI
      (`launch.train.run`) at qwen3-0.6b widths and 2 layers with a failure
      injected before step 2 and a checkpoint every step: 1 restart,
      finite losses, 3 checkpoints;
@@ -230,6 +235,10 @@ FLASH = ("flash_attention",
          "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
          "src/repro/kernels/flash_attn/flash_attn.py:186")
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the forward's kernels by input type, as the profiler names them: the
+# bf16 tensor-core template and the f32 FMA template
+FLASH_KERNEL = {torch.bfloat16: "flash_attn_kernel_tc<",
+                torch.float32: "flash_attn_kernel<float"}
 FLASH_CASES = (  # b, sq, sk, h, hkv, d, causal, window, q_offset
     (1, 1000, 1000, 16, 8, 128, True, 0, 0),      # non-aligned, GQA 16/8
     (1, 1000, 1000, 8, 1, 128, True, 0, 0),       # MQA 8/1
@@ -237,6 +246,14 @@ FLASH_CASES = (  # b, sq, sk, h, hkv, d, causal, window, q_offset
     (1, 700, 1000, 16, 8, 128, True, 0, 300),     # q_offset > 0, Sq < Sk
     (1, 1000, 1000, 16, 8, 128, False, 0, 0),     # bidirectional
     (2, 1000, 1000, 4, 2, 48, True, 0, 0),        # qwen3-reduced head dim
+    # the bf16 tensor-core tiles' edges (64-row q tiles, 64-key K/V tiles)
+    (1, 63, 63, 16, 8, 128, True, 0, 0),
+    (1, 64, 64, 16, 8, 128, True, 0, 0),
+    (1, 65, 65, 16, 8, 80, True, 0, 0),
+    (1, 129, 129, 16, 8, 112, True, 0, 0),
+    (1, 2049, 2049, 16, 8, 128, True, 0, 0),
+    (1, 129, 129, 16, 8, 112, True, 37, 0),       # window ends inside a tile
+    (1, 65, 2049, 16, 8, 80, True, 0, 1984),      # Sq < Sk, offset 1984
 )
 LM_LOGIT_TOL = 2e-3          # the reference's decode-vs-prefill bound
 # the LM training slice (phase 9): microbatches of 4 x 2048 tokens, accum 2
@@ -1077,6 +1094,18 @@ def check_lm_f32(dev, tokens: torch.Tensor) -> dict:
     return out
 
 
+def redesign_figures(t: dict, kern_f32, f32_name: str) -> dict:
+    """What the bf16 tensor-core forward is read by: achieved TFLOP/s and
+    the share of the bound, both from the device time; the factor against
+    SDPA (CUDA events for both); the f32 instance's device time at the
+    same shape (the FP32-FMA datapath, which the redesign left alone)."""
+    dev_ms = t["device_ms"]
+    return {"tflops": t["flops"] / dev_ms / 1e9 if dev_ms else None,
+            "bound_share": t["bound_ms"] / dev_ms if dev_ms else None,
+            "x_sdpa": t["ms"] / t["library_ms"],
+            "f32_device_ms": _device_ms(kern_f32, f32_name, calls=3)}
+
+
 def time_flash(q, k, v, iters: int) -> dict:
     """Kernel (CUDA events and profiler device time), plain version,
     SDPA yardstick and bound at the serving shape."""
@@ -1096,12 +1125,17 @@ def time_flash(q, k, v, iters: int) -> dict:
     t_k2 = cuda_ms(lambda: FA.flash_attention(q, k, v), iters, warmup=3)
     lib_diff = float((sdpa().transpose(1, 2).float()
                       - FA.flash_attention(q, k, v).float()).abs().max())
-    return {"ms": t_k, "ms_repeat": t_k2, "plain_ms": t_p, "library_ms": t_l,
-            "device_ms": _device_ms(lambda: FA.flash_attention(q, k, v),
-                                    "flash_attn_kernel", calls=10),
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = {"ms": t_k, "ms_repeat": t_k2, "plain_ms": t_p, "library_ms": t_l,
+           "device_ms": _device_ms(lambda: FA.flash_attention(q, k, v),
+                                   FLASH_KERNEL[q.dtype], calls=10),
+           "bound_ms": max(t_ops, t_bytes) * 1e3, "flops": costs["flops"]}
+    out.update(redesign_figures(
+        out, lambda: FA.flash_attention(qf, kf, vf),
+        FLASH_KERNEL[torch.float32]))
+    return {**out,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": costs["flops"], "hbm_bytes": costs["hbm_bytes"],
+            "hbm_bytes": costs["hbm_bytes"],
             "library_max_abs_diff": lib_diff,
             "library": "F.scaled_dot_product_attention(is_causal=True, "
                        "enable_gqa=True) on (B, H, S, D) views",
@@ -1410,7 +1444,7 @@ def time_train_kernels(q, k, v, do, iters: int) -> dict:
         t_k = cuda_ms(kern, iters, warmup=3)
         t_p = cuda_ms(plain, 3, warmup=1)
         t_k2 = cuda_ms(kern, iters, warmup=3)
-        kernel_name = ("flash_attn_kernel" if name == "flash_attention_fwd"
+        kernel_name = (FLASH_KERNEL[q.dtype] if name == "flash_attention_fwd"
                        else "flash_bwd_dkv_kernel" if name.endswith("dkv")
                        else "flash_bwd_dq_kernel")
         fwd = name == "flash_attention_fwd"
@@ -1427,6 +1461,11 @@ def time_train_kernels(q, k, v, do, iters: int) -> dict:
                         "is_causal=True, enable_gqa=True) through autograd "
                         "(dq, dk, dv together)"),
             "shape": shape}
+        if fwd:
+            qf, kf, vf = q.float(), k.float(), v.float()
+            out[name].update(redesign_figures(
+                out[name], lambda: FA.flash_attention_fwd(qf, kf, vf),
+                FLASH_KERNEL[torch.float32]))
     out["library_bwd_max_abs_diff"] = lib_diff
     return out
 

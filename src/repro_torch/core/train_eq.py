@@ -33,7 +33,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..channels.common import ber_from_soft, bits_to_pam
-from ..device import DeviceLike, as_float32, resolve_device
+from ..device import DeviceLike, as_float32, fp32_exact, resolve_device
 from ..interop import tree_map
 from ..optim import AdamW
 from . import equalizer as cnn_eq
@@ -95,7 +95,8 @@ def _loss_and_grads(apply_fn: Callable, params: Dict[str, Any],
     loss = torch.mean((y - amps) ** 2)
     if quant and qat_cfg is not None and "qat" in p:
         loss = loss + qat_lib.quant_loss_term(p["qat"], qat_cfg)
-    loss.backward()
+    with fp32_exact():      # the backward convolutions too: no TF32, and
+        loss.backward()     # the same sums on every run
     grads = tree_map(lambda t: t.grad if t.grad is not None
                      else torch.zeros_like(t), p)
     return loss.detach(), grads, _detach(new_state)

@@ -6,10 +6,13 @@ raises when a card is asked for and none is present: the port never runs
 on the CPU unless the caller asks for it (the CPU tests pass
 ``device="cpu"``, which runs each kernel's plain PyTorch version).
 
-fp32 policy: float32 means float32. TF32 keeps about three decimal digits,
-and cuDNN uses it for fp32 convolutions by default, so every `F.conv1d`
-the port runs on the card sits inside `fp32_exact()`, which turns TF32 off
-for cuDNN and for matmuls.
+fp32 policy: float32 means float32, and the same float32 on every run.
+TF32 keeps about three decimal digits, and cuDNN uses it for fp32
+convolutions by default; cuDNN may also pick, per call, an algorithm that
+sums with atomics in a varying order. So every `F.conv1d` the port runs on
+the card, and the backward pass through it, sits inside `fp32_exact()`,
+which turns TF32 off for cuDNN and for matmuls and holds cuDNN to its
+deterministic algorithms (no benchmark search).
 """
 from __future__ import annotations
 
@@ -41,12 +44,14 @@ def resolve_device(device: DeviceLike = DEFAULT_DEVICE) -> torch.device:
 
 @contextlib.contextmanager
 def fp32_exact() -> Iterator[None]:
-    """Run the body with TF32 off for cuDNN convolutions and matmuls."""
+    """Run the body with TF32 off for cuDNN convolutions and matmuls and
+    with cuDNN's deterministic algorithms only."""
     prev_matmul = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         with torch.backends.cudnn.flags(
-                enabled=torch.backends.cudnn.enabled, allow_tf32=False):
+                enabled=torch.backends.cudnn.enabled, benchmark=False,
+                deterministic=True, allow_tf32=False):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_matmul

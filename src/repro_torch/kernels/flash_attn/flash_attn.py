@@ -22,7 +22,12 @@ lse for it, dk/dv summed over the GQA group).
 What they take: f32 or bf16, one type for q, k, v (and do); a head dim
 that is a multiple of 16 up to 128 (`HEAD_DIMS`); Hkv dividing H; unit
 stride along D; lse and delta (B, Sq, H) f32. Anything else raises, on
-either device.
+either device. The bf16 forward kernels stage rows with 16-byte
+asynchronous copies, so on the card `flash_attention` and
+`flash_attention_fwd` also need each bf16 q, k and v to start on a
+16-byte boundary and every (b, s, h) stride of a dimension longer than 1
+to be a multiple of 8 elements; otherwise they raise ValueError naming
+the tensor (no copy, no fallback).
 
 `LAUNCHES` counts kernel launches, one key per kernel (bumped only where
 that kernel is launched): ``flash_attention`` (serving), and the training
@@ -135,6 +140,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {window}, {q_offset}")
 
 
+def _check_rows_aligned(name: str, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> None:
+    """The bf16 forward kernels' cp.async staging: each row of q, k, v
+    starts on a 16-byte boundary (the pointer, and every (b, s, h) stride
+    the kernel steps along)."""
+    if q.dtype != torch.bfloat16:
+        return
+    for tname, t in (("q", q), ("k", k), ("v", v)):
+        steps = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(st * t.element_size() % 16
+                                    for st in steps):
+            raise ValueError(
+                f"{name}: bf16 {tname} rows must start on 16-byte "
+                f"boundaries (data_ptr % 16 == 0 and (b, s, h) strides "
+                f"multiples of 8 elements), got data_ptr % 16 = "
+                f"{t.data_ptr() % 16}, strides {t.stride()}")
+
+
 def _check_bwd(q: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                delta: torch.Tensor) -> None:
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
@@ -215,6 +238,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, window, q_offset)
     if not q.is_cuda:
         return ref.flash_attention(q, k, v, causal, window, q_offset)
+    _check_rows_aligned("flash_attention", q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lib = _build.load(CSRC, _bind)
     with torch.cuda.device(q.device):
@@ -235,6 +259,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, window, q_offset)
     if not q.is_cuda:
         return ref.flash_attention_fwd(q, k, v, causal, window, q_offset)
+    _check_rows_aligned("flash_attention_fwd", q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     lib = _build.load(CSRC, _bind)

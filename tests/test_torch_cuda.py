@@ -9,11 +9,17 @@ no jax, so it also runs on the card's host:
 Each kernel must equal its plain version (`ref.py`) bitwise on the card at
 any tile width, stacked or shared weights, and the serving path must run
 through the kernels. The same holds for the Volterra, fixed-point-quantize
-and conv1d kernels, and the training path runs on the card. The
-flash-attention kernel agrees with its plain version within f32 atol 2e-5
-and bf16 atol 2e-2 (its online softmax sums in another order, so not
-bitwise), and LM serving launches it once per layer per prefill and never
-while decoding. The training kernels (forward with lse, dK/dV, dQ) agree
+and conv1d kernels, and the training path runs on the card. Two QAT
+trainings of the CNN from one seed give bitwise-equal parameters and
+widths (cuDNN held to its deterministic algorithms). The flash-attention
+kernel agrees with its plain version within f32 atol 2e-5 and bf16 atol
+2e-2 (its online softmax sums in another order, so not bitwise), also at
+the bf16 tensor-core tiles' edges (S = 63, 64, 65, 129, 2049; D = 80,
+112; a window ending inside a tile); its f32 instances give bitwise the
+output they gave before the bf16 redesign; the bf16 wrappers refuse rows
+that do not start on 16-byte boundaries and launch nothing; and LM
+serving launches it once per layer per prefill and never while
+decoding. The training kernels (forward with lse, dK/dV, dQ) agree
 with their plain versions (o f32 atol 2e-5 / bf16 2e-2, lse atol 1e-5,
 backward f32 atol 5e-4 — the bound the reference holds its own backward
 to — and bf16 within one bf16 rounding: |diff| ≤ 1e-2·|want| +
@@ -26,6 +32,8 @@ dh = 192 and dh = 8 in f32 and bf16, a split pass equals one pass bitwise,
 the wrapper refuses a bad type, a bad shape and autograd, and xlstm
 serving launches it once per sLSTM block per prefill and decode step.
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +42,7 @@ from repro_torch import configs as lm_configs
 from repro_torch.configs import equalizer_ht as HT
 from repro_torch.core import equalizer as teq
 from repro_torch.core import fir as tfir
+from repro_torch.core import qat
 from repro_torch.core import train_eq as ttrain
 from repro_torch.core.engine import EqualizerEngine, stacked_engine_fn
 from repro_torch.data import equalizer_data as tdata
@@ -228,6 +237,24 @@ def test_conv1d_kernel_equals_plain_on_card(cuda_device, c_in, c_out, k,
 
 
 @pytest.mark.cuda
+def test_qat_training_repeats_bitwise_on_card(cuda_device):
+    cfg = ttrain.EqTrainConfig(steps=10, batch=4, seq_syms=256,
+                               eval_syms=4096)
+    qcfg = qat.QATConfig(init_int_bits=8.0, init_frac_bits=8.0)
+    fn = tdata.channel_fn("imdd", device=cuda_device)
+    runs = [ttrain.train_equalizer(
+        torch.Generator(device=cuda_device).manual_seed(4), "cnn", HT.CNN,
+        fn, cfg, qat_cfg=qcfg, device=cuda_device) for _ in range(2)]
+    (p1, bn1, i1), (p2, bn2, i2) = runs
+    assert "qat" in p1
+    for a, b in zip(tree_leaves((p1, bn1)), tree_leaves((p2, bn2))):
+        assert torch.equal(a, b)
+    assert i1["ber"] == i2["ber"]
+    assert (i1["bits_params"], i1["bits_acts"]) == (i2["bits_params"],
+                                                    i2["bits_acts"])
+
+
+@pytest.mark.cuda
 def test_training_runs_on_card_and_deploys(cuda_device):
     cfg = ttrain.EqTrainConfig(steps=20, batch=4, seq_syms=256,
                                eval_syms=4096)
@@ -262,6 +289,15 @@ FLASH_GRID = [  # b, sq, sk, h, hkv, d, causal, window, q_offset
     (2, 64, 192, 2, 2, 64, False, 0, 0),        # bidirectional
     (1, 96, 96, 8, 1, 16, True, 0, 0),          # MQA
     (1, 40, 40, 4, 2, 48, True, 0, -5),         # rows with no valid key
+    # the bf16 tensor-core tiles' edges: 64-row q tiles, 64-key K/V tiles
+    (1, 63, 63, 4, 2, 80, True, 0, 0),
+    (1, 64, 64, 4, 2, 112, True, 0, 0),
+    (1, 65, 65, 2, 1, 128, True, 0, 0),
+    (1, 129, 129, 4, 2, 80, True, 0, 0),
+    (1, 2049, 2049, 2, 1, 128, True, 0, 0),
+    (1, 65, 129, 4, 2, 112, True, 0, 64),       # Sq < Sk at an offset
+    (1, 129, 129, 4, 2, 64, True, 37, 0),       # window ends inside a tile
+    (1, 63, 2049, 2, 2, 128, False, 0, 0),      # bidirectional, 33 K tiles
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SERVING_SHAPE = (2, 2048, 2048, 16, 8, 128, True, 0, 0)   # qwen3-0.6b
@@ -305,6 +341,60 @@ def test_flash_attention_refuses_on_card(cuda_device):
     with pytest.raises(ValueError, match="share one type"):
         fa.flash_attention(h, h.half(), h.half())
     assert fa.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_unaligned_bf16_rows_on_card(cuda_device):
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(s, generator=g).to(cuda_device, torch.bfloat16)
+               for s in ((1, 64, 4, 64), (1, 64, 2, 64), (1, 64, 2, 64)))
+    flat = torch.zeros(k.numel() + 8, dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:1 + k.numel()].view(k.shape)      # 2 bytes off 16
+    shifted.copy_(k)
+    wide = torch.zeros(1, 64, 2, 68, dtype=torch.bfloat16,
+                       device=cuda_device)[..., :64]   # rows 136 bytes apart
+    wide.copy_(v)
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="flash_attention: bf16 k rows"):
+        fa.flash_attention(q, shifted, v)
+    with pytest.raises(ValueError, match="flash_attention_fwd: bf16 v rows"):
+        fa.flash_attention_fwd(q, k, wide)
+    torch.cuda.synchronize()
+    assert sum(fa.LAUNCHES.values()) == 0
+    # the same values, aligned, launch
+    aligned = fa.flash_attention(q, shifted.clone(), wide.contiguous())
+    assert torch.equal(aligned, fa.flash_attention(q, k, v))
+    assert fa.LAUNCHES["flash_attention"] == 2
+
+
+# The f32 instances kept their FP32-FMA datapath when the bf16 instances
+# moved to the tensor cores: sha256 (first 16 hex digits) of o, of the
+# training forward's o and of its lse on fixed numpy inputs, as the kernel
+# before the bf16 redesign computed them on an H100.
+F32_FINGERPRINTS = {
+    (16, (1, 130, 4, 2, 64)): ("057b38ba9e23d90d", "057b38ba9e23d90d",
+                               "4f719f5812545970"),
+    (17, (2, 100, 8, 4, 128)): ("bc601f7907a035bf", "bc601f7907a035bf",
+                                "8dbca4f2301d6cbe"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,shape", list(F32_FINGERPRINTS))
+def test_flash_f32_instances_are_bitwise_unchanged_on_card(cuda_device,
+                                                           seed, shape):
+    b, s, h, hkv, d = shape
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .to(cuda_device) for sh in ((b, s, h, d), (b, s, hkv, d),
+                                           (b, s, hkv, d)))
+    o = fa.flash_attention(q, k, v)
+    o2, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    got = tuple(hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+                for t in (o, o2, lse))
+    assert got == F32_FINGERPRINTS[(seed, shape)]
 
 
 @pytest.mark.cuda
