@@ -74,7 +74,10 @@ result line), in the order they run:
      synchronised steps), tokens/s, max_memory_allocated and the losses.
      9b: the three training kernels against their plain versions on layer
      0 of the trained model (bf16) and at random non-aligned shapes (S =
-     100, 130, 2049; window 0 and 48; GQA 2 and 4; f32 and bf16): o f32
+     100, 130, 2049; window 0 and 48; GQA 2 and 4; f32 and bf16) and the
+     bf16 tensor-core backward's tile edges (S = 1 at an offset, 63, 64,
+     65, 127, 129; D = 48, 80, 112; GQA 1 and 8; a negative offset; a
+     window ending inside a tile): o f32
      2e-5 (bf16 2e-2 + 1e-2·|o|), lse 1e-5, backward f32 5e-4, bf16
      1e-2·|want| + 1e-3·max|want|. 9c: one f32 microbatch of 1 × 2048 at
      full width (TF32 off): loss within 1e-4 and every gradient leaf
@@ -82,8 +85,9 @@ result line), in the order they run:
      kernel's device and call time at the training shape, its plain
      version's, its bound (its own products — 2, 4 and 3 — at the bf16
      tensor-core peak) and the library yardstick (SDPA's forward, and its
-     backward through autograd), and for the forward with lse the same
-     four figures as 8d; 9e: the training CLI
+     backward through autograd), and for each of the three the same four
+     figures as 8d (TFLOP/s, share of the bound, x SDPA, the f32
+     instance's device time); 9e: the training CLI
      (`launch.train.run`) at qwen3-0.6b widths and 2 layers with a failure
      injected before step 2 and a checkpoint every step: 1 restart,
      finite losses, 3 checkpoints;
@@ -269,12 +273,30 @@ TRAIN_KERNELS = {   # name → (source, TPU kernel's pallas_call, products)
     "flash_attention_bwd_dq": (FLASH_SRC + "flash_attn_bwd.cu",
                                FLASH_TPU + "366", 3),
 }
-TRAIN_CASES = (  # b, s, h, hkv, d, window: non-aligned S, GQA 2 and 4
-    (1, 100, 8, 4, 128, 0),
-    (1, 130, 16, 4, 128, 48),
-    (2, 130, 8, 2, 128, 0),
-    (1, 2049, 16, 8, 128, 0),
-    (1, 2049, 16, 4, 128, 48),
+TRAIN_KERNEL_NAMES = {   # name → (bf16 instance, f32 instance) in traces
+    "flash_attention_fwd": (FLASH_KERNEL[torch.bfloat16],
+                            FLASH_KERNEL[torch.float32]),
+    "flash_attention_bwd_dkv": ("flash_bwd_dkv_kernel_tc<",
+                                "flash_bwd_dkv_kernel<float"),
+    "flash_attention_bwd_dq": ("flash_bwd_dq_kernel_tc<",
+                               "flash_bwd_dq_kernel<float"),
+}
+TRAIN_CASES = (  # b, sq, sk, h, hkv, d, window, q_offset
+    (1, 100, 100, 8, 4, 128, 0, 0),       # non-aligned S, GQA 2 and 4
+    (1, 130, 130, 16, 4, 128, 48, 0),
+    (2, 130, 130, 8, 2, 128, 0, 0),
+    (1, 2049, 2049, 16, 8, 128, 0, 0),
+    (1, 2049, 2049, 16, 4, 128, 48, 0),
+    # the bf16 tensor-core backward's tile edges (64 q rows x 64 keys,
+    # 16-wide passes): S = 1 (one query at an offset; a lone row with a
+    # lone key has ds = 0 up to rounding, which no elementwise bound can
+    # compare), 63, 64, 65, 127, 129; D = 48, 80, 112; GQA 1 and 8
+    (1, 1, 65, 16, 16, 128, 0, 64),
+    (1, 63, 63, 16, 8, 48, 0, 0),
+    (1, 64, 64, 16, 2, 80, 0, 0),
+    (1, 65, 65, 16, 16, 112, 0, 0),
+    (1, 127, 127, 16, 2, 128, 0, -5),     # rows with no valid key
+    (1, 129, 129, 16, 8, 112, 37, 0),     # window ends inside a tile
 )
 LSE_TOL = 1e-5               # lse: f32 math in both, any input type
 BWD_F32_TOL = 5e-4           # the reference's bound on its own backward
@@ -838,8 +860,13 @@ def _bound(n_bytes: float, flops: float) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _device_ms(fn, name: str, calls: int = 20):
-    prof = device_trace(lambda: [fn() for _ in range(calls)])
+def _device_ms(fn, name: str, calls: int = 20, warm: bool = False):
+    """Mean device ms of the kernels whose name starts with ``name`` over
+    ``calls`` calls of fn; with ``warm``, one call runs first in the
+    profiler's warm-up step (a session that follows another may miss its
+    first kernel events, which a 3-call session cannot spare)."""
+    prof = device_trace(lambda: [fn() for _ in range(calls)],
+                        warmup=fn if warm else None)
     ms = [v["mean_ms"] for k, v in prof["by_kind_ms"].items()
           if k.startswith(name)]
     return ms[0] if ms else None
@@ -1103,7 +1130,8 @@ def redesign_figures(t: dict, kern_f32, f32_name: str) -> dict:
     return {"tflops": t["flops"] / dev_ms / 1e9 if dev_ms else None,
             "bound_share": t["bound_ms"] / dev_ms if dev_ms else None,
             "x_sdpa": t["ms"] / t["library_ms"],
-            "f32_device_ms": _device_ms(kern_f32, f32_name, calls=3)}
+            "f32_device_ms": _device_ms(kern_f32, f32_name, calls=3,
+                                        warm=True)}
 
 
 def time_flash(q, k, v, iters: int) -> dict:
@@ -1280,13 +1308,14 @@ def _bwd_err(got, want, dtype) -> tuple:
     return float(diff.max()), ok
 
 
-def check_train_kernels(dev, q, k, v, do, causal=True, window=0) -> dict:
+def check_train_kernels(dev, q, k, v, do, causal=True, window=0,
+                        q_offset=0) -> dict:
     """Each training kernel against its plain version on the same inputs:
     the forward with lse, then dK/dV and dQ from the plain forward's o and
     lse. Returns the max |diff| per output; raises past the bounds."""
     dt = q.dtype
-    o, lse = FA.flash_attention_fwd(q, k, v, causal, window)
-    wo, wl = FA_ref.flash_attention_fwd(q, k, v, causal, window)
+    o, lse = FA.flash_attention_fwd(q, k, v, causal, window, q_offset)
+    wo, wl = FA_ref.flash_attention_fwd(q, k, v, causal, window, q_offset)
     e_o = float((o.float() - wo.float()).abs().max())
     e_l = float((lse - wl).abs().max())
     o_ok = (e_o <= FLASH_TOL[dt] if dt == torch.float32 else bool(
@@ -1296,13 +1325,11 @@ def check_train_kernels(dev, q, k, v, do, causal=True, window=0) -> dict:
             f"flash_attention_fwd {tuple(q.shape)} {dt}: o {e_o:.3e}, "
             f"lse {e_l:.3e}")
     delta = FA_ref.attention_delta(wo, do)
-    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, wl, delta, causal,
-                                        window)
-    dq = FA.flash_attention_bwd_dq(q, k, v, do, wl, delta, causal, window)
-    wdk, wdv = FA_ref.flash_attention_bwd_dkv(q, k, v, do, wl, delta,
-                                              causal, window)
-    wdq = FA_ref.flash_attention_bwd_dq(q, k, v, do, wl, delta, causal,
-                                        window)
+    args = (causal, window, q_offset)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, wl, delta, *args)
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, wl, delta, *args)
+    wdk, wdv = FA_ref.flash_attention_bwd_dkv(q, k, v, do, wl, delta, *args)
+    wdq = FA_ref.flash_attention_bwd_dq(q, k, v, do, wl, delta, *args)
     out = {"o": e_o, "lse": e_l}
     for name, got, want in (("dq", dq, wdq), ("dk", dk, wdk),
                             ("dv", dv, wdv)):
@@ -1319,12 +1346,13 @@ def check_train_random(dev) -> dict:
     non-aligned shapes, f32 and bf16: worst max |diff| per dtype."""
     gen = torch.Generator(device=dev).manual_seed(12)
     worst = {}
-    for b, s, h, hkv, d, win in TRAIN_CASES:
+    for b, sq, sk, h, hkv, d, win, qoff in TRAIN_CASES:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v, do = (torch.randn(sh, generator=gen, device=dev).to(dt)
-                           for sh in ((b, s, h, d), (b, s, hkv, d),
-                                      (b, s, hkv, d), (b, s, h, d)))
-            errs = check_train_kernels(dev, q, k, v, do, window=win)
+                           for sh in ((b, sq, h, d), (b, sk, hkv, d),
+                                      (b, sk, hkv, d), (b, sq, h, d)))
+            errs = check_train_kernels(dev, q, k, v, do, window=win,
+                                       q_offset=qoff)
             key = str(dt).replace("torch.", "")
             for name, e in errs.items():
                 worst.setdefault(key, {})
@@ -1410,6 +1438,14 @@ def time_train_kernels(q, k, v, do, iters: int) -> dict:
             lambda: FA.flash_attention_bwd_dq(q, k, v, do, lse, delta),
             lambda: FA_ref.flash_attention_bwd_dq(q, k, v, do, lse, delta)),
     }
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    f32_calls = {   # the f32 instances (FP32 FMAs) at the same shape
+        "flash_attention_fwd": lambda: FA.flash_attention_fwd(qf, kf, vf),
+        "flash_attention_bwd_dkv": lambda: FA.flash_attention_bwd_dkv(
+            qf, kf, vf, dof, lse, delta),
+        "flash_attention_bwd_dq": lambda: FA.flash_attention_bwd_dq(
+            qf, kf, vf, dof, lse, delta),
+    }
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
@@ -1444,9 +1480,7 @@ def time_train_kernels(q, k, v, do, iters: int) -> dict:
         t_k = cuda_ms(kern, iters, warmup=3)
         t_p = cuda_ms(plain, 3, warmup=1)
         t_k2 = cuda_ms(kern, iters, warmup=3)
-        kernel_name = (FLASH_KERNEL[q.dtype] if name == "flash_attention_fwd"
-                       else "flash_bwd_dkv_kernel" if name.endswith("dkv")
-                       else "flash_bwd_dq_kernel")
+        kernel_name, f32_name = TRAIN_KERNEL_NAMES[name]
         fwd = name == "flash_attention_fwd"
         out[name] = {
             "ms": t_k, "ms_repeat": t_k2, "plain_ms": t_p,
@@ -1461,11 +1495,8 @@ def time_train_kernels(q, k, v, do, iters: int) -> dict:
                         "is_causal=True, enable_gqa=True) through autograd "
                         "(dq, dk, dv together)"),
             "shape": shape}
-        if fwd:
-            qf, kf, vf = q.float(), k.float(), v.float()
-            out[name].update(redesign_figures(
-                out[name], lambda: FA.flash_attention_fwd(qf, kf, vf),
-                FLASH_KERNEL[torch.float32]))
+        out[name].update(redesign_figures(out[name], f32_calls[name],
+                                          f32_name))
     out["library_bwd_max_abs_diff"] = lib_diff
     return out
 

@@ -2,8 +2,10 @@
 
 Each kernel directory keeps its source under ``csrc/`` with a plain
 ``extern "C"`` launcher. `build` compiles one source for sm_90a into a
-shared library under ``build/kernels/`` (named by a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one is reused);
+shared library under ``build/kernels/`` (named by `source_tag`, a hash of
+the source, of every header it includes with a quoted ``#include`` and of
+the flags, so an edited source or header rebuilds and an unchanged one is
+reused);
 `load` builds at first use, opens the library with ctypes, declares its
 functions' types and caches it for the process. Nothing here falls back:
 a missing nvcc, a failed build or a library that does not load raises.
@@ -18,6 +20,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -27,6 +30,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
+
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 _libs: Dict[pathlib.Path, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -42,6 +47,27 @@ def nvcc() -> str:
                        "be built")
 
 
+def source_tag(csrc: pathlib.Path) -> str:
+    """16 hex digits of the sha256 of ``csrc``, of each header it reaches
+    through quoted ``#include`` lines (resolved beside the including file,
+    as nvcc finds them; each once) and of the nvcc flags."""
+    digest = hashlib.sha256()
+    seen = set()
+
+    def add(path: pathlib.Path) -> None:
+        if path in seen:
+            return
+        seen.add(path)
+        data = path.read_bytes()
+        digest.update(data)
+        for name in _INCLUDE.findall(data):
+            add((path.parent / name.decode()).resolve())
+
+    add(pathlib.Path(csrc).resolve())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def build(csrc: pathlib.Path) -> Tuple[pathlib.Path, str]:
     """Compile ``csrc`` for sm_90a (once per source and flag set).
 
@@ -49,9 +75,7 @@ def build(csrc: pathlib.Path) -> Tuple[pathlib.Path, str]:
     `-Xptxas -v` register, shared-memory and spill summary of each kernel.
     Raises RuntimeError when nvcc is missing or fails.
     """
-    tag = hashlib.sha256(csrc.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{csrc.stem}_{tag}.so"
+    lib_path = BUILD_DIR / f"lib{csrc.stem}_{source_tag(csrc)}.so"
     log_path = lib_path.with_suffix(".log")
     if lib_path.exists() and log_path.exists():
         return lib_path, log_path.read_text()

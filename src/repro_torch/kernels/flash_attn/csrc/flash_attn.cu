@@ -109,6 +109,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "mma_tiles.cuh"   // cp.async, ldmatrix, mma.sync, bf16 packing
+
 #define BQ 64                  // query rows per block
 #define BK 64                  // keys per staged tile
 #define NTHREADS 256           // f32: 16 row groups × 16 key/column lanes
@@ -301,82 +303,8 @@ flash_attn_kernel(const FParams p) {
 // bf16: tensor-core tiles
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared, asynchronously; zero-filled when !valid (src
-// must still be a mapped address)
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// four 8 × 8 b16 matrices; lanes 8i..8i+7 give the row addresses of
-// matrix i, and lane t receives row t/4, columns 2(t%4), 2(t%4)+1 of each
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)) : "memory");
-}
-
-// the same, transposed: lane t receives rows 2(t%4), 2(t%4)+1 of column t/4
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)) : "memory");
-}
-
-// d += a · b: a 16 × 16 (row-major fragment), b 16 × 8 (column-major), f32
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const unsigned (&a)[4],
-                                               unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 → one register of two bf16 (round to nearest even), lo first
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// two f32 p → bf16 pairs hi (p rounded) and lo (what hi missed, rounded):
-// hi + lo = p within 2^-17 relative, so two bf16 products give P·V to
-// nearly f32 accuracy
-__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi,
-                                           unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
-}
-
-// Fragment layout (m16n8k16, lane t, g = t/4, c = t%4): an f32 accumulator
-// tile of 16 rows × 8 columns holds [0], [1] at (row g, columns 2c, 2c+1)
-// and [2], [3] at (row g + 8, the same columns). Each warp owns 16 query
-// rows; its score tile is 8 such n-blocks (64 keys), its output tile 2·NC
-// of them (D columns).
+// Fragment layouts: mma_tiles.cuh. Each warp owns 16 query rows; its score
+// tile is 8 n-blocks (64 keys), its output tile 2·NC of them (D columns).
 template <int NC, bool LSE>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_attn_kernel_tc(const FParams p) {

@@ -17,21 +17,11 @@
 //                                 row whose lse is NEG_INF would overflow)
 //   dp = do·vᵀ,  ds = p·(dp − delta)·scale
 //   dv = pᵀ·do,  dk = dsᵀ·q,  dq = ds·k
-// dk and dv come out at Hkv heads: the dK/dV kernel sums the GQA group in
-// its f32 registers and rounds once to the input type (the TPU kernel
+// dk and dv come out at Hkv heads: the dK/dV kernels sum the GQA group in
+// their f32 registers and round once to the input type (the TPU kernel
 // writes them at H heads in the input type and its caller sums them, so in
-// bf16 it rounds twice). All arithmetic in f32 (fmaf, expf).
-//
-// Grids. dK/dV: one block per (K tile of BK keys, b·Hkv + kv head). The K
-// and V tiles stay in shared memory; the block walks the q heads of its
-// GQA group and, for each, the q tiles that causality and the window let
-// see the K tile, staging each Q/dO tile with its lse and delta, and
-// accumulates dK and dV in registers: no atomics, deterministic. dQ: one
-// block per (q tile of BQ rows, b·H + h); Q, dO, lse and delta stay in
-// shared memory and the block walks the visible K/V tiles, accumulating dQ
-// in registers. Both read q, k, v and do in place through their (B, S, H)
-// strides. The TPU grid's innermost sequential axis (with dk/dv or dq in
-// VMEM scratch) is the loop inside the block here.
+// bf16 it rounds twice). No atomics: every output element is written once
+// by one thread, so two calls give the same bits.
 //
 // What bounds them on the card. Per (b, h), a causal backward over S
 // tokens recomputes s and dp and forms two more products: dK/dV does four
@@ -39,25 +29,86 @@
 // shape (4 × 2048 tokens, 16/8 heads, D = 128, bf16) that is 1.37e11 and
 // 1.03e11 flops against ~100 MB of traffic each: far above the H100's
 // ridge, so the bound is the operations, 0.139 ms and 0.104 ms at the bf16
-// tensor-core peak. These first kernels run every product as FP32 FMAs on
-// the CUDA cores (67 TFLOP/s peak), like the forward; tensor-core tiles and
-// TMA staging are later work.
+// tensor-core peak.
 //
-// What the design does about it. As in the forward, each of the 256
-// threads owns a 4 × 4 micro-tile of the BQ × BK score tile for the two
-// recomputed products (rows tr + 16·i, keys tc + 16·j), rows padded by one
-// word so the strided reads hit distinct banks. P and dS go through shared
-// memory once; for dK/dV each thread then owns 4 key rows × D/16 columns
-// of both accumulators, for dQ 4 query rows × D/16 columns. At D = 128 the
-// staged tiles take 162 KB (dK/dV) and 146 KB (dQ) of shared memory, past
-// the 48 KB default, so each launch opts in with cudaFuncSetAttribute.
+// bf16 instances (flash_bwd_dkv_kernel_tc, flash_bwd_dq_kernel_tc): the
+// forward's tensor-core machinery (mma_tiles.cuh), turned around. Four
+// warps of 16 rows each; every product is mma.sync.m16n8k16 bf16 × bf16 →
+// f32, and every intermediate stays in registers.
+//   * dK/dV: one block per (64-key tile, b·Hkv + kv head); each warp owns
+//     16 keys. The K and V tiles are staged once; the block walks the GQA
+//     group × the q tiles that can see its keys through a two-stage
+//     cp.async ring of (Q, dO, lse, delta). For each q tile it forms the
+//     transposed scores Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (K and V as A operands by
+//     ldmatrix, Q and dO as B operands by plain ldmatrix), then Pᵀ and dSᵀ
+//     in registers (lse and delta are per column: each lane reads those of
+//     its columns from shared memory), and feeds them back as A operands
+//     from the accumulator layout: dV += Pᵀ·dO, dK += dSᵀ·Q, with dO and Q
+//     as B operands by ldmatrix.trans. dK and dV stay in f32 registers
+//     across the whole walk.
+//   * dQ: one block per (64-row q tile, b·H + h); each warp owns 16 rows.
+//     The Q and dO fragments are loaded once and stay in registers, as do
+//     each row's lse and delta; a two-stage cp.async K/V ring feeds
+//     S = Q·Kᵀ and dP = dO·Vᵀ, and dS, in registers, is the A operand of
+//     dQ += dS·K (K by ldmatrix.trans). The forward without its online
+//     softmax.
+//   * Registers are the hazard: dK and dV take 128 f32 a thread at
+//     D = 128 (dQ with the Q and dO fragments as much). So each 64-row (or
+//     64-key) tile is taken in four 16-wide passes, which cuts the score
+//     fragments (Sᵀ and dPᵀ, or S and dP) to 8 f32 each. With two 32-wide
+//     passes ptxas spilled at D = 128 in both kernels, at 255 registers,
+//     and both ran slower on the card; with 16-wide passes no instance
+//     spills (PERF.md records the registers).
+//   * Precision: P and dS enter their products as bf16 hi + lo pairs
+//     (split_bf16: hi rounded to nearest even, lo what hi missed), two
+//     products each, so dV, dK and dQ are as good as products with f32 P
+//     and dS. dK/dV then runs six products a tile for its nominal four, dQ
+//     four for three. One bf16 rounding of P broke the forward's layer-0
+//     bound on the card; the backward's bound (1e-2·|want| +
+//     1e-3·max|want|, elementwise) is as tight.
+//   * Scores in log2 units (scale · log2 e, lse · log2 e, then exp2f), as
+//     in the forward. Only tiles that cross Sq, Sk, the causal diagonal or
+//     the window edge evaluate the mask; a masked score is −inf, and
+//     exp2f(−inf − lse) = 0 for any finite lse, NEG_INF included.
+//   * Schedule: the tile index on the slow grid axis, heaviest first
+//     across all heads. A causal key tile kt is seen by the q tiles ≥ kt,
+//     so dK/dV starts at key tile 0; dQ starts at the last q tile.
+//   * Shared memory at D = 128: dK/dV the K and V tiles (34.8 KB) and two
+//     ring stages of Q and dO (69.6 KB) with lse and delta (1 KB); dQ the Q
+//     and dO tiles and two stages of K and V, 104 KB. Two blocks an SM.
+//     Rows are padded by 16 bytes, as in the forward, so every ldmatrix
+//     phase is conflict-free at every D = 16·n. The results go back
+//     through each warp's own rows of a staged tile, so each row is
+//     written with 16-byte stores.
+//   The caller guarantees 16-byte alignment of every row of q, k, v and do
+//   (the wrapper checks each pointer and each (b, s, h) stride and raises
+//   otherwise).
+//
+// f32 instances (flash_bwd_dkv_kernel<float, NC>, flash_bwd_dq_kernel<
+// float, NC>): every product as FP32 FMAs on the CUDA cores (67 TFLOP/s
+// peak), kept because their bound against the plain version is 5e-4,
+// which no bf16 product can meet. Each of the 256 threads owns a 4 × 4
+// micro-tile of the BQ × BK score tile for the two recomputed products
+// (rows tr + 16·i, keys tc + 16·j), rows padded by one word so the strided
+// reads hit distinct banks. P and dS go through shared memory once; for
+// dK/dV each thread then owns 4 key rows × D/16 columns of both
+// accumulators, for dQ 4 query rows × D/16 columns. At D = 128 the staged
+// tiles take 162 KB (dK/dV) and 146 KB (dQ) of shared memory. Grids: dK/dV
+// one block per (K tile, b·Hkv + kv head), dQ one per (q tile, b·H + h),
+// the heaviest causal q tiles first within each head. All arithmetic in
+// f32 (fmaf, expf).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "mma_tiles.cuh"   // cp.async, ldmatrix, mma.sync, bf16 packing
+
 #define BQ 64                  // query rows per tile
 #define BK 64                  // keys per tile
-#define NTHREADS 256           // 16 row groups × 16 key/column lanes
+#define NTHREADS 256           // f32: 16 row groups × 16 key/column lanes
+#define TC_THREADS 128         // bf16: 4 warps × 16 rows (keys for dK/dV)
+#define TC_STAGES 2            // bf16: ring depth
+#define TC_PASS 16             // bf16: q rows (dK/dV) or keys (dQ) a pass
 #define MAX_SMEM_BYTES 232448  // 227 KB, the opt-in limit of one block
 
 enum { DT_F32 = 0, DT_BF16 = 1 };
@@ -83,16 +134,8 @@ struct BParams {
 __device__ __forceinline__ float load_f32(const float* p, long long i) {
   return p[i];
 }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p,
-                                          long long i) {
-  return __bfloat162float(p[i]);
-}
 __device__ __forceinline__ void store_out(float* p, long long i, float v) {
   p[i] = v;
-}
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, long long i,
-                                          float v) {
-  p[i] = __float2bfloat16_rn(v);
 }
 
 // Stage rows [row0, row0 + tile_rows) of one head into shared memory as f32
@@ -368,6 +411,404 @@ flash_bwd_dq_kernel(const BParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor-core tiles (fragment layouts: mma_tiles.cuh)
+// ---------------------------------------------------------------------------
+
+#define LOG2E_F 1.44269504088896341f
+
+// May the tile pair (q rows from q0, keys from k0) hold a masked (row,
+// key) pair? Rows past Sq and keys past Sk count as masked.
+__device__ __forceinline__ bool edge_tile(const BParams& p, int q0, int k0) {
+  const long long pos_lo = static_cast<long long>(p.q_offset) + q0;
+  const long long pos_hi =
+      static_cast<long long>(p.q_offset) + min(q0 + BQ, p.seq_q) - 1;
+  return q0 + BQ > p.seq_q || k0 + BK > p.seq_k ||
+         (p.causal && k0 + BK - 1 > pos_lo) ||
+         (p.window > 0 && k0 <= pos_hi - p.window);
+}
+
+// Stage rows [row0, row0 + 64) of one head (row stride s_stride elements)
+// into shared memory (row stride LDS) by 16-byte cp.async; rows at or past
+// n_rows are zero-filled.
+template <int D>
+__device__ __forceinline__ void stage_tc(__nv_bfloat16* dst,
+                                         const __nv_bfloat16* src,
+                                         long long s_stride, int row0,
+                                         int n_rows) {
+  constexpr int LDS = D + 8, CH = D / 8;
+  for (int idx = threadIdx.x; idx < 64 * CH; idx += TC_THREADS) {
+    const int r = idx / CH, ch = idx % CH;
+    const bool ok = row0 + r < n_rows;
+    cp_async_16(dst + r * LDS + ch * 8,
+                src + (ok ? (row0 + r) * s_stride : 0) + ch * 8, ok);
+  }
+}
+
+// This warp's 16 rows of f32 accumulator fragments (2·NC n-blocks over D)
+// → bf16 rows of `rows` (row stride LDS, this warp's own rows), then
+// 16-byte stores to out rows row0 + r (contiguous, n_rows of them; row r
+// at out + (row0 + r) · row_stride).
+template <int NC>
+__device__ __forceinline__ void store_rows_tc(
+    __nv_bfloat16* rows, const float (&acc)[2 * NC][4],
+    __nv_bfloat16* out, long long row_stride, int row0, int n_rows) {
+  constexpr int D = 16 * NC, LDS = D + 8, CH = D / 8;
+  const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+#pragma unroll
+  for (int n = 0; n < 2 * NC; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<unsigned*>(rows + (g + 8 * r) * LDS + n * 8 +
+                                   2 * c) =
+          pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+  __syncwarp();
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int r = idx / CH, ch = idx % CH;
+    if (row0 + r >= n_rows) continue;
+    *reinterpret_cast<uint4*>(out + (row0 + r) * row_stride + ch * 8) =
+        *reinterpret_cast<const uint4*>(rows + r * LDS + ch * 8);
+  }
+}
+
+template <int NC>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_bwd_dkv_kernel_tc(const BParams p) {
+  typedef __nv_bfloat16 bf16;
+  constexpr int D = 16 * NC;
+  constexpr int LDS = D + 8;          // row stride in elements: + 16 bytes
+  constexpr int NBP = TC_PASS / 8;    // Sᵀ n-blocks (8 q rows) a pass
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);        // BK × LDS
+  bf16* v_s = k_s + BK * LDS;                            // BK × LDS
+  bf16* q_s = v_s + BK * LDS;                            // STAGES × BQ × LDS
+  bf16* do_s = q_s + TC_STAGES * BQ * LDS;               // STAGES × BQ × LDS
+  float* lse_s = reinterpret_cast<float*>(do_s + TC_STAGES * BQ * LDS);
+  float* dl_s = lse_s + TC_STAGES * BQ;                  // STAGES × BQ each
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, c = lane % 4;
+  // key tiles on the slow grid axis, the first (heaviest causal) first
+  const int k0 = blockIdx.y * BK;
+  const int b = blockIdx.x / p.kv_heads, hk = blockIdx.x % p.kv_heads;
+
+  stage_tc<D>(k_s, static_cast<const bf16*>(p.k) + b * p.k_sb +
+                       hk * p.k_sh, p.k_ss, k0, p.seq_k);
+  stage_tc<D>(v_s, static_cast<const bf16*>(p.v) + b * p.v_sb +
+                       hk * p.v_sh, p.v_ss, k0, p.seq_k);
+  cp_async_commit();
+
+  // the query rows that may see a key of this tile: [q_lo, q_end); the
+  // walk is the GQA group × those q tiles
+  const long long k_hi = min(k0 + BK, p.seq_k) - 1;
+  long long q_lo = 0, q_end = p.seq_q;
+  if (p.causal && k0 - static_cast<long long>(p.q_offset) > q_lo)
+    q_lo = k0 - static_cast<long long>(p.q_offset);
+  if (p.window > 0 && k_hi + p.window - p.q_offset < q_end)
+    q_end = k_hi + p.window - p.q_offset;
+  const int qt_lo = q_end > q_lo ? static_cast<int>(q_lo / BQ) : 0;
+  const int n_qt =
+      q_end > q_lo ? static_cast<int>((q_end - 1) / BQ) - qt_lo + 1 : 0;
+  const int n_items = n_qt * p.kv_group;
+
+  auto stage_item = [&](int st, int it) {
+    const int h = hk * p.kv_group + it / n_qt;
+    const int q0 = (qt_lo + it % n_qt) * BQ;
+    stage_tc<D>(q_s + st * BQ * LDS, static_cast<const bf16*>(p.q) +
+                    b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.seq_q);
+    stage_tc<D>(do_s + st * BQ * LDS, static_cast<const bf16*>(p.dout) +
+                    b * p.o_sb + h * p.o_sh, p.o_ss, q0, p.seq_q);
+    // 128 threads: lse of row tid, then delta of row tid − 64
+    const int r = tid % BQ;
+    const bool ok = q0 + r < p.seq_q;
+    const long long i =
+        ok ? (static_cast<long long>(b) * p.seq_q + q0 + r) * p.heads + h
+           : 0;
+    if (tid < BQ) cp_async_4(lse_s + st * BQ + r, p.lse + i, ok);
+    else cp_async_4(dl_s + st * BQ + r, p.delta + i, ok);
+  };
+  if (n_items > 0) stage_item(0, 0);
+  cp_async_commit();
+
+  const int w0 = warp * 16;           // this warp's keys within the tile
+  float dk[2 * NC][4], dv[2 * NC][4];
+#pragma unroll
+  for (int n = 0; n < 2 * NC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+  const float scale_log2 = p.scale * LOG2E_F;
+
+  for (int it = 0; it < n_items; ++it) {
+    const int st = it & 1;
+    const int q0 = (qt_lo + it % n_qt) * BQ;
+    if (it + 1 < n_items) stage_item(st ^ 1, it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();         // item it (and K, V) landed; it + 1 in flight
+    __syncthreads();
+
+    const bf16* qb = q_s + st * BQ * LDS;
+    const bf16* dob = do_s + st * BQ * LDS;
+    const float* lse_b = lse_s + st * BQ;
+    const float* dl_b = dl_s + st * BQ;
+    const bool edge = edge_tile(p, q0, k0);
+#pragma unroll
+    for (int r0 = 0; r0 < BQ; r0 += TC_PASS) {
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: 16 keys × TC_PASS q rows per warp
+      float sT[NBP][4], dpT[NBP][4];
+#pragma unroll
+      for (int n = 0; n < NBP; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sT[n][e] = dpT[n][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk) {
+        unsigned ka[4], va[4];
+        const int a_off = (w0 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8;
+        ldmatrix_x4(ka, k_s + a_off);
+        ldmatrix_x4(va, v_s + a_off);
+#pragma unroll
+        for (int n2 = 0; n2 < NBP / 2; ++n2) {
+          unsigned qf[4], df[4];
+          const int b_off =
+              (r0 + n2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS +
+              kk * 16 + ((lane >> 3) & 1) * 8;
+          ldmatrix_x4(qf, qb + b_off);
+          ldmatrix_x4(df, dob + b_off);
+          mma_bf16_16816(sT[2 * n2], ka, qf[0], qf[1]);
+          mma_bf16_16816(sT[2 * n2 + 1], ka, qf[2], qf[3]);
+          mma_bf16_16816(dpT[2 * n2], va, df[0], df[1]);
+          mma_bf16_16816(dpT[2 * n2 + 1], va, df[2], df[3]);
+        }
+      }
+      // Pᵀ and dSᵀ in place: element e of n-block n is key w0 + g + 8·(e/2),
+      // q row r0 + 8n + 2c + e%2, whose lse and delta this lane reads
+#pragma unroll
+      for (int n = 0; n < NBP; ++n) {
+        const int j = r0 + n * 8 + 2 * c;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_b + j);
+        const float2 d2 = *reinterpret_cast<const float2*>(dl_b + j);
+        const float lse2[2] = {l2.x * LOG2E_F, l2.y * LOG2E_F};
+        const float dlt[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sT[n][e] * scale_log2;
+          if (edge && !valid_pair(p, q0 + j + (e & 1),
+                                  k0 + w0 + g + 8 * (e >> 1)))
+            x = -INFINITY;
+          const float pv = exp2f(x - lse2[e & 1]);
+          sT[n][e] = pv;
+          dpT[n][e] = pv * (dpT[n][e] - dlt[e & 1]) * p.scale;
+        }
+      }
+      // dV += Pᵀ·dO and dK += dSᵀ·Q over 16 q rows at a time: Pᵀ and dSᵀ
+      // as bf16 hi + lo A fragments, dO and Q by ldmatrix.trans
+#pragma unroll
+      for (int kq = 0; kq < NBP / 2; ++kq) {
+        unsigned ph[4], pl[4], sh[4], sl[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float* x = sT[2 * kq + (j >> 1)] + 2 * (j & 1);
+          const float* y = dpT[2 * kq + (j >> 1)] + 2 * (j & 1);
+          split_bf16(x[0], x[1], ph[j], pl[j]);
+          split_bf16(y[0], y[1], sh[j], sl[j]);
+        }
+#pragma unroll
+        for (int n2 = 0; n2 < NC; ++n2) {
+          unsigned bd[4], bq[4];
+          const int t_off =
+              (r0 + kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
+              n2 * 16 + (lane >> 4) * 8;
+          ldmatrix_x4_trans(bd, dob + t_off);
+          ldmatrix_x4_trans(bq, qb + t_off);
+          mma_bf16_16816(dv[2 * n2], ph, bd[0], bd[1]);
+          mma_bf16_16816(dv[2 * n2 + 1], ph, bd[2], bd[3]);
+          mma_bf16_16816(dv[2 * n2], pl, bd[0], bd[1]);
+          mma_bf16_16816(dv[2 * n2 + 1], pl, bd[2], bd[3]);
+          mma_bf16_16816(dk[2 * n2], sh, bq[0], bq[1]);
+          mma_bf16_16816(dk[2 * n2 + 1], sh, bq[2], bq[3]);
+          mma_bf16_16816(dk[2 * n2], sl, bq[0], bq[1]);
+          mma_bf16_16816(dk[2 * n2 + 1], sl, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();            // stage st is read: the next copy may land
+  }
+
+  // dk and dv through this warp's own rows of the K and V tiles (only this
+  // warp reads them), rounded once to bf16
+  cp_async_wait<0>();
+  __syncthreads();
+  const long long row_stride = static_cast<long long>(p.kv_heads) * D;
+  const long long base =
+      (static_cast<long long>(b) * p.seq_k * p.kv_heads + hk) * D;
+  store_rows_tc<NC>(k_s + w0 * LDS, dk, static_cast<bf16*>(p.dk) + base,
+                    row_stride, k0 + w0, p.seq_k);
+  store_rows_tc<NC>(v_s + w0 * LDS, dv, static_cast<bf16*>(p.dv) + base,
+                    row_stride, k0 + w0, p.seq_k);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_bwd_dq_kernel_tc(const BParams p) {
+  typedef __nv_bfloat16 bf16;
+  constexpr int D = 16 * NC;
+  constexpr int LDS = D + 8;
+  constexpr int NBP = TC_PASS / 8;    // S n-blocks (8 keys) a pass
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);        // BQ × LDS
+  bf16* do_s = q_s + BQ * LDS;                           // BQ × LDS
+  bf16* k_s = do_s + BQ * LDS;                           // STAGES × BK × LDS
+  bf16* v_s = k_s + TC_STAGES * BK * LDS;                // STAGES × BK × LDS
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, c = lane % 4;
+  // q tiles on the slow grid axis, the last (heaviest causal) first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int b = blockIdx.x / p.heads, h = blockIdx.x % p.heads;
+  const int hk = h / p.kv_group;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  // the keys any row of this tile may see: [k_begin, k_end)
+  const int q_last = min(q0 + BQ, p.seq_q) - 1;
+  const long long pos_lo = static_cast<long long>(p.q_offset) + q0;
+  const long long pos_hi = static_cast<long long>(p.q_offset) + q_last;
+  long long k_end = p.seq_k, k_begin = 0;
+  if (p.causal && pos_hi + 1 < k_end) k_end = pos_hi + 1;
+  if (p.window > 0 && pos_lo - p.window + 1 > 0)
+    k_begin = pos_lo - p.window + 1;
+  const int kt_lo = static_cast<int>(k_begin / BK);
+  const int n_tiles =
+      k_end > k_begin ? static_cast<int>((k_end - 1) / BK) - kt_lo + 1 : 0;
+
+  stage_tc<D>(q_s, static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh,
+              p.q_ss, q0, p.seq_q);
+  stage_tc<D>(do_s, static_cast<const bf16*>(p.dout) + b * p.o_sb +
+                        h * p.o_sh, p.o_ss, q0, p.seq_q);
+  cp_async_commit();
+  auto stage_kv = [&](int st, int k0) {
+    stage_tc<D>(k_s + st * BK * LDS, k, p.k_ss, k0, p.seq_k);
+    stage_tc<D>(v_s + st * BK * LDS, v, p.v_ss, k0, p.seq_k);
+  };
+  if (n_tiles > 0) stage_kv(0, kt_lo * BK);
+  cp_async_commit();            // one group even when empty: uniform waits
+  cp_async_wait<1>();           // Q and dO have landed
+  __syncthreads();
+
+  // this warp's 16 rows of Q and dO as A fragments, with their lse (in
+  // log2 units) and delta; rows past Sq get 0 and are never stored
+  const int w0 = warp * 16;
+  unsigned qf[NC][4], df[NC][4];
+#pragma unroll
+  for (int kk = 0; kk < NC; ++kk) {
+    const int a_off = (w0 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8;
+    ldmatrix_x4(qf[kk], q_s + a_off);
+    ldmatrix_x4(df[kk], do_s + a_off);
+  }
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + w0 + g + 8 * r;
+    const long long i =
+        (static_cast<long long>(b) * p.seq_q + row) * p.heads + h;
+    lse2[r] = row < p.seq_q ? p.lse[i] * LOG2E_F : 0.0f;
+    dlt[r] = row < p.seq_q ? p.delta[i] : 0.0f;
+  }
+
+  float dq[2 * NC][4];
+#pragma unroll
+  for (int n = 0; n < 2 * NC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
+  const float scale_log2 = p.scale * LOG2E_F;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i & 1;
+    const int k0 = (kt_lo + i) * BK;
+    if (i + 1 < n_tiles) stage_kv(st ^ 1, k0 + BK);
+    cp_async_commit();
+    cp_async_wait<1>();         // tile i has landed; tile i + 1 in flight
+    __syncthreads();
+
+    const bf16* kb = k_s + st * BK * LDS;
+    const bf16* vb = v_s + st * BK * LDS;
+    const bool edge = edge_tile(p, q0, k0);
+#pragma unroll
+    for (int c0 = 0; c0 < BK; c0 += TC_PASS) {
+      // S = Q·Kᵀ and dP = dO·Vᵀ: 16 rows × TC_PASS keys per warp
+      float s[NBP][4], dp[NBP][4];
+#pragma unroll
+      for (int n = 0; n < NBP; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk) {
+#pragma unroll
+        for (int n2 = 0; n2 < NBP / 2; ++n2) {
+          unsigned kf[4], vf[4];
+          const int b_off =
+              (c0 + n2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS +
+              kk * 16 + ((lane >> 3) & 1) * 8;
+          ldmatrix_x4(kf, kb + b_off);
+          ldmatrix_x4(vf, vb + b_off);
+          mma_bf16_16816(s[2 * n2], qf[kk], kf[0], kf[1]);
+          mma_bf16_16816(s[2 * n2 + 1], qf[kk], kf[2], kf[3]);
+          mma_bf16_16816(dp[2 * n2], df[kk], vf[0], vf[1]);
+          mma_bf16_16816(dp[2 * n2 + 1], df[kk], vf[2], vf[3]);
+        }
+      }
+      // dS in place: element e of n-block n is row w0 + g + 8·(e/2), key
+      // c0 + 8n + 2c + e%2
+#pragma unroll
+      for (int n = 0; n < NBP; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale_log2;
+          if (edge && !valid_pair(p, q0 + w0 + g + 8 * (e >> 1),
+                                  k0 + c0 + n * 8 + 2 * c + (e & 1)))
+            x = -INFINITY;
+          const float pv = exp2f(x - lse2[e >> 1]);
+          s[n][e] = pv * (dp[n][e] - dlt[e >> 1]) * p.scale;
+        }
+      // dQ += dS·K over 16 keys at a time: dS as a bf16 hi + lo A
+      // fragment, K by ldmatrix.trans
+#pragma unroll
+      for (int kq = 0; kq < NBP / 2; ++kq) {
+        unsigned hi[4], lo[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float* x = s[2 * kq + (j >> 1)] + 2 * (j & 1);
+          split_bf16(x[0], x[1], hi[j], lo[j]);
+        }
+#pragma unroll
+        for (int n2 = 0; n2 < NC; ++n2) {
+          unsigned bk[4];
+          ldmatrix_x4_trans(bk, kb + (c0 + kq * 16 + (lane & 7) +
+                                      ((lane >> 3) & 1) * 8) * LDS +
+                                    n2 * 16 + (lane >> 4) * 8);
+          mma_bf16_16816(dq[2 * n2], hi, bk[0], bk[1]);
+          mma_bf16_16816(dq[2 * n2 + 1], hi, bk[2], bk[3]);
+          mma_bf16_16816(dq[2 * n2], lo, bk[0], bk[1]);
+          mma_bf16_16816(dq[2 * n2 + 1], lo, bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();            // stage st is read: the next copy may land
+  }
+
+  // dq through this warp's own rows of the Q tile (only this warp read
+  // them), rounded once to bf16
+  __syncwarp();
+  const long long row_stride = static_cast<long long>(p.heads) * D;
+  store_rows_tc<NC>(q_s + w0 * LDS, dq, static_cast<bf16*>(p.dq) +
+                        (static_cast<long long>(b) * p.seq_q * p.heads + h) *
+                            D,
+                    row_stride, q0 + w0, p.seq_q);
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
 template <int D>
 static size_t dkv_smem() {
   return sizeof(float) * (static_cast<size_t>(2 * BK + 2 * BQ) * (D + 1) +
@@ -378,9 +819,17 @@ static size_t dq_smem() {
   return sizeof(float) * (static_cast<size_t>(2 * BK + 2 * BQ) * (D + 1) +
                           BQ * (BK + 1) + 2 * BQ);
 }
+// bf16: two tiles and two ring stages of two tiles (dK/dV adds lse and
+// delta to each stage)
+template <int D>
+static size_t tc_smem(bool dq) {
+  return sizeof(__nv_bfloat16) *
+             static_cast<size_t>(2 * 64 + 2 * TC_STAGES * 64) * (D + 8) +
+         (dq ? 0 : sizeof(float) * 2 * TC_STAGES * BQ);
+}
 
 template <typename Kern>
-static int launch_kernel(Kern kern, size_t smem, dim3 grid,
+static int launch_kernel(Kern kern, size_t smem, int threads, dim3 grid,
                          const BParams& p, cudaStream_t stream) {
   if (smem > MAX_SMEM_BYTES) return -2;
   if (smem > 48 * 1024) {
@@ -389,36 +838,60 @@ static int launch_kernel(Kern kern, size_t smem, dim3 grid,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kern<<<grid, NTHREADS, smem, stream>>>(p);
+  kern<<<grid, threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int NC>
-static int launch(const BParams& p, bool dq, int batch,
-                  cudaStream_t stream) {
+// grids (tiles, b·H) and (tiles, b·Hkv), as the f32 instances always had
+// them
+template <int NC>
+static int launch_f32(const BParams& p, bool dq, int batch,
+                      cudaStream_t stream) {
   constexpr int D = 16 * NC;
   if (dq) {
     dim3 grid((p.seq_q + BQ - 1) / BQ, batch * p.heads);
-    return launch_kernel(flash_bwd_dq_kernel<T, NC>, dq_smem<D>(), grid, p,
-                         stream);
+    return launch_kernel(flash_bwd_dq_kernel<float, NC>, dq_smem<D>(),
+                         NTHREADS, grid, p, stream);
   }
   dim3 grid((p.seq_k + BK - 1) / BK, batch * p.kv_heads);
-  return launch_kernel(flash_bwd_dkv_kernel<T, NC>, dkv_smem<D>(), grid, p,
+  return launch_kernel(flash_bwd_dkv_kernel<float, NC>, dkv_smem<D>(),
+                       NTHREADS, grid, p, stream);
+}
+
+// grids (b·H, q tiles) and (b·Hkv, key tiles): the tile on the slow axis
+template <int NC>
+static int launch_bf16(const BParams& p, bool dq, int batch,
+                       cudaStream_t stream) {
+  constexpr int D = 16 * NC;
+  const int n_tiles = dq ? (p.seq_q + BQ - 1) / BQ : (p.seq_k + BK - 1) / BK;
+  if (n_tiles > 65535) return -1;     // gridDim.y
+  if (dq)
+    return launch_kernel(flash_bwd_dq_kernel_tc<NC>, tc_smem<D>(true),
+                         TC_THREADS, dim3(batch * p.heads, n_tiles), p,
+                         stream);
+  return launch_kernel(flash_bwd_dkv_kernel_tc<NC>, tc_smem<D>(false),
+                       TC_THREADS, dim3(batch * p.kv_heads, n_tiles), p,
                        stream);
 }
 
-template <typename T>
-static int launch_d(const BParams& p, int d, bool dq, int batch,
+template <int NC>
+static int launch(int dtype, const BParams& p, bool dq, int batch,
+                  cudaStream_t stream) {
+  return dtype == DT_F32 ? launch_f32<NC>(p, dq, batch, stream)
+                         : launch_bf16<NC>(p, dq, batch, stream);
+}
+
+static int launch_d(int dtype, const BParams& p, int d, bool dq, int batch,
                     cudaStream_t stream) {
   switch (d) {
-    case 16:  return launch<T, 1>(p, dq, batch, stream);
-    case 32:  return launch<T, 2>(p, dq, batch, stream);
-    case 48:  return launch<T, 3>(p, dq, batch, stream);
-    case 64:  return launch<T, 4>(p, dq, batch, stream);
-    case 80:  return launch<T, 5>(p, dq, batch, stream);
-    case 96:  return launch<T, 6>(p, dq, batch, stream);
-    case 112: return launch<T, 7>(p, dq, batch, stream);
-    case 128: return launch<T, 8>(p, dq, batch, stream);
+    case 16:  return launch<1>(dtype, p, dq, batch, stream);
+    case 32:  return launch<2>(dtype, p, dq, batch, stream);
+    case 48:  return launch<3>(dtype, p, dq, batch, stream);
+    case 64:  return launch<4>(dtype, p, dq, batch, stream);
+    case 80:  return launch<5>(dtype, p, dq, batch, stream);
+    case 96:  return launch<6>(dtype, p, dq, batch, stream);
+    case 112: return launch<7>(dtype, p, dq, batch, stream);
+    case 128: return launch<8>(dtype, p, dq, batch, stream);
     default:  return -3;
   }
 }
@@ -458,9 +931,8 @@ static int bwd_launch(bool dq, int dtype, const void* q, const void* k,
   p.window = window;
   p.q_offset = q_offset;
   p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) return launch_d<float>(p, head_dim, dq, batch, s);
-  return launch_d<__nv_bfloat16>(p, head_dim, dq, batch, s);
+  return launch_d(dtype, p, head_dim, dq, batch,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // Each returns 0, a cudaError_t code, or -1 (bad arguments) / -2 (the tiles

@@ -22,12 +22,12 @@ lse for it, dk/dv summed over the GQA group).
 What they take: f32 or bf16, one type for q, k, v (and do); a head dim
 that is a multiple of 16 up to 128 (`HEAD_DIMS`); Hkv dividing H; unit
 stride along D; lse and delta (B, Sq, H) f32. Anything else raises, on
-either device. The bf16 forward kernels stage rows with 16-byte
-asynchronous copies, so on the card `flash_attention` and
-`flash_attention_fwd` also need each bf16 q, k and v to start on a
-16-byte boundary and every (b, s, h) stride of a dimension longer than 1
-to be a multiple of 8 elements; otherwise they raise ValueError naming
-the tensor (no copy, no fallback).
+either device. The bf16 kernels stage rows with 16-byte asynchronous
+copies, so on the card every wrapper also needs each bf16 q, k and v (and
+do, for the backward) to start on a 16-byte boundary and every (b, s, h)
+stride of a dimension longer than 1 to be a multiple of 8 elements
+(`rows_aligned`); otherwise it raises ValueError naming the tensor (no
+copy, no fallback).
 
 `LAUNCHES` counts kernel launches, one key per kernel (bumped only where
 that kernel is launched): ``flash_attention`` (serving), and the training
@@ -51,7 +51,7 @@ from . import ref
 __all__ = ["HEAD_DIMS", "LAUNCHES", "attention_costs", "build",
            "build_bwd", "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-           "flash_attention_fwd", "reset_launch_counts"]
+           "flash_attention_fwd", "reset_launch_counts", "rows_aligned"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attn.cu"
 CSRC_BWD = CSRC.with_name("flash_attn_bwd.cu")
@@ -140,17 +140,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {window}, {q_offset}")
 
 
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Whether the kernels take ``t``'s rows as they lie: always for f32;
+    for bf16 (cp.async staging) each row must start on a 16-byte boundary:
+    the pointer, and every (b, s, h) stride the kernel steps along."""
+    if t.dtype != torch.bfloat16:
+        return True
+    steps = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+    return t.data_ptr() % 16 == 0 and not any(
+        st * t.element_size() % 16 for st in steps)
+
+
 def _check_rows_aligned(name: str, q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor) -> None:
-    """The bf16 forward kernels' cp.async staging: each row of q, k, v
-    starts on a 16-byte boundary (the pointer, and every (b, s, h) stride
-    the kernel steps along)."""
-    if q.dtype != torch.bfloat16:
-        return
-    for tname, t in (("q", q), ("k", k), ("v", v)):
-        steps = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-        if t.data_ptr() % 16 or any(st * t.element_size() % 16
-                                    for st in steps):
+                        v: torch.Tensor, do=None) -> None:
+    """Raise unless `rows_aligned` holds for q, k, v (and do)."""
+    named = (("q", q), ("k", k), ("v", v)) + (() if do is None
+                                              else (("do", do),))
+    for tname, t in named:
+        if not rows_aligned(t):
             raise ValueError(
                 f"{name}: bf16 {tname} rows must start on 16-byte "
                 f"boundaries (data_ptr % 16 == 0 and (b, s, h) strides "
@@ -285,6 +292,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     if not q.is_cuda:
         return ref.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
                                            window, q_offset)
+    _check_rows_aligned("flash_attention_bwd_dkv", q, k, v, do)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     lib = _build.load(CSRC_BWD, _bind_bwd)
@@ -308,6 +316,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
     if not q.is_cuda:
         return ref.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal,
                                           window, q_offset)
+    _check_rows_aligned("flash_attention_bwd_dq", q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lib = _build.load(CSRC_BWD, _bind_bwd)
     with torch.cuda.device(q.device):

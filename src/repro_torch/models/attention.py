@@ -29,7 +29,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..kernels.flash_attn import (flash_attention, flash_attention_bwd,
-                                  flash_attention_fwd)
+                                  flash_attention_fwd, rows_aligned)
 from ..parallel import sharding
 from .common import ModelConfig, dense_init, rms_norm, rope
 
@@ -109,8 +109,8 @@ class _FusedCausal(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
-        if g.stride(-1) != 1:
-            g = g.contiguous()
+        if g.stride(-1) != 1 or not rows_aligned(g):
+            g = g.clone(memory_format=torch.contiguous_format)   # 16-byte rows
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g, causal=True,
                                          window=ctx.window,
                                          q_offset=ctx.q_offset)

@@ -24,9 +24,14 @@ with their plain versions (o f32 atol 2e-5 / bf16 2e-2, lse atol 1e-5,
 backward f32 atol 5e-4 — the bound the reference holds its own backward
 to — and bf16 within one bf16 rounding: |diff| ≤ 1e-2·|want| +
 1e-3·max|want|, since kernel and plain both round an f32 result once and
-their f32 sums differ only in order); a fused model's loss has gradients
-through attention on the card, and training launches the three training
-kernels and never the serving one. The sLSTM kernel agrees with its plain
+their f32 sums differ only in order); the bf16 tensor-core backward
+holds that bound at its tiles' edges (S = 1 at an offset, 63, 64, 65,
+127, 129, 2049; D = 48, 80, 112, 128; GQA 1, 2, 4, 8) and gives the same
+bits on a second call, its f32 instances give bitwise the dq, dk, dv they
+gave before the redesign, and the backward wrappers refuse an unaligned
+bf16 do while the training Function copies one; a fused model's loss has
+gradients through attention on the card, and training launches the three
+training kernels and never the serving one. The sLSTM kernel agrees with its plain
 version within atol 1e-4 (the reference's bound on its own kernel) at
 dh = 192 and dh = 8 in f32 and bf16, a split pass equals one pass bitwise,
 the wrapper refuses a bad type, a bad shape and autograd, and xlstm
@@ -65,6 +70,7 @@ from repro_torch import interop
 from repro_torch.interop import tree_leaves, tree_unflatten
 from repro_torch.launch import serve as lm_serve
 from repro_torch.launch import train as lm_train
+from repro_torch.models import attention as lm_attn
 from repro_torch.models import registry as lm_registry
 from repro_torch.serve import BatchPolicy, ServeRuntime, TenantSpec
 
@@ -503,6 +509,134 @@ def test_training_flash_kernels_refuse_on_card(cuda_device):
     with pytest.raises(ValueError, match="do must match"):
         fa.flash_attention_bwd_dkv(q, q, q, q.double(), lse, lse)
     assert sum(fa.LAUNCHES.values()) == 0
+
+
+# The f32 backward instances kept their FP32-FMA datapath when the bf16
+# instances moved to the tensor cores: sha256 (first 16 hex digits) of dq,
+# dk and dv on fixed numpy inputs (o and lse from the f32 training forward,
+# whose bits are pinned above; delta summed in float64 on the host), as
+# the kernels before the bf16 redesign computed them on an H100.
+BWD_F32_FINGERPRINTS = {   # seed, (b, s, h, hkv, d), window
+    (16, (1, 130, 4, 2, 64), 0): ("d19dea7dfb8bb406", "e56a631b534f19d3",
+                                  "eb46adc320c2ba8d"),
+    (17, (2, 100, 8, 4, 128), 48): ("db6260f1577a1d9e", "f12fdba31e0528d6",
+                                    "5c8aab7366ae2405"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,shape,win", list(BWD_F32_FINGERPRINTS))
+def test_flash_bwd_f32_instances_are_bitwise_unchanged_on_card(
+        cuda_device, seed, shape, win):
+    b, s, h, hkv, d = shape
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)).to(cuda_device) for sh in ((b, s, h, d), (b, s, hkv, d),
+                                                (b, s, hkv, d), (b, s, h, d)))
+    o, lse = fa.flash_attention_fwd(q, k, v, True, win)
+    delta = torch.from_numpy((do.cpu().numpy().astype(np.float64)
+                              * o.cpu().numpy().astype(np.float64)).sum(-1)
+                             .astype(np.float32)).to(cuda_device)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True, win)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True, win)
+    torch.cuda.synchronize()
+    got = tuple(hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+                for t in (dq, dk, dv))
+    assert got == BWD_F32_FINGERPRINTS[(seed, shape, win)]
+
+
+# the bf16 tensor-core backward's tiles (64 q rows × 64 keys, 16-wide
+# passes) at their edges: S = 1 (one query at an offset: a single row
+# with a single key has ds = 0 up to rounding, which no elementwise bound
+# can compare), 63, 64, 65, 127, 129, 2049; D = 48, 80, 112, 128; GQA 1,
+# 2, 4, 8
+BWD_TC_EDGES = [  # b, sq, sk, h, hkv, d, causal, window, q_offset
+    (1, 1, 65, 8, 8, 128, True, 0, 64),
+    (1, 63, 63, 8, 4, 48, True, 0, 0),
+    (1, 64, 64, 8, 2, 80, True, 0, 0),
+    (1, 65, 65, 8, 1, 112, True, 0, 0),
+    (1, 127, 127, 4, 4, 128, True, 0, 0),
+    (2, 129, 129, 8, 4, 80, True, 37, 0),     # window ends inside a tile
+    (1, 2049, 2049, 8, 1, 128, True, 0, 0),
+    (1, 129, 129, 4, 2, 112, False, 0, 0),    # bidirectional
+    (1, 65, 129, 8, 2, 48, True, 0, 64),      # Sq < Sk at an offset
+    (1, 127, 127, 16, 2, 128, True, 0, -5),   # rows with no valid key
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_TC_EDGES)
+def test_flash_bwd_bf16_agrees_with_plain_at_tile_edges_on_card(cuda_device,
+                                                                case):
+    b, sq, sk, h, hkv, d, causal, win, qoff = case
+    g = torch.Generator().manual_seed(sq + sk + d)
+    q, k, v, do = (torch.randn(s, generator=g).to(cuda_device,
+                                                  torch.bfloat16)
+                   for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d),
+                             (b, sq, h, d)))
+    wo, wlse = fa_ref.flash_attention_fwd(q, k, v, causal, win, qoff)
+    delta = fa_ref.attention_delta(wo, do)
+    fa.reset_launch_counts()
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, wlse, delta, causal,
+                                        win, qoff)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, wlse, delta, causal, win,
+                                   qoff)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES["flash_attention_bwd_dkv"],
+            fa.LAUNCHES["flash_attention_bwd_dq"]) == (1, 1)
+    wdk, wdv = fa_ref.flash_attention_bwd_dkv(q, k, v, do, wlse, delta,
+                                              causal, win, qoff)
+    wdq = fa_ref.flash_attention_bwd_dq(q, k, v, do, wlse, delta, causal,
+                                        win, qoff)
+    for name, got, want in (("dq", dq, wdq), ("dk", dk, wdk),
+                            ("dv", dv, wdv)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        _bwd_close(got, want, torch.bfloat16, name)
+    if qoff < 0:
+        assert bool((dq[:, :-qoff] == 0).all())
+    # no atomics: a second call gives the same bits
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, wlse, delta, causal,
+                                          win, qoff)
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, do, wlse, delta, causal, win,
+                                    qoff)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+    assert torch.equal(dq2, dq)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_refuses_unaligned_bf16_do_on_card(cuda_device):
+    g = torch.Generator().manual_seed(4)
+    q, k, v, do = (torch.randn(s, generator=g).to(cuda_device,
+                                                  torch.bfloat16)
+                   for s in ((1, 64, 4, 64), (1, 64, 2, 64), (1, 64, 2, 64),
+                             (1, 64, 4, 64)))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = fa_ref.attention_delta(o, do)
+    flat = torch.zeros(do.numel() + 8, dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:1 + do.numel()].view(do.shape)    # 2 bytes off 16
+    shifted.copy_(do)
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError,
+                       match="flash_attention_bwd_dkv: bf16 do rows"):
+        fa.flash_attention_bwd_dkv(q, k, v, shifted, lse, delta)
+    with pytest.raises(ValueError,
+                       match="flash_attention_bwd_dq: bf16 do rows"):
+        fa.flash_attention_bwd_dq(q, k, v, shifted, lse, delta)
+    torch.cuda.synchronize()
+    assert sum(fa.LAUNCHES.values()) == 0
+    # the same values, aligned, launch; the training Function copies an
+    # unaligned cotangent before its launches
+    dq = fa.flash_attention_bwd_dq(q, k, v, shifted.clone(), lse, delta)
+    assert torch.equal(dq, fa.flash_attention_bwd_dq(q, k, v, do, lse,
+                                                     delta))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = lm_attn.attend_causal(*leaves, fused=True)
+    got = torch.autograd.grad(out, leaves, shifted)
+    want = torch.autograd.grad(lm_attn.attend_causal(*leaves, fused=True),
+                               leaves, do)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def _grads(model, params, toks):
