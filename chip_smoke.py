@@ -9,7 +9,8 @@ result line), in the order they run:
   2. build: one nvcc per source, all started together, builds the seven
      CUDA sources (cnn_eq, volterra, quant, conv1d, flash_attn,
      flash_attn_bwd, slstm) for sm_90a; prints the -Xptxas -v register /
-     shared-memory / spill lines;
+     shared-memory / spill lines of every kernel instance (the sLSTM
+     source's: the cluster kernel's twelve, the stream kernel's four);
   3. kernel == plain: each datapath (fp32, bf16, int8) on the card at the
      paper's deployment shape (equalizer_ht: 64 rows × 7320 symbols),
      shared and per-row stacked weights, tile_m ∈ {16, 64, 256}; each
@@ -99,28 +100,37 @@ result line), in the order they run:
      weights on the card and serves 4 × 2048-token prompts, then 32 greedy
      decode steps; with the counts zeroed before each, slstm_fused must
      launch exactly 2 times in the prefill and 64 over the decode (one per
-     sLSTM block and step) and no flash kernel at all; every logit finite;
+     sLSTM block and step), every one of them the cluster kernel
+     (`INSTANCE_LAUNCHES`), and no flash kernel at all; every logit finite;
      prints prefill ms, decode ms per step, tokens/s (host clock around
      synchronised work) and the peak memory the run added. 10b: the kernel
      against its plain version (f32, TF32 off) and a float64 run of the
      plain version, on block 3's xg and state from that prefill (recomputed,
      and reproducing the prefill's state bitwise) and on random inputs with
      a nonzero state at (B, S, nh, dh) = (4, 2048, 4, 192), (1, 65, 2, 8),
-     (3, 17, 1, 32), (2, 1, 4, 192), (1, 300, 4, 100), xg and r each f32
-     and bf16: within atol 1e-4, or 4 × the plain version's own distance
-     from float64 where f32 cannot resolve 1e-4 (see SLSTM_ATOL); a split
-     at 700 of 2048 steps bitwise equal to one pass; and the f32-vs-float64
+     (3, 17, 1, 32), (2, 1, 4, 192), (1, 300, 4, 100), (5, 33, 4, 192) (a
+     ragged row group) and (2, 33, 1, 1024) (the stream kernel), xg and r
+     each f32 and bf16, each through the plan `slstm._plan` gives (held to
+     the library's own `slstm_plan`; the count of the kernel it names must
+     go up): within atol 1e-4, or 4 × the plain version's own distance
+     from float64 where f32 cannot resolve 1e-4 (see SLSTM_ATOL); the
+     cluster kernel at forced geometries the plan does not take
+     (SLSTM_FORCED: CTAs with no column, a ragged row group at every RB,
+     Q = 16) within 1e-4; a split at 700 of 2048 steps bitwise equal to one
+     pass; and the f32-vs-float64
      distance of the plain version at the reference test's r ~ 0.3·N
      (printed: that recurrence is chaotic at dh = 192). 10c: the whole
      model in f32 at full width (TF32 off): the card's prefill logits over
      1 × 512 tokens against the same weights on the host (device="cpu"),
      and decode at position 2047 after a 2047-token prefill against a
      2048-token prefill, each within 2e-3. 10d: the kernel's call and
-     device time at the serving shape, the plain version's, the bound from
-     `slstm_costs` (operations at the FP32 peak; the recurrence makes 2048
-     dependent steps), then one prefill and 4 decode steps under
-     torch.profiler (idle share, top kernels, the kernel's share of the
-     prefill);
+     device time at the serving shape, µs a step, the plan's Q and RB and
+     how many such clusters the card holds at once, the plain version's
+     time, the bound from `slstm_costs` (operations at the FP32 peak; the
+     recurrence makes 2048 dependent steps), beside the stream kernel's
+     16.44 ms at the same shape (PERF.md §6 row 10), then
+     one prefill and 4 decode steps under torch.profiler (idle share, top
+     kernels, the kernel's share of the prefill);
   9d (last): one full-width LM train step under torch.profiler, after a
      warm-up step inside the profiler's schedule: idle share and the top
      device activities.
@@ -138,6 +148,7 @@ a CUDA card the script exits with code 2.
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import gc
 import json
 import pathlib
@@ -318,7 +329,16 @@ XL_ARCH, XL_PARAMS = "xlstm-125m", 141_225_296
 SLSTM = ("slstm_fused", "src/repro_torch/kernels/slstm/csrc/slstm.cu",
          "src/repro/kernels/slstm/slstm.py:86")
 SLSTM_CASES = ((4, 2048, 4, 192), (1, 65, 2, 8), (3, 17, 1, 32),
-               (2, 1, 4, 192), (1, 300, 4, 100))   # b, s, nh, dh
+               (2, 1, 4, 192), (1, 300, 4, 100), (5, 33, 4, 192),
+               (2, 33, 1, 1024))                   # b, s, nh, dh
+# [10b] the cluster kernel at geometries the plan does not take: (b, s, nh,
+# dh) and (Q, RB); dh = 8 at Q = 16 leaves eight CTAs with no column
+SLSTM_FORCED = (((1, 9, 2, 8), (16, 1)), ((5, 9, 2, 40), (8, 4)),
+                ((3, 9, 4, 100), (7, 2)), ((2, 9, 4, 192), (16, 1)))
+# [10d] the stream kernel's device time at the serving shape, from before
+# the cluster kernel took the shape (PERF.md §6 row 10), printed beside
+# this run's
+SLSTM_STREAM_MS = 16.44
 SLSTM_SPLIT = 700
 # [10b] kernel vs plain, stated before the first run: atol 1e-4 (the
 # reference's bound on its own kernel, tests/test_slstm_kernel.py:26)
@@ -1589,6 +1609,9 @@ def serve_xlstm(dev) -> dict:
     require(prefill_launches == n_slstm,
             f"prefill launched slstm_fused {prefill_launches} times, "
             f"expected {n_slstm} (one per sLSTM block)")
+    require(SL.INSTANCE_LAUNCHES == {"cluster": n_slstm, "stream": 0},
+            f"prefill ran {SL.INSTANCE_LAUNCHES}, expected only the "
+            f"cluster kernel")
     require(all(n == 0 for n in FA.LAUNCHES.values()),
             f"xlstm prefill launched flash kernels: {FA.LAUNCHES}")
     first, prefill_state = logits.clone(), state
@@ -1606,6 +1629,10 @@ def serve_xlstm(dev) -> dict:
     require(decode_launches == n_slstm * LM_GEN,
             f"decode launched slstm_fused {decode_launches} times, expected "
             f"{n_slstm * LM_GEN} ({n_slstm} per step)")
+    require(SL.INSTANCE_LAUNCHES == {"cluster": n_slstm * LM_GEN,
+                                     "stream": 0},
+            f"decode ran {SL.INSTANCE_LAUNCHES}, expected only the cluster "
+            f"kernel")
     require(all(n == 0 for n in FA.LAUNCHES.values()),
             f"xlstm decode launched flash kernels: {FA.LAUNCHES}")
     out = torch.cat(generated, dim=1)
@@ -1675,12 +1702,23 @@ def slstm_agreement(xg, r, st, nh: int, what: str) -> dict:
     against the plain version in float64, for hs and each state. Holds
     max |kernel − plain| ≤ max(SLSTM_ATOL, SLSTM_ENVELOPE · max |plain −
     float64|), and that the case is resolvable in f32 at all: max |plain −
-    float64| ≤ SLSTM_RESOLVED · max(1, max |float64|). Returns the errors."""
+    float64| ≤ SLSTM_RESOLVED · max(1, max |float64|); and that the kernel
+    that ran is the one `_plan` names, which must be the library's own
+    plan. Returns the errors."""
+    b, _, d4 = xg.shape
+    plan = SL._plan(b, nh, d4 // (4 * nh))
+    lib_plan = SL._lib_plan(SL._lib(), b, nh, d4 // (4 * nh))
+    require(lib_plan == plan, f"slstm_fused {what}: the library's plan "
+            f"{lib_plan} is not _plan's {plan}")
+    before = dict(SL.INSTANCE_LAUNCHES)
     with fp32_exact():
         got = SL.slstm_fused(xg, r, st, nh)
         want = SL_ref.slstm_fused(xg, r, st, nh)
         truth = SL_ref.slstm_fused(xg, r, st, nh, dtype=torch.float64)
-    out = {}
+    require(SL.INSTANCE_LAUNCHES[plan.instance]
+            == before[plan.instance] + 1, f"slstm_fused {what}: the "
+            f"{plan.instance} kernel did not run")
+    out = {"instance": plan.instance}
     for name, g, w, t in zip(("hs", "c", "n", "h", "m"), (got[0], *got[1]),
                              (want[0], *want[1]), (truth[0], *truth[1])):
         require(g.dtype == torch.float32 and bool(torch.isfinite(g).all()),
@@ -1715,11 +1753,12 @@ def check_slstm(dev, xg3, r3, cell3) -> dict:
                 xg, r, st = slstm_random(gen, *case, x_dt, r_dt)
                 errs = slstm_agreement(xg, r, st, case[2],
                                        f"{case} {x_dt} {r_dt}")
-                key = str(case)
+                key = f"{case} {errs.pop('instance')}"
                 worst[key] = {n: max(worst.get(key, {}).get(n, 0.0),
                                      e["kernel_vs_plain"])
                               for n, e in errs.items()}
     out["random_kernel_vs_plain"] = worst
+    out["forced_kernel_vs_plain"] = check_slstm_forced(gen)
     b, s, nh, dh = SLSTM_CASES[0]
     xg, r, st = slstm_random(gen, b, s, nh, dh, torch.bfloat16,
                              torch.bfloat16)
@@ -1738,6 +1777,32 @@ def check_slstm(dev, xg3, r3, cell3) -> dict:
     out["conditioning_r_0.3N"] = {
         "plain_f32_vs_f64_hs": float((p32.double() - p64).abs().max()),
         "max_abs_hs": float(p64.abs().max())}
+    return out
+
+
+def check_slstm_forced(gen) -> dict:
+    """The cluster kernel through `slstm_cluster_launch` at the geometries
+    of SLSTM_FORCED (bf16 xg and r), within SLSTM_ATOL of the plain version
+    (short sequences: f32 resolves it)."""
+    lib = SL._lib()
+    out = {}
+    for (b, s, nh, dh), (q, rb) in SLSTM_FORCED:
+        xg, r, st = slstm_random(gen, b, s, nh, dh, torch.bfloat16,
+                                 torch.bfloat16)
+        hs = torch.empty((b, s, nh * dh), device=xg.device)
+        fin = tuple(torch.empty_like(t) for t in st)
+        with fp32_exact():
+            rc = SL._launch_cluster(lib, q, rb, xg, r, st, hs, fin,
+                                    torch.cuda.current_stream().cuda_stream)
+            want = SL_ref.slstm_fused(xg, r, st, nh)
+        torch.cuda.synchronize()
+        require(rc == 0, f"slstm cluster kernel at Q = {q}, RB = {rb}, "
+                f"{(b, s, nh, dh)}: launch failed with {rc}")
+        err = max(float((g - w).abs().max()) for g, w in
+                  zip((hs, *fin), (want[0], *want[1])))
+        require(err <= SLSTM_ATOL, f"slstm cluster kernel at Q = {q}, RB = "
+                f"{rb}, {(b, s, nh, dh)}: {err:.3e} > {SLSTM_ATOL}")
+        out[f"{(b, s, nh, dh)} Q {q} RB {rb}"] = err
     return out
 
 
@@ -1794,6 +1859,13 @@ def time_slstm(xg, r, st, iters: int) -> dict:
     b, s, _ = xg.shape
     _, nh, dh, _ = r.shape
     costs = SL.slstm_costs(b, s, nh, dh, xg.dtype, r.dtype)
+    plan = SL._plan(b, nh, dh)
+    fits = ctypes.c_int(-1)
+    hs = torch.empty((b, s, nh * dh), device=xg.device)
+    fin = tuple(torch.empty_like(t) for t in st)
+    require(SL._launch_cluster(SL._lib(), plan.q, plan.rb, xg, r, st, hs,
+                               fin, 0, fits) == 0,
+            "slstm: the occupancy query failed")
     t_ops = costs["flops"] / PEAK_OPS_S["fp32"]
     t_bytes = costs["bytes"] / HBM_BYTES_S
     with fp32_exact():
@@ -1804,6 +1876,9 @@ def time_slstm(xg, r, st, iters: int) -> dict:
         t_k2 = cuda_ms(lambda: SL.slstm_fused(xg, r, st, nh), iters,
                        warmup=3)
     return {"ms": t_k, "ms_repeat": t_k2, "plain_ms": t_p,
+            "us_per_step": t_k * 1e3 / s, "instance": plan.instance,
+            "q": plan.q, "rb": plan.rb, "clusters": nh * -(-b // plan.rb),
+            "max_active_clusters": fits.value,
             "library_ms": None, "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": costs["flops"], "bytes": costs["bytes"],
@@ -2060,9 +2135,14 @@ def main() -> int:
     stimes = time_slstm(xg3, r3, c3, iters=20)
     stimes["device_ms"] = xtrace["prefill"]["slstm_device_ms"]
     print(f"[10d] slstm_fused times (ms; CUDA events, mean of 20 calls; "
-          f"device_ms from the profiled prefill's launches): "
-          f"{json.dumps(stimes)}; profiled prefill and decode steps: "
-          f"{json.dumps(xtrace)}", flush=True)
+          f"device_ms from the profiled prefill's launches): the "
+          f"{stimes['instance']} kernel at Q = {stimes['q']}, RB = "
+          f"{stimes['rb']} ({stimes['clusters']} clusters, "
+          f"{stimes['max_active_clusters']} fit at once), "
+          f"{stimes['us_per_step']:.3f} µs a step, device "
+          f"{stimes['device_ms']} ms (the stream kernel before: "
+          f"{SLSTM_STREAM_MS} ms device); {json.dumps(stimes)}; profiled "
+          f"prefill and decode steps: {json.dumps(xtrace)}", flush=True)
     slstm_launches = xl["launches"]
     del xl, xg3, r3, c3
     torch.cuda.empty_cache()
@@ -2125,6 +2205,8 @@ def main() -> int:
         "bound_ms": stimes["bound_ms"], "bound_by": stimes["bound_by"],
         "library_ms": stimes["library_ms"],
         "device_ms": stimes["device_ms"], "library": stimes["library"],
+        "instance": stimes["instance"], "q": stimes["q"],
+        "rb": stimes["rb"], "us_per_step": stimes["us_per_step"],
         "shape": stimes["shape"], "card": card})
     print(card)
     print(json.dumps({"kernels": kernels}))

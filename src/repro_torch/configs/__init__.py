@@ -4,7 +4,7 @@
 Port of `repro.configs`. `ARCHS` lists only the architectures the port
 builds (`models.registry.build`): the dense transformers and xlstm-125m
 (family "ssm"); the other families of the reference (MoE, VLM, hybrid,
-encdec) come with ROADMAP Queue 1 item 13.
+encdec) come with ROADMAP Queue 1 item 10.
 """
 from __future__ import annotations
 

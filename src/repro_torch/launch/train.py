@@ -3,7 +3,7 @@ pipeline → checkpoints (atomic, keep-k) → fault-tolerant restart loop →
 straggler monitor.
 
 Port of `repro.launch.train` for the dense family (`build` refuses xlstm:
-its training is ROADMAP Queue 1 item 13), on one card: there is
+its training is ROADMAP Queue 1 item 10), on one card: there is
 no mesh, so where the reference takes ``--mesh`` this takes ``--device``
 (default ``cuda``, which raises without a card; ``cpu`` runs the kernels'
 plain PyTorch versions), and it trains with ``tp=1, fused_attention=True``
@@ -51,11 +51,11 @@ def build(cfg: ModelConfig, lr: float, accum: int,
     batch) → (params, opt_state, {"loss"}) over a batch with a leading
     accum axis (``accum`` is the batch's, as in the reference). Raises
     NotImplementedError for the ssm family (xlstm), on every device: its
-    sLSTM kernel has no backward (ROADMAP Queue 1 item 13)."""
+    sLSTM kernel has no backward (ROADMAP Queue 1 item 10)."""
     if cfg.family == "ssm":
         raise NotImplementedError(
             f"{cfg.name}: xlstm training is not ported yet (ROADMAP Queue 1 "
-            f"item 13): the sLSTM kernel has no backward")
+            f"item 10): the sLSTM kernel has no backward")
     dev = resolve_device(device)
     model = registry.build(cfg)
     opt = AdamW(lr=lr, grad_clip_norm=1.0)

@@ -1,7 +1,7 @@
 """Dense MLPs (SwiGLU / GELU).
 
 Port of the dense half of `repro.models.mlp`; the MoE layer comes with the
-MoE family (ROADMAP Queue 1 item 13).
+MoE family (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 

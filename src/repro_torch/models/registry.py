@@ -87,5 +87,5 @@ def build(cfg: ModelConfig) -> Model:
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({_NOT_PORTED[cfg.family]}) is not "
-            f"ported yet (ROADMAP Queue 1 item 13)")
+            f"ported yet (ROADMAP Queue 1 item 10)")
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -22,7 +22,7 @@ the forward and recomputed in the backward, so a fused-attention layer
 launches the forward kernel twice per backward pass. The stacked layer
 params are split with one `unbind` per leaf, so each leaf's gradient is
 stacked once, not scattered into a zero (L, ...) tensor per layer. The MoE
-and VLM variants come with their families (ROADMAP Queue 1 item 13).
+and VLM variants come with their families (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ def _dense_only(cfg: ModelConfig) -> None:
     if cfg.n_experts > 0:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1 "
-            f"item 13)")
+            f"item 10)")
 
 
 def _layer(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:

@@ -20,7 +20,7 @@ The reference's `sharding.logical` annotations have no counterpart on one
 card (tp = 1) and are dropped. The forward takes no `jax.checkpoint`
 counterpart either: on the card the sLSTM kernel has no backward and
 refuses autograd, and `launch.train` refuses this family (ROADMAP Queue 1
-item 13); `loss_fn` runs, for the loss value. Scalars that the reference
+item 10); `loss_fn` runs, for the loss value. Scalars that the reference
 divides a stream by (1/sqrt(D)) are cast to the stream's type first, as
 JAX's weak typing does.
 """

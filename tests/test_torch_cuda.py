@@ -31,11 +31,18 @@ bits on a second call, its f32 instances give bitwise the dq, dk, dv they
 gave before the redesign, and the backward wrappers refuse an unaligned
 bf16 do while the training Function copies one; a fused model's loss has
 gradients through attention on the card, and training launches the three
-training kernels and never the serving one. The sLSTM kernel agrees with its plain
-version within atol 1e-4 (the reference's bound on its own kernel) at
-dh = 192 and dh = 8 in f32 and bf16, a split pass equals one pass bitwise,
-the wrapper refuses a bad type, a bad shape and autograd, and xlstm
-serving launches it once per sLSTM block per prefill and decode step.
+training kernels and never the serving one. The sLSTM kernels agree with their plain
+version within atol 1e-4 (the reference's bound on its own kernel) in f32
+and bf16, through the plan the shape takes (which must be the library's
+own, and whose kernel must be the one that ran): the cluster kernel at
+dh = 192, 99 (ragged columns), 32 and 8, with a ragged row group (B = 5)
+and at S = 1, and the stream kernel at dh = 1024; the cluster kernel
+also at geometries the plan does not take (CTAs with no column at Q = 16,
+ragged row groups at RB = 2 and 4, Q = 7). The cluster kernel gives the
+same bits on a second launch, a split pass equals one pass bitwise, the
+wrapper refuses a bad type, a bad shape and autograd, and xlstm serving
+launches the cluster kernel once per sLSTM block per prefill and decode
+step.
 """
 import hashlib
 
@@ -727,7 +734,12 @@ def test_train_step_on_card_launches_training_kernels(cuda_device):
 
 
 SLSTM_GRID = [(2, 64, 4, 192), (1, 65, 2, 8), (3, 17, 1, 32),
-              (2, 1, 4, 192)]                       # b, s, nh, dh
+              (2, 1, 4, 192), (5, 17, 4, 192), (2, 33, 2, 99),
+              (1, 9, 1, 1024)]                      # b, s, nh, dh
+# the cluster kernel at geometries the plan does not take: (b, s, nh, dh),
+# (Q, RB); dh = 8 at Q = 16 leaves eight CTAs with no column
+SLSTM_FORCED = [((1, 9, 2, 8), (16, 1)), ((5, 9, 2, 40), (8, 4)),
+                ((3, 9, 4, 100), (7, 2)), ((2, 9, 4, 192), (16, 1))]
 
 
 def _slstm_inputs(case, dtype, dev, seed=0):
@@ -752,14 +764,28 @@ def _slstm_inputs(case, dtype, dev, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_slstm_kernel_agrees_with_plain_on_card(cuda_device, case, dtype):
     """atol 1e-4, the reference's bound on its own kernel: at these
-    sequence lengths f32 resolves it (the plain version's TF32 is off)."""
+    sequence lengths f32 resolves it (the plain version's TF32 is off).
+    The kernel that ran is the one the plan names, and the plan is the
+    library's own."""
+    b, s, nh, dh = case
     xg, r, st = _slstm_inputs(case, dtype, cuda_device)
+    plan = sl_kern._plan(b, nh, dh)
+    lib = sl_kern._lib()
+    assert sl_kern._lib_plan(lib, b, nh, dh) == plan
+    assert plan.instance == ("stream" if dh > 256 else "cluster")
+    if b == 5:
+        assert plan.rb > 1 and b % plan.rb     # a ragged row group
+    if dh == 99:                               # Q = 4: 24 and 25 columns
+        assert len({n for _, n in sl_kern._columns(dh, plan.q)}) == 2
     before = sl_kern.LAUNCHES["slstm_fused"]
+    before_inst = dict(sl_kern.INSTANCE_LAUNCHES)
     with fp32_exact():
         got, gst = sl_kern.slstm_fused(xg, r, st, case[2])
         want, wst = sl_ref.slstm_fused(xg, r, st, case[2])
     torch.cuda.synchronize()
     assert sl_kern.LAUNCHES["slstm_fused"] == before + 1
+    before_inst[plan.instance] += 1
+    assert sl_kern.INSTANCE_LAUNCHES == before_inst
     assert got.dtype == torch.float32 and got.shape == (
         case[0], case[1], case[2] * case[3])
     for name, a, w in zip(("hs", "c", "n", "h", "m"), (got, *gst),
@@ -769,13 +795,54 @@ def test_slstm_kernel_agrees_with_plain_on_card(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case,geometry", SLSTM_FORCED)
+def test_slstm_cluster_kernel_at_forced_geometry_on_card(cuda_device, case,
+                                                         geometry):
+    """The cluster kernel through `slstm_cluster_launch` at a cluster size
+    and row group the plan does not take: every CTA must reach every
+    barrier (CTAs with no column, rows past B), within atol 1e-4."""
+    b, s, nh, dh = case
+    q, rb = geometry
+    if dh < q:
+        assert any(n == 0 for _, n in sl_kern._columns(dh, q))
+    xg, r, st = _slstm_inputs(case, torch.bfloat16, cuda_device)
+    hs = torch.empty((b, s, nh * dh), device=cuda_device)
+    out = tuple(torch.empty_like(t) for t in st)
+    lib = sl_kern._lib()
+    with fp32_exact():
+        rc = sl_kern._launch_cluster(lib, q, rb, xg, r, st, hs, out,
+                                     torch.cuda.current_stream().cuda_stream)
+        want, wst = sl_ref.slstm_fused(xg, r, st, nh)
+    torch.cuda.synchronize()
+    assert rc == 0
+    for name, a, w in zip(("hs", "c", "n", "h", "m"), (hs, *out),
+                          (want, *wst)):
+        assert float((a - w).abs().max()) <= 1e-4, name
+
+
+@pytest.mark.cuda
+def test_slstm_cluster_kernel_repeats_bitwise_on_card(cuda_device):
+    """Two launches of the cluster kernel on the same inputs give the same
+    bits (a fixed order of sums, no atomics)."""
+    xg, r, st = _slstm_inputs((4, 200, 4, 192), torch.bfloat16, cuda_device)
+    assert sl_kern._plan(4, 4, 192).instance == "cluster"
+    first = sl_kern.slstm_fused(xg, r, st, 4)
+    second = sl_kern.slstm_fused(xg, r, st, 4)
+    assert torch.equal(first[0], second[0])
+    assert all(torch.equal(a, w) for a, w in zip(first[1], second[1]))
+
+
+@pytest.mark.cuda
 def test_slstm_split_is_bitwise_on_card(cuda_device):
     """A pass over [0, s1) then one over [s1, S) from the returned state
-    equals one pass bitwise (a deterministic kernel, state in f32)."""
+    equals one pass bitwise (a deterministic kernel, state in f32); at
+    dh = 192 all three passes run the cluster kernel."""
     xg, r, st = _slstm_inputs((2, 300, 4, 192), torch.bfloat16, cuda_device)
+    before = sl_kern.INSTANCE_LAUNCHES["cluster"]
     full, fst = sl_kern.slstm_fused(xg, r, st, 4)
     h1, st1 = sl_kern.slstm_fused(xg[:, :101], r, st, 4)
     h2, st2 = sl_kern.slstm_fused(xg[:, 101:], r, st1, 4)
+    assert sl_kern.INSTANCE_LAUNCHES["cluster"] == before + 3
     assert torch.equal(torch.cat([h1, h2], 1), full)
     assert all(torch.equal(a, w) for a, w in zip(st2, fst))
 
@@ -791,7 +858,7 @@ def test_slstm_refuses_on_card(cuda_device):
     with pytest.raises(ValueError, match="state c"):
         sl_kern.slstm_fused(xg, r, (st[0].cpu(),) + st[1:], 2)
     leaf = xg.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         sl_kern.slstm_fused(leaf, r, st, 2)
     assert sl_kern.LAUNCHES["slstm_fused"] == before
     with torch.no_grad():                  # no autograd: the kernel runs
@@ -813,12 +880,14 @@ def test_reduced_xlstm_serving_launches_slstm_per_block_and_step(
     logits, state = prefill(params, {"tokens": toks}, state)
     torch.cuda.synchronize()
     assert sl_kern.LAUNCHES["slstm_fused"] == n
+    assert sl_kern.INSTANCE_LAUNCHES == {"cluster": n, "stream": 0}
     first = logits
     tok = logits.argmax(-1).to(torch.int32)[:, None]
     for i in range(4):
         tok, logits, state = decode(params, tok, 32 + i, state)
     torch.cuda.synchronize()
     assert sl_kern.LAUNCHES["slstm_fused"] == n * 5
+    assert sl_kern.INSTANCE_LAUNCHES == {"cluster": n * 5, "stream": 0}
     assert all(v == 0 for v in fa.LAUNCHES.values())
     assert bool(torch.isfinite(logits).all())
     # the same prefill on the host (the plain versions), f32, TF32 off

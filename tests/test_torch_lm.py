@@ -125,7 +125,7 @@ def test_archs_list_only_what_the_port_builds():
 
 @pytest.mark.parametrize("family", ["moe", "vlm", "hybrid", "encdec"])
 def test_unported_families_raise_naming_their_roadmap_item(family):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         treg.build(tcommon.ModelConfig(family=family))
 
 
@@ -145,7 +145,7 @@ def test_ssm_family_builds_and_its_prefill_runs():
 
 def test_moe_layers_raise():
     cfg = tcommon.ModelConfig(n_experts=4, top_k=2, dtype="float32")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         ttr.init_layer(torch.Generator(), cfg, device="cpu")
 
 

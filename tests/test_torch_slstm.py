@@ -8,7 +8,11 @@ state and from a nonzero one, with f32 and bf16 inputs. The bound is the
 reference's own kernel-vs-oracle bound, atol 1e-4; at these short
 sequences the two packages agree to ~1e-6 (f32 rounding of the same
 operations, the recurrent einsum summed in each backend's order). The
-kernel itself runs only on a card (tests/test_torch_cuda.py).
+kernels themselves run only on a card (tests/test_torch_cuda.py); here the
+plan that picks one of them is checked: the served shape takes the
+cluster kernel in every type pair, wide heads the stream kernel, the
+cluster kernel's column ranges cover a head once, and its plans fit the
+card (threads, shared memory, registers, clusters at once).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -226,3 +230,88 @@ def test_costs_at_the_serving_shape():
     f32 = tkern.slstm_costs(4, 2048, 4, 192, torch.float32, torch.float32)
     assert f32["bytes"] - c["bytes"] == 4 * 2048 * 3072 * 2 \
         + 4 * 4 * 192 * 192 * 2
+
+
+SERVED = (4, 4, 192)     # b, nh, dh: xlstm-125m's served sLSTM
+_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+          (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("x_dt,r_dt", _PAIRS)
+def test_served_shape_plans_the_cluster_kernel(x_dt, r_dt):
+    """The served shape, in every type pair the wrapper takes, runs the
+    cluster kernel: Q = 6 (32 columns a CTA), RB = 1 (16 clusters of 6, two
+    to a GPC), two 8-byte mbarriers and two h buffers of 8 k-blocks of 36
+    floats."""
+    b, nh, dh = SERVED
+    xg = torch.zeros((b, 1, 4 * nh * dh), dtype=x_dt)
+    r = torch.zeros((4, nh, dh, dh), dtype=r_dt)
+    tkern._check(xg, r, tuple(torch.zeros((b, nh * dh)) for _ in range(4)),
+                 nh)
+    assert tkern._plan(b, nh, dh) == tkern.Plan("cluster", 6, 1,
+                                                16 + 4 * 2 * 8 * 36)
+
+
+@pytest.mark.parametrize("dh", [257, 300, 512, 1024])
+def test_wide_heads_plan_the_stream_kernel(dh):
+    """Past dh = 256 a lane's k-block no longer fits its 32 registers of R:
+    the stream kernel takes the shape (up to MAX_DH = 1024)."""
+    assert tkern._plan(4, 1, dh) == tkern.Plan("stream", 0, 0, 8 * dh * 4)
+    assert tkern._plan(4, 1, 256).instance == "cluster"
+
+
+@pytest.mark.parametrize("q", range(1, 17))
+def test_cluster_columns_cover_the_head_once(q):
+    """CTA i of a cluster of q owns [i·dh/q, (i+1)·dh/q): every column of
+    the head exactly once, in order, ragged by at most one (CTAs with no
+    column where dh < q)."""
+    for dh in range(1, 300):
+        cols = tkern._columns(dh, q)
+        assert [e for e0, n in cols for e in range(e0, e0 + n)] == list(
+            range(dh))
+        sizes = [n for _, n in cols]
+        assert max(sizes) == -(-dh // q) and max(sizes) - min(sizes) <= 1
+        assert (min(sizes) == 0) == (dh < q)
+
+
+def test_ragged_splits_at_the_test_shapes():
+    """dh = 100 over 8 CTAs gives 12 and 13 columns; B = 5 at the served
+    heads takes RB = 2, a last group with one row; dh = 8 over 16 CTAs
+    leaves eight CTAs with none."""
+    assert sorted({n for _, n in tkern._columns(100, 8)}) == [12, 13]
+    plan = tkern._plan(5, 4, 192)
+    assert plan.instance == "cluster" and plan.rb == 2 and 5 % plan.rb == 1
+    assert sum(n == 0 for _, n in tkern._columns(8, 16)) == 8
+
+
+def test_cluster_plans_fit_the_card():
+    """Wherever the plan takes the cluster kernel: at most 512 threads and
+    32 k a lane, at most 232 448 bytes of shared memory (a block's limit on
+    sm_90), Q = ceil(dh / 32), and RB the fewest rows (1, 2, 4) that keep
+    every cluster on the card at once (8 GPCs of at least 14 SMs, a CTA an
+    SM), or 4 where none does."""
+    for b in (1, 2, 3, 4, 5, 8, 17, 33, 64):
+        for nh in (1, 2, 3, 4, 8, 16):
+            for dh in range(1, 300, 7):
+                plan = tkern._plan(b, nh, dh)
+                if dh > 256:
+                    assert plan.instance == "stream"
+                    continue
+                threads, smem, kp = tkern._layout(dh, plan.q, plan.rb)
+                assert plan.instance == "cluster" and smem == plan.smem
+                assert threads <= 512 and kp <= 32
+                assert smem <= 232_448
+                assert plan.q == -(-dh // 32) and plan.rb in (1, 2, 4)
+                fit = 8 * (14 // plan.q)
+                assert nh * -(-b // plan.rb) <= fit or plan.rb == 4
+                if plan.rb > 1:
+                    assert nh * -(-b // (plan.rb // 2)) > fit
+
+
+def test_reset_zeroes_the_instance_counts_and_cpu_counts_none():
+    tkern.INSTANCE_LAUNCHES["cluster"] = 3
+    tkern.reset_launch_counts()
+    assert tkern.INSTANCE_LAUNCHES == {"cluster": 0, "stream": 0}
+    xg, r, st = _valid()
+    tkern.slstm_fused(xg, r, st, 2)
+    assert tkern.INSTANCE_LAUNCHES == {"cluster": 0, "stream": 0}
