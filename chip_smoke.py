@@ -10,17 +10,29 @@ result line), in the order they run:
      CUDA sources (cnn_eq, volterra, quant, conv1d, flash_attn,
      flash_attn_bwd, slstm) for sm_90a; prints the -Xptxas -v register /
      shared-memory / spill lines of every kernel instance (the sLSTM
-     source's: the cluster kernel's twelve, the stream kernel's four);
+     source's: the cluster kernel's twelve, the stream kernel's four), and
+     the registers and spills of each register-blocked cnn_eq instance
+     (`cnn_eq_kernel_rb`, bf16 and int8 at P = 2, 4, 8; none may spill);
   3. kernel == plain: each datapath (fp32, bf16, int8) on the card at the
      paper's deployment shape (equalizer_ht: 64 rows × 7320 symbols),
-     shared and per-row stacked weights, tile_m ∈ {16, 64, 256}; each
-     kernel must equal its plain PyTorch version (`ref.py`) bitwise;
+     shared and per-row stacked weights, tile_m ∈ {16, 64, 256}, and at
+     the edge widths of EDGE_SHAPES (one row; a width shorter than the
+     receptive field; n_pos = 1; n_pos a multiple of neither the
+     kernel's run nor its P; a strided view; tile_m 8192 for bf16 and
+     int8); each kernel must equal its plain PyTorch version (`ref.py`)
+     bitwise. With the counts zeroed before, every bf16 and int8 launch
+     must have run the register-blocked kernel and every fp32 launch the
+     generic one (`INSTANCE_LAUNCHES`); `cnn_eq._plan` must equal the
+     library's `cnn_eq_plan` for each datapath; and the register-blocked
+     kernel must equal the generic one forced on the same inputs bitwise;
   4. the slice: `ServeRuntime(device="cuda")` serves 4 int8 "ht" tenants,
      4 bf16 "lp" tenants and 1 fp32 tenant (7320 symbols each, jittered
      chunks of ~1024 symbols, one chunk shorter than the receptive field);
-     every stream must equal its offline engine bitwise, and every kernel's
-     launch count, zeroed just before, must have gone up; 4a. each kernel
-     == plain bitwise at its most common serving launch shape; 4b. the same
+     every stream must equal its offline engine bitwise, every kernel's
+     launch count, zeroed just before, must have gone up, and every bf16
+     and int8 launch must be the register-blocked kernel, every fp32 one
+     the generic; 4a. each kernel == plain bitwise at its most common
+     serving launch shape, with the same instance check; 4b. the same
      serving run again under torch.profiler: device busy and idle share;
   6. train: `train_equalizer` on the card for the CNN (equalizer_ht widths,
      3-phase QAT), the FIR and the Volterra baselines on the default IM/DD
@@ -40,7 +52,11 @@ result line), in the order they run:
      kernel, plain version, and a PyTorch yardstick (a chain of F.conv1d +
      ReLU for cnn_eq, the einsum chain of `core.volterra.apply`,
      torch.fake_quantize_per_tensor_affine, F.conv1d), beside the least
-     time the card could take;
+     time the card could take; for bf16 and int8 also the plan's kernel,
+     run W and P, the device time before the redesign (OLD_DEVICE_MS),
+     the generic kernel forced on the same inputs, the device time at the
+     [4a] serving shape and, for bf16, the FP32-issue floor of its fixed
+     order (two FP32 instructions a MAC);
   8. LM serving: `repro_torch.launch.serve.serve_session` builds
      qwen3-0.6b at full width (28 layers, d_model 1024, 16/8 heads of 128,
      bf16, fused_attention, tp = 1) with seeded random weights on the
@@ -181,6 +197,7 @@ from repro_torch.device import fp32_exact  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cnn_eq import cnn_eq as K  # noqa: E402
 from repro_torch.kernels.cnn_eq import ref as R  # noqa: E402
+from repro_torch.kernels.cnn_eq import sweep as K_sweep  # noqa: E402
 from repro_torch.kernels.conv1d import conv1d as C1  # noqa: E402
 from repro_torch.kernels.conv1d import ops as C1_ops  # noqa: E402
 from repro_torch.kernels.conv1d import ref as C1_ref  # noqa: E402
@@ -210,6 +227,14 @@ CFG = HT.CNN
 ROWS = HT.N_INSTANCES                 # 64 parallel instances
 SYMS = HT.L_INST                      # 7320 symbols per instance
 TILES = (16, 64, 256)
+# [3] edge widths: (rows, samples, tile_m, strided view); the receptive
+# field is 137 samples, a final position 16, the plan's run 64 positions
+EDGE_SHAPES = ((1, 2 * SYMS, 64, False), (4, 100, 64, False),
+               (4, 16, 64, False), (4, 16 * 197 + 9, 16, True),
+               (ROWS, 16 * 131 + 3, 8192, False))
+# device ms of the generic kernel before the register-blocked one took
+# these datapaths (PERF.md §6 rows 2, 3; NVIDIA H100 80GB HBM3, 700.00 W)
+OLD_DEVICE_MS = {"bf16": 0.0475, "int8": 0.0441}
 FORMATS = {
     "ht": {"w_int": 2, "w_frac": 5, "a_int": 3, "a_frac": 4},   # → int8
     "lp": {"w_int": 3, "w_frac": 8, "a_int": 3, "a_frac": 8},   # → bf16
@@ -459,8 +484,77 @@ def kernel_inputs(dev, rows: int, syms: int) -> dict:
     }
     return {dp: {"kernel": wrap[dp][0], "plain": wrap[dp][1], "x": x,
                  "stacked": stack(forms[dp]), "shared": shared(forms[dp]),
-                 "strides": strides, "fp32_stacked": stack(per_row)}
+                 "strides": strides, "fp32_stacked": stack(per_row),
+                 "formats": fmts}
             for dp in forms}
+
+
+MODE_OF = {"fp32": K.MODE_FP32, "bf16": K.MODE_BF16, "int8": K.MODE_INT8}
+
+
+def require_instances(launches: dict, instances: dict, where: str) -> None:
+    """Every bf16 and int8 launch ran the register-blocked kernel, every
+    fp32 launch the generic one (counts zeroed together before)."""
+    want = {"rb": launches["cnn_eq_fused_bf16"]
+            + launches["cnn_eq_fused_int8"],
+            "generic": launches["cnn_eq_fused"]}
+    require(instances == want, f"{where}: kernel instances {instances}, "
+                               f"expected {want} from launches {launches}")
+
+
+def check_edges(inputs: dict) -> list:
+    """Kernel == plain bitwise at EDGE_SHAPES, every datapath, stacked
+    weights; returns the shapes checked."""
+    done = []
+    for rows, width, tile, strided in EDGE_SHAPES:
+        for dp, d in inputs.items():
+            if dp == "fp32" and tile > 1024:
+                continue       # the generic kernel refuses such a tile
+            x = d["x"][:rows, :width]
+            if strided:                     # a view with a row stride > W
+                x = d["x"][:rows, 5:5 + width]
+            else:
+                x = x.contiguous()
+            w = tuple((a[:rows].contiguous(), b[:rows].contiguous())
+                      for a, b in d["stacked"])
+            got, want = d["kernel"](x, w, tile), d["plain"](x, w)
+            require(got.shape == want.shape and torch.equal(got, want),
+                    f"{dp} at {rows}x{width} samples, tile {tile}: kernel "
+                    f"!= plain")
+        done.append(f"{rows}x{width}{' strided' if strided else ''} "
+                    f"tile {tile}")
+    return done
+
+
+def check_plans() -> dict:
+    """`cnn_eq._plan` against the library's `cnn_eq_plan`, each datapath."""
+    lib = K._load()
+    plans = {}
+    for dp, mode in MODE_OF.items():
+        plan, lib_plan = K._plan(mode, K._RB_DIMS), K._lib_plan(
+            lib, mode, K._RB_DIMS)
+        require(plan == lib_plan, f"{dp}: _plan {plan} != cnn_eq_plan "
+                                  f"{lib_plan}")
+        want = "generic" if dp == "fp32" else "rb"
+        require(plan.instance == want, f"{dp}: plan {plan}, expected {want}")
+        plans[dp] = plan._asdict()
+    return plans
+
+
+def check_against_generic(inputs: dict) -> dict:
+    """The register-blocked kernel == the generic kernel forced on the same
+    inputs (bf16, int8; stacked and shared weights), bitwise."""
+    fmts = {"bf16": None, "int8": inputs["int8"]["formats"]}
+    checked = {}
+    for dp in ("bf16", "int8"):
+        d = inputs[dp]
+        for form in ("stacked", "shared"):
+            got = d["kernel"](d["x"], d[form], 64)
+            gen = K._forced("generic", MODE_OF[dp], d["x"], d[form],
+                            d["strides"], 64, formats=fmts[dp])
+            require(torch.equal(got, gen), f"{dp} {form}: rb != generic")
+        checked[dp] = "bitwise"
+    return checked
 
 
 def check_kernels(inputs: dict, tiles) -> dict:
@@ -526,7 +620,8 @@ def serve(dev, specs, streams, max_batch: int) -> dict:
     outs = {tid: rt.close(tid) for tid in streams}
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return {"outs": outs, "launches": dict(K.LAUNCHES), "stats": rt.stats(),
+    return {"outs": outs, "launches": dict(K.LAUNCHES),
+            "instances": dict(K.INSTANCE_LAUNCHES), "stats": rt.stats(),
             "backends": backends, "tiles": tiles,
             "elapsed_s": time.perf_counter() - t0}
 
@@ -554,6 +649,7 @@ def check_serving_shapes(inputs: dict, stats: dict, tiles: dict) -> dict:
     """Kernel == plain bitwise at each datapath's most common serving launch
     shape (mode occupancy × median width of the run's traffic)."""
     shapes = {}
+    K.reset_launch_counts()
     for dp, d in inputs.items():
         tr = stats["traffic"][f"L{CFG.layers}_K{CFG.kernel}_{BACKEND_OF[dp]}"]
         rows = tr["mode_occupancy"]
@@ -564,7 +660,8 @@ def check_serving_shapes(inputs: dict, stats: dict, tiles: dict) -> dict:
         got, want = d["kernel"](x, w, tiles[dp]), d["plain"](x, w)
         require(torch.equal(got, want),
                 f"{dp} at serving shape {rows}x{width}: kernel != plain")
-        shapes[dp] = f"{rows}x{width} samples, tile {tiles[dp]}"
+        shapes[dp] = {"rows": rows, "width": width, "tile_m": tiles[dp]}
+    require_instances(K.LAUNCHES, K.INSTANCE_LAUNCHES, "[4a]")
     return shapes
 
 
@@ -659,15 +756,22 @@ def conv_chain(xp: torch.Tensor, weights, strides, dtype) -> torch.Tensor:
     return h
 
 
-def bound(dp: str, x: torch.Tensor, weights, strides) -> tuple:
-    """(least ms, "bytes" | "operations"): each input read once, each output
-    written once, against the MACs this input needs (untiled)."""
+def macs_of(x: torch.Tensor, weights, strides) -> int:
+    """The MACs this input needs through the stack (untiled)."""
     rows, width = x.shape
     kernels = [int(w.shape[-1]) for w, _ in weights]
     n_pos = width // int(np.prod(strides))
     spans = R._spans(n_pos, kernels, strides)
-    macs = rows * sum(int(w.shape[-3]) * int(w.shape[-2]) * int(w.shape[-1])
+    return rows * sum(int(w.shape[-3]) * int(w.shape[-2]) * int(w.shape[-1])
                       * spans[i + 1] for i, (w, _) in enumerate(weights))
+
+
+def bound(dp: str, x: torch.Tensor, weights, strides) -> tuple:
+    """(least ms, "bytes" | "operations"): each input read once, each output
+    written once, against the MACs this input needs (untiled)."""
+    rows, width = x.shape
+    n_pos = width // int(np.prod(strides))
+    macs = macs_of(x, weights, strides)
     n_out = rows * n_pos * int(weights[-1][0].shape[-3])
     n_bytes = (x.numel() * 4 + n_out * 4
                + sum(w.numel() * w.element_size() + b.numel() * 4
@@ -678,11 +782,13 @@ def bound(dp: str, x: torch.Tensor, weights, strides) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_kernels(inputs: dict, tiles_used: dict, iters: int) -> dict:
+def time_kernels(inputs: dict, tiles_used: dict, serving: dict,
+                 iters: int) -> dict:
     out = {}
     for dp, d in inputs.items():
         x, w, st = d["x"], d["stacked"], d["strides"]
         tile = tiles_used[dp]
+        plan = K._plan(MODE_OF[dp], K._RB_DIMS)
         xp, _ = R._halo_pad(x, [int(wi.shape[-1]) for wi, _ in w], st)
         # PyTorch has no int8 convolution: the int8 yardstick is the fp32
         # chain on the same rows' fp32 folded weights
@@ -704,8 +810,37 @@ def time_kernels(inputs: dict, tiles_used: dict, iters: int) -> dict:
                    "device_ms": dev_ms[0] if dev_ms else None,
                    "plain_ms": t_plain, "library_ms": t_lib,
                    "bound_ms": b_ms, "bound_by": b_by, "tile_m": tile,
+                   "instance": plan.instance,
                    "shape": f"{x.shape[0]}x{x.shape[1]} samples, "
                             f"stacked weights"}
+        if plan.instance == "rb":
+            fmts = d["formats"] if dp == "int8" else None
+            sv = serving[dp]
+            xs = x[:sv["rows"], :sv["width"]].contiguous()
+            ws = tuple((a[:sv["rows"]].contiguous(), b[:sv["rows"]]
+                        .contiguous()) for a, b in w)
+            out[dp].update(
+                w_run=plan.w_run, p=plan.p, threads=plan.threads,
+                old_device_ms=OLD_DEVICE_MS[dp],
+                generic_device_ms=_device_ms(
+                    lambda: K._forced("generic", MODE_OF[dp], x, w, st, tile,
+                                      formats=fmts), "cnn_eq_kernel",
+                    warm=True),
+                device_ms_again=_device_ms(lambda: d["kernel"](x, w, tile),
+                                           "cnn_eq_kernel", warm=True),
+                serving_shape=f"{sv['rows']}x{sv['width']} samples",
+                serving_device_ms=_device_ms(
+                    lambda: d["kernel"](xs, ws, tile), "cnn_eq_kernel",
+                    warm=True),
+                serving_generic_device_ms=_device_ms(
+                    lambda: K._forced("generic", MODE_OF[dp], xs, ws, st,
+                                      tile, formats=fmts), "cnn_eq_kernel",
+                    warm=True))
+        if dp == "bf16":
+            # the fixed order issues a multiply and an add a MAC: two FP32
+            # instructions at half the FMA peak's flop rate
+            out[dp]["fp32_issue_floor_ms"] = (
+                2 * macs_of(x, w, st) / (PEAK_OPS_S["fp32"] / 2) * 1e3)
     return out
 
 
@@ -1962,11 +2097,27 @@ def main() -> int:
             if any(k in line for k in ("registers", "spill",
                                        "Compiling entry", "smem")):
                 print(f"    ptxas: {line.strip()}")
+    rb_ptxas = K_sweep.ptxas(next(log for src, _, log, _ in built
+                                  if src == K.CSRC))
+    require(len(rb_ptxas) == 2 * len(K._RB_P) and all(
+        v.get("spill_bytes") == 0 for v in rb_ptxas.values()),
+        f"cnn_eq_kernel_rb instances spill or are missing: {rb_ptxas}")
+    print(f"[2] cnn_eq_kernel_rb registers and spill bytes: "
+          f"{json.dumps(rb_ptxas)}", flush=True)
 
     inputs = kernel_inputs(dev, ROWS, SYMS)
+    K.reset_launch_counts()
     worst = check_kernels(inputs, TILES)
+    edges = check_edges(inputs)
+    instances = dict(K.INSTANCE_LAUNCHES)
+    require_instances(K.LAUNCHES, instances, "[3]")
+    plans = check_plans()
+    vs_generic = check_against_generic(inputs)
     print(f"[3] kernel == plain bitwise at {ROWS}x{SYMS} symbols, stacked "
-          f"and shared weights, tile_m {TILES}: max |diff| {worst}",
+          f"and shared weights, tile_m {TILES}: max |diff| {worst}; at the "
+          f"edge widths {edges}; kernel instances {instances} (bf16 and "
+          f"int8 all rb, fp32 all generic); plans (held to cnn_eq_plan) "
+          f"{json.dumps(plans)}; rb == generic forced {vs_generic}",
           flush=True)
 
     specs, waves, streams = tenants(SYMS, 1024)
@@ -1975,6 +2126,7 @@ def main() -> int:
     for dp, (name, _) in KERNELS.items():
         require(run["launches"][name] > 0,
                 f"{name} was not launched on the serving path")
+    require_instances(run["launches"], run["instances"], "[4]")
     want_backends = {"ht": "fused_int8", "lp": "fused_bf16",
                      "fp": "fused_fp32"}
     for tid, be in run["backends"].items():
@@ -1985,7 +2137,8 @@ def main() -> int:
     print(f"[4] serve: {len(run['backends'])} tenants, {n_checked} "
           f"symbols in {run['elapsed_s']:.3f} s (engine builds and autotune "
           f"included), streamed == offline bitwise; kernel launches "
-          f"{run['launches']}, stacked launches {st['launches']}, mean_batch "
+          f"{run['launches']}, instances {run['instances']}, stacked "
+          f"launches {st['launches']}, mean_batch "
           f"{st['mean_batch']:.2f}, p50 {st['p50_latency_ms']:.3f} ms, "
           f"p99 {st['p99_latency_ms']:.3f} ms, tiles {run['tiles']}",
           flush=True)
@@ -2027,7 +2180,7 @@ def main() -> int:
           f"{deploy_launches}; kernel == plain bitwise; {json.dumps(checks)}",
           flush=True)
 
-    times = time_kernels(inputs, tiles_used, iters=200)
+    times = time_kernels(inputs, tiles_used, shapes, iters=200)
     dtimes = time_deploy_kernels(d, drun, iters=200)
     print(f"[5] times (ms; CUDA events, mean of 200 calls after warm-up; "
           f"device_ms from torch.profiler over 20 calls): "
@@ -2166,7 +2319,11 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "library": library[dp],
-            "tile_m": t["tile_m"], "shape": t["shape"], "card": card})
+            "tile_m": t["tile_m"], "shape": t["shape"], "card": card,
+            **{k: t[k] for k in ("instance", "w_run", "p", "threads",
+                                 "old_device_ms", "generic_device_ms",
+                                 "serving_shape", "serving_device_ms",
+                                 "fp32_issue_floor_ms") if k in t}})
     for name, (source, replaces, _) in DEPLOY_KERNELS.items():
         t = dtimes[name]
         kernels.append({

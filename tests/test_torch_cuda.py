@@ -8,7 +8,13 @@ no jax, so it also runs on the card's host:
 
 Each kernel must equal its plain version (`ref.py`) bitwise on the card at
 any tile width, stacked or shared weights, and the serving path must run
-through the kernels. The same holds for the Volterra, fixed-point-quantize
+through the kernels. The register-blocked bf16 and int8 kernel
+(`cnn_eq_kernel_rb`) also equals the generic one forced on the same
+inputs, at one row and at 64, shorter than the receptive field, at one
+position, at a run that ends past the positions, at 7320 symbols, at any
+tile_m (8192 too), with per-channel int8 formats and with saturating int8
+inputs; the plan is the library's `cnn_eq_plan`, every geometry the sweep
+times is bitwise, and other widths and fp32 take the generic kernel. The same holds for the Volterra, fixed-point-quantize
 and conv1d kernels, and the training path runs on the card. Two QAT
 trainings of the CNN from one seed give bitwise-equal parameters and
 widths (cuDNN held to its deterministic algorithms). The flash-attention
@@ -188,6 +194,113 @@ def test_tile_too_large_for_shared_memory_raises(cuda_device):
     # a tile that fits still runs and equals the plain version
     assert torch.equal(kern.cnn_eq_fused(x, w, st, tile_m=1024),
                        ref.cnn_eq(x, w, st))
+
+
+# the register-blocked kernel's cases: (rows, samples, tile_m, input scale,
+# per-channel int8 formats); its run is the plan's w_run positions, a
+# position 16 samples, the receptive field 137 samples
+RB_CASES = {
+    "rows1": (1, 2006, 64, 1.0, False),
+    "rows4": (4, 2006, 16, 1.0, False),
+    "rows64": (64, 2006, 256, 1.0, False),
+    "shorter_than_receptive_field": (4, 100, 64, 1.0, False),
+    "one_position": (4, 16, 64, 1.0, False),
+    "ragged_run": (4, 16 * 197 + 9, 64, 1.0, False),
+    "7320_symbols": (4, 14640, 64, 1.0, False),
+    "tile_8192": (4, 2006, 8192, 1.0, False),
+    "per_channel_formats": (4, 2006, 64, 1.0, True),
+    "saturating": (4, 2006, 64, 40.0, False),
+}
+
+
+def _rb_case(device, dp, stacked, case):
+    rows, width, tile_m, scale, per_channel = RB_CASES[case]
+    st = teq.layer_strides(HT.CNN)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy((scale * rng.standard_normal((rows, width))).astype(
+        np.float32)).to(device)
+    per = [_folded(s, device) for s in range(rows if stacked else 1)]
+    fmts = (qat.per_channel_formats(per[0], FMTS) if per_channel else FMTS)
+    if dp == "int8":
+        per = [kern.quantize_weights_int8(w, fmts) for w in per]
+    w = (tuple((torch.stack([p[l][0] for p in per]),
+                torch.stack([p[l][1] for p in per])) for l in range(3))
+         if stacked else per[0])
+    return x, w, st, fmts, tile_m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp,stacked,case", [
+    (dp, stacked, case) for dp in ("bf16", "int8") for stacked in (False, True)
+    for case in RB_CASES if dp == "int8" or not RB_CASES[case][4]])
+def test_register_blocked_kernel_equals_plain_and_generic_on_card(
+        cuda_device, dp, stacked, case):
+    x, w, st, fmts, tile_m = _rb_case(cuda_device, dp, stacked, case)
+    mode = kern.MODE_INT8 if dp == "int8" else kern.MODE_BF16
+    assert kern._plan(mode, kern._dims(w, st)).instance == "rb"
+    if dp == "int8":
+        want = ref.cnn_eq_int8(x, w, st, fmts)
+        call = lambda: kern.cnn_eq_fused_int8(x, w, st, fmts, tile_m)  # noqa
+    else:
+        want = ref.cnn_eq_bf16(x, w, st)
+        call = lambda: kern.cnn_eq_fused_bf16(x, w, st, tile_m)  # noqa
+    before = dict(kern.INSTANCE_LAUNCHES)
+    got = call()
+    torch.cuda.synchronize()
+    n_pos = x.shape[1] // 16
+    assert kern.INSTANCE_LAUNCHES["rb"] == before["rb"] + (n_pos > 0)
+    assert kern.INSTANCE_LAUNCHES["generic"] == before["generic"]
+    assert got.is_cuda and got.shape == want.shape
+    assert torch.equal(got, want), float((got - want).abs().max())
+    generic = kern._forced("generic", mode, x, w, st, min(tile_m, 1024),
+                           formats=fmts)
+    assert torch.equal(got, generic)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp", ["bf16", "int8"])
+def test_register_blocked_plan_is_the_librarys_on_card(cuda_device, dp):
+    mode = kern.MODE_INT8 if dp == "int8" else kern.MODE_BF16
+    lib = kern._load()
+    other = tuple((7, ci, co, s) for _, ci, co, s in kern._RB_DIMS)
+    for m, dims in ((mode, kern._RB_DIMS), (kern.MODE_FP32, kern._RB_DIMS),
+                    (mode, other), (mode, kern._RB_DIMS[:2])):
+        assert kern._plan(m, dims) == kern._lib_plan(lib, m, dims)
+    # every geometry the sweep times runs and equals the plain version
+    x, w, st, fmts, _ = _rb_case(cuda_device, dp, True, "ragged_run")
+    want = (ref.cnn_eq_int8(x, w, st, fmts) if dp == "int8"
+            else ref.cnn_eq_bf16(x, w, st))
+    for w_run in (1, 3, 60, 128):
+        for p in kern._RB_P:
+            got = kern._forced("rb", mode, x, w, st, formats=fmts,
+                               geometry=(w_run, p))
+            assert torch.equal(got, want), (w_run, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp,k", [("fp32", 9), ("bf16", 7), ("int8", 7)])
+def test_other_widths_take_the_generic_kernel_on_card(cuda_device, dp, k):
+    cfg = teq.CNNEqConfig(kernel=k)
+    st = teq.layer_strides(cfg)
+    gen = torch.Generator().manual_seed(3)
+    w = tuple((a.to(cuda_device), b.to(cuda_device)) for a, b in
+              teq.folded_weights(teq.fold_bn(
+                  teq.init(gen, cfg, device="cpu"),
+                  teq.init_bn_state(cfg, device="cpu"), cfg)))
+    x = _x(2, 500, seed=8).to(cuda_device)
+    before = dict(kern.INSTANCE_LAUNCHES)
+    if dp == "fp32":
+        got, want = kern.cnn_eq_fused(x, w, st), ref.cnn_eq(x, w, st)
+    elif dp == "bf16":
+        got, want = kern.cnn_eq_fused_bf16(x, w, st), ref.cnn_eq_bf16(x, w, st)
+    else:
+        q = kern.quantize_weights_int8(w, FMTS)
+        got = kern.cnn_eq_fused_int8(x, q, st, FMTS)
+        want = ref.cnn_eq_int8(x, q, st, FMTS)
+    torch.cuda.synchronize()
+    assert kern.INSTANCE_LAUNCHES["generic"] == before["generic"] + 1
+    assert kern.INSTANCE_LAUNCHES["rb"] == before["rb"]
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
