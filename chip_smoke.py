@@ -11,8 +11,8 @@ result line), in the order they run:
      flash_attn_bwd, slstm) for sm_90a; prints the -Xptxas -v register /
      shared-memory / spill lines of every kernel instance (the sLSTM
      source's: the cluster kernel's twelve, the stream kernel's four), and
-     the registers and spills of each register-blocked cnn_eq instance
-     (`cnn_eq_kernel_rb`, bf16 and int8 at P = 2, 4, 8; none may spill);
+     the registers and spills of the two register-blocked cnn_eq instances
+     (`cnn_eq_kernel_rb`, bf16 and int8 at the plan's P; none may spill);
   3. kernel == plain: each datapath (fp32, bf16, int8) on the card at the
      paper's deployment shape (equalizer_ht: 64 rows × 7320 symbols),
      shared and per-row stacked weights, tile_m ∈ {16, 64, 256}, and at
@@ -22,9 +22,10 @@ result line), in the order they run:
      int8); each kernel must equal its plain PyTorch version (`ref.py`)
      bitwise. With the counts zeroed before, every bf16 and int8 launch
      must have run the register-blocked kernel and every fp32 launch the
-     generic one (`INSTANCE_LAUNCHES`); `cnn_eq._plan` must equal the
-     library's `cnn_eq_plan` for each datapath; and the register-blocked
-     kernel must equal the generic one forced on the same inputs bitwise;
+     generic one (`INSTANCE_LAUNCHES`); `cnn_eq._plan` must name the
+     kernel of the library's `cnn_eq_plan` for each datapath; and the
+     register-blocked kernel must equal the generic one forced on the
+     same inputs bitwise;
   4. the slice: `ServeRuntime(device="cuda")` serves 4 int8 "ht" tenants,
      4 bf16 "lp" tenants and 1 fp32 tenant (7320 symbols each, jittered
      chunks of ~1024 symbols, one chunk shorter than the receptive field);
@@ -53,10 +54,11 @@ result line), in the order they run:
      ReLU for cnn_eq, the einsum chain of `core.volterra.apply`,
      torch.fake_quantize_per_tensor_affine, F.conv1d), beside the least
      time the card could take; for bf16 and int8 also the plan's kernel,
-     run W and P, the device time before the redesign (OLD_DEVICE_MS),
-     the generic kernel forced on the same inputs, the device time at the
-     [4a] serving shape and, for bf16, the FP32-issue floor of its fixed
-     order (two FP32 instructions a MAC);
+     run W and P, the generic kernel forced on the same inputs, the device
+     time at the [4a] serving shape and, for bf16, the FP32-issue floor of
+     its fixed order (two FP32 instructions a MAC); beside them, the
+     device times before the redesign as PERF.md records them
+     (OLD_DEVICE_MS, not measured here);
   8. LM serving: `repro_torch.launch.serve.serve_session` builds
      qwen3-0.6b at full width (28 layers, d_model 1024, 16/8 heads of 128,
      bf16, fused_attention, tp = 1) with seeded random weights on the
@@ -228,7 +230,7 @@ ROWS = HT.N_INSTANCES                 # 64 parallel instances
 SYMS = HT.L_INST                      # 7320 symbols per instance
 TILES = (16, 64, 256)
 # [3] edge widths: (rows, samples, tile_m, strided view); the receptive
-# field is 137 samples, a final position 16, the plan's run 64 positions
+# field is 137 samples, a final position 16, the plan's run 60 positions
 EDGE_SHAPES = ((1, 2 * SYMS, 64, False), (4, 100, 64, False),
                (4, 16, 64, False), (4, 16 * 197 + 9, 16, True),
                (ROWS, 16 * 131 + 3, 8192, False))
@@ -527,14 +529,15 @@ def check_edges(inputs: dict) -> list:
 
 
 def check_plans() -> dict:
-    """`cnn_eq._plan` against the library's `cnn_eq_plan`, each datapath."""
+    """`cnn_eq._plan` against the library's `cnn_eq_plan`, each datapath;
+    returns the library's plans."""
     lib = K._load()
     plans = {}
     for dp, mode in MODE_OF.items():
-        plan, lib_plan = K._plan(mode, K._RB_DIMS), K._lib_plan(
-            lib, mode, K._RB_DIMS)
-        require(plan == lib_plan, f"{dp}: _plan {plan} != cnn_eq_plan "
-                                  f"{lib_plan}")
+        plan = K._lib_plan(lib, mode, K._RB_DIMS)
+        require(plan.instance == K._plan(mode, K._RB_DIMS),
+                f"{dp}: _plan {K._plan(mode, K._RB_DIMS)} != cnn_eq_plan "
+                f"{plan}")
         want = "generic" if dp == "fp32" else "rb"
         require(plan.instance == want, f"{dp}: plan {plan}, expected {want}")
         plans[dp] = plan._asdict()
@@ -788,7 +791,7 @@ def time_kernels(inputs: dict, tiles_used: dict, serving: dict,
     for dp, d in inputs.items():
         x, w, st = d["x"], d["stacked"], d["strides"]
         tile = tiles_used[dp]
-        plan = K._plan(MODE_OF[dp], K._RB_DIMS)
+        plan = K._lib_plan(K._load(), MODE_OF[dp], K._RB_DIMS)
         xp, _ = R._halo_pad(x, [int(wi.shape[-1]) for wi, _ in w], st)
         # PyTorch has no int8 convolution: the int8 yardstick is the fp32
         # chain on the same rows' fp32 folded weights
@@ -821,7 +824,6 @@ def time_kernels(inputs: dict, tiles_used: dict, serving: dict,
                         .contiguous()) for a, b in w)
             out[dp].update(
                 w_run=plan.w_run, p=plan.p, threads=plan.threads,
-                old_device_ms=OLD_DEVICE_MS[dp],
                 generic_device_ms=_device_ms(
                     lambda: K._forced("generic", MODE_OF[dp], x, w, st, tile,
                                       formats=fmts), "cnn_eq_kernel",
@@ -2099,7 +2101,7 @@ def main() -> int:
                 print(f"    ptxas: {line.strip()}")
     rb_ptxas = K_sweep.ptxas(next(log for src, _, log, _ in built
                                   if src == K.CSRC))
-    require(len(rb_ptxas) == 2 * len(K._RB_P) and all(
+    require(len(rb_ptxas) == 2 and all(
         v.get("spill_bytes") == 0 for v in rb_ptxas.values()),
         f"cnn_eq_kernel_rb instances spill or are missing: {rb_ptxas}")
     print(f"[2] cnn_eq_kernel_rb registers and spill bytes: "
@@ -2151,7 +2153,8 @@ def main() -> int:
     again = {}
     trace = device_trace(lambda: again.update(
         serve(dev, specs, streams, max_batch=4)))
-    print(f"[4b] serve again under torch.profiler (autotune cached): "
+    print(f"[4b] serve again under torch.profiler (fp32's autotune "
+          f"cached): "
           f"{json.dumps(trace)}; p50 {again['stats']['p50_latency_ms']:.3f}"
           f" ms, p99 {again['stats']['p99_latency_ms']:.3f} ms", flush=True)
 
@@ -2184,7 +2187,9 @@ def main() -> int:
     dtimes = time_deploy_kernels(d, drun, iters=200)
     print(f"[5] times (ms; CUDA events, mean of 200 calls after warm-up; "
           f"device_ms from torch.profiler over 20 calls): "
-          f"{json.dumps(times)} {json.dumps(dtimes)}", flush=True)
+          f"{json.dumps(times)} {json.dumps(dtimes)}; bf16 / int8 device "
+          f"ms before the register-blocked kernel (PERF.md, not measured "
+          f"here): {json.dumps(OLD_DEVICE_MS)}", flush=True)
 
     lm = serve_lm(dev)
     print(f"[8] LM serving: {lm['cfg'].name} (28 layers, bf16, "
@@ -2320,10 +2325,9 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "library": library[dp],
             "tile_m": t["tile_m"], "shape": t["shape"], "card": card,
-            **{k: t[k] for k in ("instance", "w_run", "p", "threads",
-                                 "old_device_ms", "generic_device_ms",
-                                 "serving_shape", "serving_device_ms",
-                                 "fp32_issue_floor_ms") if k in t}})
+            **{k: t[k] for k in ("instance", "generic_device_ms",
+                                 "serving_shape", "serving_device_ms")
+               if k in t}})
     for name, (source, replaces, _) in DEPLOY_KERNELS.items():
         t = dtimes[name]
         kernels.append({

@@ -14,7 +14,8 @@ Port of `repro.core.engine`. The engine owns:
         the BN-folded weights still fit the learned grid; else fused_bf16
         when every frozen format fits 16 bits; else fused_fp32;
   * tile_m selection: an explicit int, or "auto" → the cached autotune
-    sweep (core.autotune) keyed on (topology, backend, platform).
+    sweep (core.autotune) keyed on (topology, backend, platform) where
+    the backend's kernel tiles by it, else UNTIMED_TILE_M.
 
 Folding and weight quantization run on the host in fp32 and the results
 move to the engine's device afterwards, so the deployed weights on the card
@@ -44,6 +45,14 @@ from .equalizer import (CNNEqConfig, fold_bn, folded_weights, init_bn_state,
                         layer_strides)
 
 BACKENDS = ("ref", "fused_fp32", "fused_bf16", "fused_int8")
+
+# tile_m of a backend whose kernel takes none: "ref", and bf16 and int8 at
+# the paper's widths, whose kernel (cnn_eq_kernel_rb) splits each row into
+# runs of its own. The width still sets the serving layer's launch-width
+# quantum (serve.scheduler's _bucket_width) and the chunker's tile
+# alignment, so it is fixed rather than timed: a timed pick would only
+# measure noise. 64 positions is the wrappers' default.
+UNTIMED_TILE_M = 64
 
 Format = Tuple[int, int, int, int]          # (w_int, w_frac, a_int, a_frac)
 
@@ -180,12 +189,23 @@ class EqualizerEngine:
                         <= 16
                         for wi, wf, ai, af in self.formats))
 
+    def tile_is_timed(self) -> bool:
+        """Whether tile_m reaches this backend's kernel, so that the
+        autotune has something to time."""
+        from ..kernels.cnn_eq import cnn_eq as kern
+        if self.backend == "ref":
+            return False
+        mode = {"fused_fp32": kern.MODE_FP32, "fused_bf16": kern.MODE_BF16,
+                "fused_int8": kern.MODE_INT8}[self.backend]
+        return kern.takes_tile_m(mode, self.weights, self._strides)
+
     def resolved_tile_m(self) -> int:
-        """The tile width actually used (runs the autotune sweep if 'auto')."""
+        """The tile width actually used (runs the autotune sweep if 'auto'
+        and the kernel tiles by it)."""
         if isinstance(self.tile_m, int):
             return self.tile_m
-        if self.backend == "ref":
-            return 64                              # ref has no tiling knob
+        if not self.tile_is_timed():
+            return UNTIMED_TILE_M
         best = autotune_lib.best_tile_m(
             self.cfg, self.backend, lambda t: self._make_fn(t),
             device=self.device)

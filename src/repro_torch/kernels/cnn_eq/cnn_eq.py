@@ -21,8 +21,8 @@ dims, with no switch, no environment variable and no fallback.
   * "rb" — `cnn_eq_kernel_rb`, register-blocked and specialized to the
     paper's widths (L = 3, K = 9, C = 5, V_p = 8, N_os = 2, both equalizer
     configs) for bf16 and int8. It reads the unpadded input, takes zeros
-    outside it, splits each row into its own runs of `w_run` final
-    positions and ignores `tile_m`.
+    outside it, splits each row into its own runs of final positions (the
+    library's plan gives their length) and ignores `tile_m`.
   * "generic" — `cnn_eq_kernel`, for fp32 and every other shape. It keeps
     the reference's padding and tiling: the input is padded with one halo
     on the left and up to the last tile's window on the right, the grid is
@@ -60,7 +60,8 @@ from .ref import _wformat_cols, receptive_halo, requant_int8
 
 __all__ = ["INSTANCE_LAUNCHES", "LAUNCHES", "build", "cast_weights_bf16", "cnn_eq_fused",
            "cnn_eq_fused_bf16", "cnn_eq_fused_int8", "dequant_int8",
-           "quantize_weights_int8", "requant_int8", "reset_launch_counts"]
+           "quantize_weights_int8", "requant_int8", "reset_launch_counts",
+           "takes_tile_m"]
 
 MODE_FP32, MODE_BF16, MODE_INT8 = 0, 1, 2
 _MAX_SMEM_BYTES = 232448          # 227 KB: one block's opt-in limit
@@ -81,69 +82,25 @@ def reset_launch_counts() -> None:
 
 
 # ---------------------------------------------------------------------------
-# the plan (csrc/cnn_eq.cu: cnn_eq_plan, Rb::layout)
+# the plan (csrc/cnn_eq.cu: cnn_eq_plan)
 # ---------------------------------------------------------------------------
 
 # the widths cnn_eq_kernel_rb is instantiated for, as (k, c_in, c_out,
 # stride) per layer: the paper's K = 9, C = 5, V_p = 8, N_os = 2
 _RB_DIMS = ((9, 1, 5, 8), (9, 5, 5, 1), (9, 5, 8, 2))
-_RB_P = (2, 4)                     # the instances' positions a thread
-_RB_THREADS = 128
-# the plan's (final positions a block, P) by datapath, chosen by
-# `python -m repro_torch.kernels.cnn_eq.sweep` on the card
-_RB_GEOMETRY = {MODE_BF16: (60, 2), MODE_INT8: (60, 2)}
 
 
 class Plan(NamedTuple):
-    """How a call runs: `instance` "rb" or "generic"; for "rb" the final
-    positions a block `w_run`, the positions a thread `p` (layers 0 and 1;
-    p / N_os in the last), the block's `threads` and its dynamic shared
-    memory `smem` in bytes (all 0 for "generic")."""
+    """The library's plan of a call (`_lib_plan`): `instance` "rb" or
+    "generic"; for "rb" the final positions a block `w_run`, the positions
+    a thread `p` (layers 0 and 1; p / N_os in the last), the block's
+    `threads` and its dynamic shared memory `smem` in bytes (all 0 for
+    "generic")."""
     instance: str
     w_run: int
     p: int
     threads: int
     smem: int
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _rup(a: int, b: int) -> int:
-    return _cdiv(a, b) * b
-
-
-def _rb_smem(mode: int, w_run: int, p: int) -> int:
-    """Shared-memory bytes of one cnn_eq_kernel_rb block at the paper's
-    widths (csrc/cnn_eq.cu `Rb::layout`)."""
-    (k, _, c, vp), _, (_, _, _, nos) = _RB_DIMS
-    p2 = max(1, p // nos)
-    n1 = nos * (w_run - 1) + k
-    n0 = n1 + k - 1
-    t0, t1, t2 = _cdiv(n0, p), _cdiv(n1, p), _cdiv(w_run, p2)
-    if mode == MODE_BF16:
-        cp, vpp = _rup(c, 4), _rup(vp, 4)
-        need0 = (t0 - 1) * p + _rup(p + (k - 1) // vp, p)
-        ld0 = _rup(max(need0, 8) - 8, 64) + 8
-        ld1 = _rup(max((t1 - 1) * p + _rup(p + k - 1, p), t0 * p), 8)
-        need2 = (t2 - 1) * p2 + _rup(p2 + (k - 1) // nos, p2)
-        ld2 = _rup(max(need2, t1 * p // nos), 8)
-        regions = (2 * vp * ld0, 2 * c * ld1, 2 * c * nos * ld2,
-                   4 * k * cp, 4 * k * c * cp, 4 * k * c * vpp)
-        tail = 4 * (2 * cp + vpp)
-    else:
-        kw, cw = _cdiv(k, 4), _cdiv(c, 4)
-        ld0 = vp * (t0 - 1) * p // 4 + _rup(vp * (p - 1) // 4 + kw, 4)
-        ld1 = _rup(max(cw * (t1 - 1) * p + _rup(cw * (p + k - 1), 4),
-                       cw * t0 * p), 4)
-        ld2 = _rup(max(cw * nos * (t2 - 1) * p2
-                       + _rup(cw * (nos * (p2 - 1) + k), 4),
-                       cw * t1 * p), 4)
-        regions = (4 * ld0, 4 * ld1, 4 * ld2, 4 * c * kw, 4 * k * c * cw,
-                   4 * k * vp * cw)
-        tail = 4 * 2 * (2 * c + vp)
-    return _rup(sum(_rup(r, 16) for r in regions) + tail, 16)
 
 
 def _dims(weights, strides) -> Tuple[Tuple[int, int, int, int], ...]:
@@ -152,25 +109,20 @@ def _dims(weights, strides) -> Tuple[Tuple[int, int, int, int], ...]:
                   int(s)) for (w, _), s in zip(weights, strides))
 
 
-def _plan(mode: int, dims) -> Plan:
-    """The kernel and geometry of a call: "rb" for bf16 and int8 at the
-    paper's widths, "generic" for fp32 and every other shape."""
-    if mode in _RB_GEOMETRY and tuple(map(tuple, dims)) == _RB_DIMS:
-        w_run, p = _RB_GEOMETRY[mode]
-        return Plan("rb", w_run, p, _RB_THREADS, _rb_smem(mode, w_run, p))
-    return Plan("generic", 0, 0, 0, 0)
+def _plan(mode: int, dims) -> str:
+    """The kernel a call runs: "rb" for bf16 and int8 at the paper's
+    widths, "generic" for fp32 and every other shape. The geometry of "rb"
+    is the library's (`_lib_plan`)."""
+    if (mode in (MODE_BF16, MODE_INT8)
+            and tuple(map(tuple, dims)) == _RB_DIMS):
+        return "rb"
+    return "generic"
 
 
-def _rb_runs(n_pos: int, w_run: int, p: int) -> list:
-    """The final positions each block of cnn_eq_kernel_rb stores, block by
-    block: block b owns the run [b·w_run, (b+1)·w_run), its threads' tasks
-    of p / N_os positions cover ceil(w_run / (p / N_os)) of them, and a
-    position at or past the run's end or n_pos is not stored."""
-    p2 = max(1, p // _RB_DIMS[2][3])
-    return [[m0 + base + q for base in range(0, _cdiv(w_run, p2) * p2, p2)
-             for q in range(p2)
-             if base + q < w_run and m0 + base + q < n_pos]
-            for m0 in range(0, n_pos, w_run)]
+def takes_tile_m(mode: int, weights, strides) -> bool:
+    """Whether tile_m reaches the kernel a call with these weights runs on
+    the card: the generic kernel tiles by it, cnn_eq_kernel_rb does not."""
+    return _plan(mode, _dims(weights, strides)) == "generic"
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +149,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.cnn_eq_rb_launch.restype = ctypes.c_int
     lib.cnn_eq_rb_launch.argtypes = RB_ARGTYPES
     lib.cnn_eq_rb_launch_at.restype = ctypes.c_int
-    lib.cnn_eq_rb_launch_at.argtypes = [ctypes.c_int] * 2 + RB_ARGTYPES
+    lib.cnn_eq_rb_launch_at.argtypes = [ctypes.c_int] + RB_ARGTYPES
     lib.cnn_eq_plan.restype = ctypes.c_int
     lib.cnn_eq_plan.argtypes = [ctypes.c_int, ctypes.c_int,
                                 ctypes.POINTER(ctypes.c_int),
@@ -209,8 +161,8 @@ def _load() -> ctypes.CDLL:
 
 
 def _lib_plan(lib: ctypes.CDLL, mode: int, dims) -> Plan:
-    """The plan the built library's `cnn_eq_plan` gives (what the wrappers
-    launch), to hold `_plan` to it on the card."""
+    """The plan the built library's `cnn_eq_plan` gives: the kernel the
+    wrappers launch and, for "rb", its geometry."""
     flat = [int(v) for d in dims for v in d]
     kcs = (ctypes.c_int * max(1, len(flat)))(*flat)
     geom = (ctypes.c_int * 4)()
@@ -340,7 +292,7 @@ def _fused_call(name: str, mode: int, x: torch.Tensor, weights,
     """Check and run one datapath; (B, W) → (B, W//(V_p·N_os)·V_p)."""
     strides = tuple(int(s) for s in strides)
     stacked = _check(mode, x, weights, strides)
-    if x.is_cuda and _plan(mode, _dims(weights, strides)).instance == "rb":
+    if x.is_cuda and _plan(mode, _dims(weights, strides)) == "rb":
         return _call_rb(name, mode, x, weights, strides, stacked, formats,
                         scales)
     return _call_tiled(name, mode, x, weights, strides, tile_m, stacked,
@@ -355,10 +307,9 @@ def _shape(x: torch.Tensor, weights, strides) -> Tuple[int, int, int]:
 
 
 def _call_tiled(name, mode, x, weights, strides, tile_m, stacked, formats,
-                scales, lib=None) -> torch.Tensor:
-    """The padded, tiled path: the generic kernel on a CUDA tensor (from
-    `lib`, default this source's library), the plain version on a CPU
-    one."""
+                scales) -> torch.Tensor:
+    """The padded, tiled path: the generic kernel on a CUDA tensor, the
+    plain version on a CPU one."""
     batch, width = x.shape
     kernels = tuple(int(w.shape[-1]) for w, _ in weights)
     n_pos, v_parallel, total_stride = _shape(x, weights, strides)
@@ -383,7 +334,7 @@ def _call_tiled(name, mode, x, weights, strides, tile_m, stacked, formats,
     if x.is_cuda:
         out = _launch(name, mode, xp, weights, kernels, strides, spans,
                       stacked, n_tiles, tile_step, v_parallel, formats,
-                      scales, lib)
+                      scales)
     else:
         out = _plain_tiles(mode, xp, weights, strides, tile_m, n_tiles,
                            in_tile, tile_step, stacked, formats, scales)
@@ -427,11 +378,10 @@ def _aq_ptrs(mode, weights, formats, scales) -> Tuple[list, list]:
 
 
 def _launch(name, mode, xp, weights, kernels, strides, spans, stacked,
-            n_tiles, tile_step, v_parallel, formats, scales,
-            lib=None) -> torch.Tensor:
+            n_tiles, tile_step, v_parallel, formats, scales) -> torch.Tensor:
     """Launch the generic kernel on the current stream; raises on any
     error."""
-    lib = lib if lib is not None else _load()
+    lib = _load()
     batch = xp.shape[0]
     out = torch.empty((batch, n_tiles * spans[-1] * v_parallel),
                       dtype=torch.float32, device=xp.device)
@@ -464,10 +414,11 @@ def _launch(name, mode, xp, weights, kernels, strides, spans, stacked,
 
 def _rb_call(lib: ctypes.CDLL, mode: int, x: torch.Tensor, out: torch.Tensor,
              weights, strides, stacked: bool, formats, scales, stream: int,
-             geometry=None) -> int:
-    """Marshal one call of `cnn_eq_rb_launch`, or with geometry = (w_run,
-    p) of `cnn_eq_rb_launch_at`; returns its code. x: (B, W)
-    fp32 with unit stride along W; out: (B, n_pos·V_p) contiguous."""
+             w_run=None) -> int:
+    """Marshal one call of `cnn_eq_rb_launch`, or with a run of w_run
+    final positions a block of `cnn_eq_rb_launch_at`; returns its code.
+    x: (B, W) fp32 with unit stride along W; out: (B, n_pos·V_p)
+    contiguous."""
     flat = [v for d in _dims(weights, strides) for v in d]
     aq, ptrs = _aq_ptrs(mode, weights, formats, scales)
     c_kcs = (ctypes.c_int * len(flat))(*flat)
@@ -478,33 +429,32 @@ def _rb_call(lib: ctypes.CDLL, mode: int, x: torch.Tensor, out: torch.Tensor,
             int(x.shape[1]), int(x.stride(0)), n_pos, int(stacked),
             ctypes.addressof(c_kcs), ctypes.addressof(c_aq),
             ctypes.addressof(c_ptrs), stream)
-    if geometry is None:
+    if w_run is None:
         return lib.cnn_eq_rb_launch(*args)
-    return lib.cnn_eq_rb_launch_at(*(int(g) for g in geometry), *args)
+    return lib.cnn_eq_rb_launch_at(int(w_run), *args)
 
 
 def _call_rb(name, mode, x, weights, strides, stacked, formats, scales,
-             geometry=None, lib=None) -> torch.Tensor:
-    """Launch cnn_eq_kernel_rb on the current stream (at the plan's
-    geometry, or at (w_run, p); from `lib`, default this source's
-    library); raises on any error."""
+             w_run=None) -> torch.Tensor:
+    """Launch cnn_eq_kernel_rb on the current stream (at the plan's run,
+    or at runs of w_run final positions); raises on any error."""
     n_pos, v_parallel, _ = _shape(x, weights, strides)
     batch = int(x.shape[0])
     if n_pos == 0 or batch == 0:
         return x.new_zeros((batch, n_pos * v_parallel))
     if x.stride(1) != 1:
         x = x.contiguous()
-    lib = lib if lib is not None else _load()
+    lib = _load()
     out = torch.empty((batch, n_pos * v_parallel), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _rb_call(lib, mode, x, out, weights, strides, stacked, formats,
-                      scales, stream, geometry)
+                      scales, stream, w_run)
     if rc == -2:
-        raise ValueError(f"{name}: geometry {geometry} needs more than "
-                         f"{_MAX_SMEM_BYTES} bytes of shared memory per "
-                         f"block")
+        raise ValueError(f"{name}: runs of {w_run} positions need more "
+                         f"than {_MAX_SMEM_BYTES} bytes of shared memory "
+                         f"per block")
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with code {rc}")
     LAUNCHES[name] += 1
@@ -518,12 +468,12 @@ _NAMES = {MODE_FP32: "cnn_eq_fused", MODE_BF16: "cnn_eq_fused_bf16",
 
 def _forced(instance: str, mode: int, x: torch.Tensor, weights,
             strides: Sequence[int], tile_m: int = 64, formats=None,
-            geometry=None, lib=None) -> torch.Tensor:
+            w_run=None) -> torch.Tensor:
     """A wrapper's call on a CUDA tensor with the kernel named, not
-    planned: "generic" at tile_m, or "rb" at the plan's geometry or at
-    (w_run, p); from `lib`, default this source's library.
-    For the card tests, chip_smoke.py and the sweep, which hold the two
-    kernels against each other; the wrappers never call it."""
+    planned: "generic" at tile_m, or "rb" at the plan's run or at runs of
+    w_run final positions. For the card tests, chip_smoke.py and the
+    sweep, which hold the two kernels against each other; the wrappers
+    never call it."""
     if not x.is_cuda:
         raise ValueError(f"a forced {instance!r} launch needs a CUDA tensor, "
                          f"got one on {x.device}")
@@ -537,9 +487,9 @@ def _forced(instance: str, mode: int, x: torch.Tensor, weights,
     stacked = _check(mode, x, weights, strides)
     if instance == "rb":
         return _call_rb(_NAMES[mode], mode, x, weights, strides, stacked,
-                        formats, scales, geometry, lib)
+                        formats, scales, w_run)
     return _call_tiled(_NAMES[mode], mode, x, weights, strides, tile_m,
-                       stacked, formats, scales, lib)
+                       stacked, formats, scales)
 
 
 def _int8_scales(formats, qweights, device) -> Tuple:

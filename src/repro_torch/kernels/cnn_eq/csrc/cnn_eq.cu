@@ -300,8 +300,9 @@ extern "C" int cnn_eq_launch(int mode, const void* xp, void* out, int rows,
 //     layer-0 and 2·w_run + 7 layer-1 positions for w_run final ones.
 //   * Halo in the kernel: it reads the unpadded (rows, width) input and
 //     takes +0 for any sample before 0 or past the width, as F.pad does.
-//   * Register blocking (P = 2 or 4; P = 8 spilled at every register cap
-//     the sweep tried and was slower): a thread computes P adjacent
+//   * Register blocking (P = RB_PPOS, 2; the template also takes 4, which
+//     the sweep times as a source variant; P = 8 spilled at every register
+//     cap the sweep tried and was slower): a thread computes P adjacent
 //     positions of a layer for all its output channels (P/2 in the last
 //     layer), its input window in registers from vector shared-memory
 //     reads. One broadcast read of a (tap, C_in) pair's weights serves P
@@ -977,10 +978,12 @@ cnn_eq_kernel_rb(const RbParams p) {
 #define RB_VP 8
 #define RB_NOS 2
 
-// the geometry the plan runs, by mode: final positions a block and P
-// (chosen by `python -m repro_torch.kernels.cnn_eq.sweep`)
+// the geometry the plan runs: final positions a block by mode, and the
+// positions a thread P of both datapaths' instances (chosen by
+// `python -m repro_torch.kernels.cnn_eq.sweep`, which times other P as
+// source variants)
 static const int RB_W_RUN[3] = {0, 60, 60};
-static const int RB_P[3] = {0, 2, 2};
+#define RB_PPOS 2
 
 static bool rb_dims(int mode, int n_layers, const int* kcs) {
   static const int want[3][4] = {{RB_K, 1, RB_C, RB_VP},
@@ -993,21 +996,11 @@ static bool rb_dims(int mode, int n_layers, const int* kcs) {
   return true;
 }
 
-template <int MODE, int P>
-static RbLayout rb_layout(int w_run) {
-  return Rb<MODE, RB_K, RB_C, RB_VP, RB_NOS, P>::layout(w_run);
-}
-
-// the layout of (mode, w_run, p); false for a P with no instance
-static bool rb_geometry(int mode, int w_run, int p, RbLayout* lay) {
-  if (w_run < 1) return false;
-  switch (mode * 16 + p) {
-    case MODE_BF16 * 16 + 2: *lay = rb_layout<MODE_BF16, 2>(w_run); return true;
-    case MODE_BF16 * 16 + 4: *lay = rb_layout<MODE_BF16, 4>(w_run); return true;
-    case MODE_INT8 * 16 + 2: *lay = rb_layout<MODE_INT8, 2>(w_run); return true;
-    case MODE_INT8 * 16 + 4: *lay = rb_layout<MODE_INT8, 4>(w_run); return true;
-    default: return false;
-  }
+// the layout of a block of w_run final positions (mode bf16 or int8)
+static RbLayout rb_layout(int mode, int w_run) {
+  return mode == MODE_BF16
+             ? Rb<MODE_BF16, RB_K, RB_C, RB_VP, RB_NOS, RB_PPOS>::layout(w_run)
+             : Rb<MODE_INT8, RB_K, RB_C, RB_VP, RB_NOS, RB_PPOS>::layout(w_run);
 }
 
 // Returns 1 and fills geom = (w_run, p, threads, shared-memory bytes) when
@@ -1017,19 +1010,17 @@ extern "C" int cnn_eq_plan(int mode, int n_layers, const int* kcs,
                            int* geom) {
   geom[0] = geom[1] = geom[2] = geom[3] = 0;
   if (!rb_dims(mode, n_layers, kcs)) return 0;
-  RbLayout lay;
-  rb_geometry(mode, RB_W_RUN[mode], RB_P[mode], &lay);
   geom[0] = RB_W_RUN[mode];
-  geom[1] = RB_P[mode];
+  geom[1] = RB_PPOS;
   geom[2] = RB_THREADS;
-  geom[3] = lay.bytes;
+  geom[3] = rb_layout(mode, RB_W_RUN[mode]).bytes;
   return 1;
 }
 
-template <int MODE, int P>
+template <int MODE>
 static int rb_launch(const RbParams& p, dim3 grid, size_t smem,
                      cudaStream_t stream) {
-  auto kern = cnn_eq_kernel_rb<MODE, RB_K, RB_C, RB_VP, RB_NOS, P>;
+  auto kern = cnn_eq_kernel_rb<MODE, RB_K, RB_C, RB_VP, RB_NOS, RB_PPOS>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1040,25 +1031,27 @@ static int rb_launch(const RbParams& p, dim3 grid, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-// cnn_eq_kernel_rb at an explicit geometry (w_run final positions a block,
-// P; always RB_THREADS threads): the sweep, chip_smoke.py and
+// cnn_eq_kernel_rb at an explicit run (w_run final positions a block, at
+// the instances' P and RB_THREADS threads): the sweep, chip_smoke.py and
 // the card tests. Returns 0, a cudaError_t code, -1 (bad arguments), -2
 // (more shared memory than a block can have) or -3 (no register-blocked
-// instance for these dims or this P).
+// instance for these dims).
 //   x:    (rows, width) fp32, row stride x_stride; out: (rows, n_pos·V_p)
 //   kcs:  3 × (k, c_in, c_out, stride)
 //   aq:   3 × (a_scale, a_lo, a_hi)        (int8; else ignored)
 //   ptrs: 3 × (w, b, scale)                (scale: int8 only)
-extern "C" int cnn_eq_rb_launch_at(int w_run, int p_pos, int mode, const void* x, void* out,
-                                   int rows, int width, long long x_stride,
+extern "C" int cnn_eq_rb_launch_at(int w_run, int mode, const void* x,
+                                   void* out, int rows, int width,
+                                   long long x_stride,
                                    int n_pos, int stacked, const void* kcs_v,
                                    const void* aq_v, const void* ptrs_v,
                                    void* stream) {
   const int* kcs = static_cast<const int*>(kcs_v);
   if (!rb_dims(mode, 3, kcs)) return -3;
-  if (rows < 1 || rows > 65535 || n_pos < 1 || width < 1) return -1;
+  if (rows < 1 || rows > 65535 || n_pos < 1 || width < 1 || w_run < 1)
+    return -1;
   RbParams p;
-  if (!rb_geometry(mode, w_run, p_pos, &p.lay)) return -3;
+  p.lay = rb_layout(mode, w_run);
   if (p.lay.bytes > MAX_SMEM_BYTES) return -2;
   const float* aq = static_cast<const float*>(aq_v);
   const void* const* ptrs = static_cast<const void* const*>(ptrs_v);
@@ -1080,12 +1073,8 @@ extern "C" int cnn_eq_rb_launch_at(int w_run, int p_pos, int mode, const void* x
   const dim3 grid(cdiv(n_pos, w_run), rows);
   const size_t smem = static_cast<size_t>(p.lay.bytes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode * 16 + p_pos) {
-    case MODE_BF16 * 16 + 2: return rb_launch<MODE_BF16, 2>(p, grid, smem, s);
-    case MODE_BF16 * 16 + 4: return rb_launch<MODE_BF16, 4>(p, grid, smem, s);
-    case MODE_INT8 * 16 + 2: return rb_launch<MODE_INT8, 2>(p, grid, smem, s);
-    default:                 return rb_launch<MODE_INT8, 4>(p, grid, smem, s);
-  }
+  return mode == MODE_BF16 ? rb_launch<MODE_BF16>(p, grid, smem, s)
+                           : rb_launch<MODE_INT8>(p, grid, smem, s);
 }
 
 // cnn_eq_kernel_rb at the plan's geometry: what cnn_eq_fused_bf16 and
@@ -1098,7 +1087,6 @@ extern "C" int cnn_eq_rb_launch(int mode, const void* x, void* out, int rows,
                                 void* stream) {
   int geom[4];
   if (!cnn_eq_plan(mode, 3, static_cast<const int*>(kcs_v), geom)) return -3;
-  return cnn_eq_rb_launch_at(geom[0], geom[1], mode, x, out, rows, width,
-                             x_stride, n_pos, stacked, kcs_v, aq_v, ptrs_v,
-                             stream);
+  return cnn_eq_rb_launch_at(geom[0], mode, x, out, rows, width, x_stride,
+                             n_pos, stacked, kcs_v, aq_v, ptrs_v, stream);
 }

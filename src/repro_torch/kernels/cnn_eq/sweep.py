@@ -9,23 +9,26 @@ random BN-folded set per row from a seed, cast to bf16 or quantized to
 int8 at Q2.5 weights / Q3.4 activations), it times by torch.profiler's
 device time per launch (mean of CALLS launches, every variant of a shape
 and datapath in one profiler session):
-- the plan's geometry of cnn_eq_kernel_rb (`cnn_eq._plan`) for bf16 and
-  int8;
-- cnn_eq_kernel_rb at every final-position run W × positions a thread P
-  of RUNS × PS (`cnn_eq_rb_launch_at`, 128 threads a block; W = 60 and
-  124 make layer 1's 2W + 7 positions fill whole warps);
+- the plan's geometry of cnn_eq_kernel_rb (the library's `cnn_eq_plan`)
+  for bf16 and int8;
+- cnn_eq_kernel_rb at every final-position run W of RUNS
+  (`cnn_eq_rb_launch_at`, at the source's P, 128 threads a block; W = 60
+  and 124 make layer 1's 2W + 7 positions fill whole warps);
 - the generic kernel, cnn_eq_kernel, forced on the same inputs at each
   tile_m of TILES;
 - cnn_eq_kernel_rb built from copies of the source with one piece
-  rewritten (`VARIANTS`, built under build/kernels), at the geometries of
-  VARIANT_GEOMETRIES: the register cap __launch_bounds__ sets (64, the
-  source's, against 80 and 128 a thread), the tasks without their
-  compiler fence (task_fence), which lets the compiler hoist the weight
-  reads out of the task loops, bf16 weights read as the used scalars
-  instead of whole float4s of the padded row, and the input staged one
-  read a thread at a time (RB_STAGE 1, not 8);
+  rewritten (`VARIANTS`, built under build/kernels), at every run of
+  RUNS: P = 4 positions a thread (the source's is 2), the register cap
+  __launch_bounds__ sets (64, the source's, against 80 and 128 a
+  thread), the tasks without their compiler fence (task_fence), which
+  lets the compiler hoist the weight reads out of the task loops, bf16
+  weights read as the used scalars instead of whole float4s of the padded
+  row, and the input staged one read a thread at a time (RB_STAGE 1, not
+  8);
 - with --parent, the generic kernel of another copy of the source (an
   earlier commit's), on the same inputs in the same process.
+A variant's or the parent's library takes the wrappers' launches through
+`built_from`, which stands it in for the source's own library.
 Every variant is first held bitwise against the plain version
 (`ref.cnn_eq_bf16`, `ref.cnn_eq_int8`) at both shapes. It prints the
 -Xptxas -v registers and spills of every cnn_eq_kernel_rb instance. The
@@ -36,6 +39,7 @@ channel). Needs a CUDA card; exits 2 without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import functools
 import json
@@ -54,13 +58,13 @@ from . import ref
 
 SHAPES = {"deploy": (64, 14640), "serve": (4, 4096)}
 RUNS = (16, 32, 60, 64, 124, 128)
-PS = K._RB_P
 TILES = (16, 32, 64, 128)
 CALLS = 20
 FORMATS = ((2, 5, 3, 4),) * 3
 MODES = {"bf16": K.MODE_BF16, "int8": K.MODE_INT8}
 # source variants: name -> (text in csrc/cnn_eq.cu, its replacement)
 VARIANTS = {
+    "p4": ("#define RB_PPOS 2", "#define RB_PPOS 4"),
     "regs128": ("#define RB_MIN_BLOCKS 8", "#define RB_MIN_BLOCKS 4"),
     "regs80": ("#define RB_MIN_BLOCKS 8", "#define RB_MIN_BLOCKS 6"),
     "no_fence": ('asm volatile("" ::: "memory");', ""),
@@ -73,7 +77,26 @@ VARIANTS = {
   for (int c = 0; c < N; ++c) dst[c] = reinterpret_cast<const float*>(q)[c];""",
                  "  for (int c = 0; c < N; ++c) dst[c] = src[c];"),
 }
-VARIANT_GEOMETRIES = ((16, 2), (60, 2), (60, 4), (124, 4))
+
+
+@contextlib.contextmanager
+def built_from(lib: ctypes.CDLL):
+    """Inside, the wrappers launch from `lib` (a variant's or the parent's
+    build of the source) instead of the source's own library."""
+    load = K._load
+    K._load = lambda: lib
+    try:
+        yield
+    finally:
+        K._load = load
+
+
+def on(lib: ctypes.CDLL, fn):
+    """fn, called with its launches from `lib` (`built_from`)."""
+    def call():
+        with built_from(lib):
+            return fn()
+    return call
 
 
 def variant_libs() -> dict:
@@ -203,11 +226,10 @@ def main(argv=None) -> int:
           flush=True)
     st = eq.layer_strides(HT.CNN)
     for dp, mode in MODES.items():
-        plan = K._plan(mode, K._RB_DIMS)
-        lib_plan = K._lib_plan(K._load(), mode, K._RB_DIMS)
-        if plan != lib_plan:
-            raise RuntimeError(f"{dp}: _plan {plan} != cnn_eq_plan "
-                               f"{lib_plan}")
+        plan = K._lib_plan(K._load(), mode, K._RB_DIMS)
+        if plan.instance != K._plan(mode, K._RB_DIMS):
+            raise RuntimeError(f"{dp}: _plan {K._plan(mode, K._RB_DIMS)} "
+                               f"!= cnn_eq_plan {plan}")
         result["plan"][dp] = plan._asdict()
     for shape, (rows, width) in SHAPES.items():
         d = inputs(dev, rows, width)
@@ -234,24 +256,21 @@ def main(argv=None) -> int:
                    if dp == "int8" else (lambda: K.cnn_eq_fused_bf16(
                        x, w, st)), **result["plan"][dp])
             for w_run in RUNS:
-                for p in PS:
-                    record("rb", functools.partial(
-                        K._forced, "rb", mode, x, w, st, formats=fmts,
-                        geometry=(w_run, p)),
-                        w_run=w_run, p=p, smem=K._rb_smem(mode, w_run, p))
+                record("rb", functools.partial(
+                    K._forced, "rb", mode, x, w, st, formats=fmts,
+                    w_run=w_run), w_run=w_run)
             for name, (lib, _) in variants.items():
-                for geom in VARIANT_GEOMETRIES:
-                    record(name, functools.partial(
+                for w_run in RUNS:
+                    record(name, on(lib, functools.partial(
                         K._forced, "rb", mode, x, w, st, formats=fmts,
-                        geometry=geom, lib=lib), w_run=geom[0], p=geom[1])
+                        w_run=w_run)), w_run=w_run)
             for tile in TILES:
-                record("generic", functools.partial(
+                generic = functools.partial(
                     K._forced, "generic", mode, x, w, st, tile,
-                    formats=fmts), tile_m=tile)
+                    formats=fmts)
+                record("generic", generic, tile_m=tile)
                 if parent is not None:
-                    record("parent", functools.partial(
-                        K._forced, "generic", mode, x, w, st, tile,
-                        formats=fmts, lib=parent), tile_m=tile)
+                    record("parent", on(parent, generic), tile_m=tile)
             for row, ms in zip(rows_out, device_ms(fns)):
                 row["device_ms"] = ms
                 print(f"{shape} {dp} {json.dumps(row)}", flush=True)

@@ -15,7 +15,8 @@ kernel over all rows, and copies the symbols back. The streamed output is
 bitwise equal to the offline engine on the whole waveform.
 
 Serve-aware autotune lives in `_serve_tile`: tenants opened with
-tile_m="auto" after a tune-key's traffic histograms are warm (≥
+tile_m="auto", whose kernel tiles by it (`EqualizerEngine.tile_is_timed`),
+after a tune-key's traffic histograms are warm (≥
 `BatchPolicy.retune_after` launches) get `best_tile_m(probe_batch=mode
 occupancy, probe_syms=median live width)` instead of the single-stream
 default.
@@ -44,17 +45,19 @@ _MIN_PROBE_SYMS = 64
 def _serve_tile(batcher: MicroBatcher,
                 engine: EqualizerEngine) -> Optional[int]:
     """Serve-aware tile for a NEW session, or None to keep the engine's
-    single-stream autotune choice.
+    own tile (its single-stream autotune choice, or
+    `core.engine.UNTIMED_TILE_M`).
 
-    Returns a tile only once the engine's tune-key has ≥
+    Returns a tile only where the engine's kernel tiles by it, and only
+    once the engine's tune-key has ≥
     `BatchPolicy.retune_after` recorded launches AND steady-state occupancy
     is actually batched (mode > 1). The sweep probes `best_tile_m` with the
     OBSERVED mode batch occupancy and median launch width, and is cached
     under the batched (probe_batch, probe_syms) key.
     """
     pol = batcher.policy
-    if pol.retune_after <= 0 or engine.backend == "ref":
-        return None                    # disabled, or no tiling knob at all
+    if pol.retune_after <= 0 or not engine.tile_is_timed():
+        return None                    # disabled, or the kernel takes no tile
     stats = batcher.traffic.get(engine.tune_key())
     if stats is None or stats.launches < pol.retune_after:
         return None                    # histogram not warm yet

@@ -312,11 +312,9 @@ def test_plan_takes_register_blocked_kernel_at_paper_widths(mode, cfg_name):
     from repro_torch.configs import equalizer_ht, equalizer_lp
     cfg = {"equalizer_ht": equalizer_ht,
            "equalizer_lp": equalizer_lp}[cfg_name].CNN
-    plan = tkern._plan(mode, _plan_dims(cfg))
-    assert plan.instance == "rb"
-    assert plan.p in tkern._RB_P and plan.w_run >= 1
-    assert plan.smem == tkern._rb_smem(mode, plan.w_run, plan.p)
-    assert plan.threads == tkern._RB_THREADS
+    assert tkern._plan(mode, _plan_dims(cfg)) == "rb"
+    w = _tw(_folded_np(cfg, 0))
+    assert not tkern.takes_tile_m(mode, w, _strides(cfg))
 
 
 @pytest.mark.parametrize("mode,cfg", [
@@ -330,30 +328,9 @@ def test_plan_takes_register_blocked_kernel_at_paper_widths(mode, cfg_name):
     (tkern.MODE_BF16, CFG4),
 ])
 def test_plan_takes_generic_kernel_elsewhere(mode, cfg):
-    assert tkern._plan(mode, _plan_dims(cfg)) == tkern.Plan("generic", 0, 0,
-                                                            0, 0)
-
-
-@pytest.mark.parametrize("w_run", [1, 3, 16, 32, 64, 100, 128])
-def test_rb_runs_cover_every_position_once(w_run):
-    for p in tkern._RB_P:
-        for n_pos in (1, 5, 63, 64, 65, 129, 915, 1000):
-            runs = tkern._rb_runs(n_pos, w_run, p)
-            assert len(runs) == -(-n_pos // w_run)
-            flat = [m for run in runs for m in run]
-            assert flat == list(range(n_pos)), (w_run, p, n_pos)
-
-
-@pytest.mark.parametrize("mode", [tkern.MODE_BF16, tkern.MODE_INT8])
-def test_rb_shared_memory_fits_a_block(mode):
-    from repro_torch.kernels.cnn_eq import sweep
-    plan = tkern._plan(mode, tkern._RB_DIMS)
-    geoms = [(plan.w_run, plan.p)] + [(w, p) for w in sweep.RUNS
-                                      for p in tkern._RB_P]
-    for w_run, p in geoms:
-        smem = tkern._rb_smem(mode, w_run, p)
-        assert 0 < smem <= tkern._MAX_SMEM_BYTES and smem % 16 == 0
-    assert plan.smem <= tkern._MAX_SMEM_BYTES
+    assert tkern._plan(mode, _plan_dims(cfg)) == "generic"
+    w = _tw(_folded_np(cfg, 0))
+    assert tkern.takes_tile_m(mode, w, _strides(cfg))
 
 
 def test_forced_launch_refuses_a_host_tensor():

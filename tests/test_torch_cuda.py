@@ -13,8 +13,9 @@ through the kernels. The register-blocked bf16 and int8 kernel
 inputs, at one row and at 64, shorter than the receptive field, at one
 position, at a run that ends past the positions, at 7320 symbols, at any
 tile_m (8192 too), with per-channel int8 formats and with saturating int8
-inputs; the plan is the library's `cnn_eq_plan`, every geometry the sweep
-times is bitwise, and other widths and fp32 take the generic kernel. The same holds for the Volterra, fixed-point-quantize
+inputs; `_plan` names the library's `cnn_eq_plan`, every run the sweep
+times covers every position bitwise, and other widths and fp32 take the
+generic kernel. The same holds for the Volterra, fixed-point-quantize
 and conv1d kernels, and the training path runs on the card. Two QAT
 trainings of the CNN from one seed give bitwise-equal parameters and
 widths (cuDNN held to its deterministic algorithms). The flash-attention
@@ -237,7 +238,7 @@ def test_register_blocked_kernel_equals_plain_and_generic_on_card(
         cuda_device, dp, stacked, case):
     x, w, st, fmts, tile_m = _rb_case(cuda_device, dp, stacked, case)
     mode = kern.MODE_INT8 if dp == "int8" else kern.MODE_BF16
-    assert kern._plan(mode, kern._dims(w, st)).instance == "rb"
+    assert kern._plan(mode, kern._dims(w, st)) == "rb"
     if dp == "int8":
         want = ref.cnn_eq_int8(x, w, st, fmts)
         call = lambda: kern.cnn_eq_fused_int8(x, w, st, fmts, tile_m)  # noqa
@@ -265,16 +266,28 @@ def test_register_blocked_plan_is_the_librarys_on_card(cuda_device, dp):
     other = tuple((7, ci, co, s) for _, ci, co, s in kern._RB_DIMS)
     for m, dims in ((mode, kern._RB_DIMS), (kern.MODE_FP32, kern._RB_DIMS),
                     (mode, other), (mode, kern._RB_DIMS[:2])):
-        assert kern._plan(m, dims) == kern._lib_plan(lib, m, dims)
-    # every geometry the sweep times runs and equals the plain version
+        assert kern._plan(m, dims) == kern._lib_plan(lib, m, dims).instance
+    plan = kern._lib_plan(lib, mode, kern._RB_DIMS)
+    assert plan.w_run >= 1 and plan.p in (2, 4) and plan.threads == 128
+    assert 0 < plan.smem <= kern._MAX_SMEM_BYTES and plan.smem % 16 == 0
+    # the runs cover every position, at each run the sweep times and at
+    # runs that leave the last block ragged: into an output filled with
+    # NaN, a position never stored stays NaN, and one stored by a block
+    # whose window does not hold it differs from the plain version
     x, w, st, fmts, _ = _rb_case(cuda_device, dp, True, "ragged_run")
-    want = (ref.cnn_eq_int8(x, w, st, fmts) if dp == "int8"
-            else ref.cnn_eq_bf16(x, w, st))
-    for w_run in (1, 3, 60, 128):
-        for p in kern._RB_P:
-            got = kern._forced("rb", mode, x, w, st, formats=fmts,
-                               geometry=(w_run, p))
-            assert torch.equal(got, want), (w_run, p)
+    if dp == "int8":
+        want = ref.cnn_eq_int8(x, w, st, fmts)
+        ws, scales = w, kern._int8_scales(fmts, w, x.device)
+    else:
+        want = ref.cnn_eq_bf16(x, w, st)
+        ws, scales, fmts = kern.cast_weights_bf16(w), None, None
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for w_run in (1, 3, 16, 32, 60, 64, 100, 124, 128):
+        out = torch.full_like(want, float("nan"))
+        assert kern._rb_call(lib, mode, x, out, ws, st, True, fmts, scales,
+                             stream, w_run) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), w_run
 
 
 @pytest.mark.cuda

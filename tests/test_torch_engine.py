@@ -23,8 +23,8 @@ from repro.core.engine import EqualizerEngine as JEngine
 from repro.kernels.cnn_eq import ref as jref
 from repro_torch.core import autotune
 from repro_torch.core import equalizer as teq
-from repro_torch.core.engine import (BACKENDS, EqualizerEngine,
-                                     stacked_engine_fn)
+from repro_torch.core.engine import (BACKENDS, UNTIMED_TILE_M,
+                                     EqualizerEngine, stacked_engine_fn)
 
 RTOL, ATOL = 1e-6, 5e-6
 BF16_ATOL = 1e-5
@@ -195,9 +195,38 @@ def test_auto_tile_resolves_through_autotune(tmp_path, monkeypatch):
     monkeypatch.setattr(autotune, "CACHE_PATH", tmp_path / "cache.json")
     monkeypatch.setattr(autotune, "DEFAULT_TILES", (16, 64))
     autotune.clear_cache()
+    # fp32: its kernel tiles by tile_m (bf16 and int8 at these widths run a
+    # kernel that does not, test_untiled_kernels_skip_the_autotune)
     engine = EqualizerEngine.from_params(*_params(9, FMT_BF16), CFG,
-                                         device="cpu")
-    assert engine.tile_m == "auto"
+                                         backend="fused_fp32", device="cpu")
+    assert engine.tile_m == "auto" and engine.tile_is_timed()
     assert engine.resolved_tile_m() in (16, 64)
     assert isinstance(engine.tile_m, int)
     autotune.clear_cache()
+
+
+@pytest.mark.parametrize("backend,kernel,timed", [
+    ("fused_int8", 9, False),       # paper widths: cnn_eq_kernel_rb
+    ("fused_bf16", 9, False),
+    ("ref", 9, False),
+    ("fused_fp32", 9, True),        # the generic kernel tiles by tile_m
+    ("fused_bf16", 7, True),
+])
+def test_untiled_kernels_skip_the_autotune(monkeypatch, backend, kernel,
+                                           timed):
+    cfg = teq.CNNEqConfig(kernel=kernel)
+    gen = torch.Generator().manual_seed(kernel)
+    weights = teq.folded_weights(teq.fold_bn(
+        teq.init(gen, cfg, device="cpu"),
+        teq.init_bn_state(cfg, device="cpu"), cfg))
+    swept = []
+
+    def best_tile_m(cfg, backend, make_fn, **kw):
+        swept.append(backend)
+        return 32
+    monkeypatch.setattr(autotune, "best_tile_m", best_tile_m)
+    engine = EqualizerEngine(cfg=cfg, weights=weights, backend=backend,
+                             formats=((2, 5, 3, 4),) * 3, device="cpu")
+    assert engine.tile_is_timed() == timed
+    assert engine.resolved_tile_m() == (32 if timed else UNTIMED_TILE_M)
+    assert swept == ([backend] if timed else [])

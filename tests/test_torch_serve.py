@@ -253,7 +253,9 @@ def test_serve_aware_retune_uses_live_traffic(tmp_path, monkeypatch):
     monkeypatch.setattr(autotune, "CACHE_PATH", tmp_path / "cache.json")
     monkeypatch.setattr(autotune, "DEFAULT_TILES", (16, 32))
     autotune.clear_cache()
-    specs = _tenants(ops=("ht", "ht"), tile_m=16)
+    # fp32 tenants: their kernel tiles by tile_m (the int8 and bf16 ones
+    # at these widths take none, test_serve_never_retunes_untiled_kernels)
+    specs = _tenants(ops=("fp", "fp"), tile_m=16)
     rt = ServeRuntime(BatchPolicy(max_batch=2, retune_after=2), device="cpu")
     for s in specs:
         rt.open(s)
@@ -264,4 +266,26 @@ def test_serve_aware_retune_uses_live_traffic(tmp_path, monkeypatch):
     assert session.spec.tile_m in (16, 32)
     assert any(k.endswith("__B2_S" + k.split("_S")[-1])
                for k in autotune._load_disk())
+    autotune.clear_cache()
+
+
+@pytest.mark.parametrize("op", ["ht", "lp"])
+def test_serve_never_retunes_untiled_kernels(tmp_path, monkeypatch, op):
+    from repro_torch.core import autotune
+    from repro_torch.core.engine import UNTIMED_TILE_M
+    monkeypatch.setattr(autotune, "CACHE_PATH", tmp_path / "cache.json")
+    autotune.clear_cache()
+    specs = _tenants(ops=(op, op), tile_m=16)
+    rt = ServeRuntime(BatchPolicy(max_batch=2, retune_after=2), device="cpu")
+    for s in specs:
+        rt.open(s)
+    _serve(rt, _waves(specs, 300, seed=11), 200, seed=12)
+    late = TenantSpec("late", CFG, params=specs[0].params,
+                      bn_state=specs[0].bn_state)          # tile_m="auto"
+    session = rt.open(late)
+    assert session.engine.backend == {"ht": "fused_int8",
+                                      "lp": "fused_bf16"}[op]
+    assert session.spec.tile_m == "auto"
+    assert session.engine.resolved_tile_m() == UNTIMED_TILE_M
+    assert autotune._load_disk() == {}
     autotune.clear_cache()
