@@ -11,30 +11,33 @@ result line), in the order they run:
      flash_attn_bwd, slstm) for sm_90a; prints the -Xptxas -v register /
      shared-memory / spill lines of every kernel instance (the sLSTM
      source's: the cluster kernel's twelve, the stream kernel's four), and
-     the registers and spills of the two register-blocked cnn_eq instances
-     (`cnn_eq_kernel_rb`, bf16 and int8 at the plan's P; none may spill);
+     the registers and spills of the three register-blocked cnn_eq
+     instances (`cnn_eq_kernel_rb`, fp32, bf16 and int8 at the plan's P)
+     and the three register-blocked conv1d instances (`conv1d_kernel_rb`,
+     the deployed CNN's layer shapes); none may spill;
   3. kernel == plain: each datapath (fp32, bf16, int8) on the card at the
      paper's deployment shape (equalizer_ht: 64 rows × 7320 symbols),
      shared and per-row stacked weights, tile_m ∈ {16, 64, 256}, and at
      the edge widths of EDGE_SHAPES (one row; a width shorter than the
      receptive field; n_pos = 1; n_pos a multiple of neither the
-     kernel's run nor its P; a strided view; tile_m 8192 for bf16 and
-     int8); each kernel must equal its plain PyTorch version (`ref.py`)
-     bitwise. With the counts zeroed before, every bf16 and int8 launch
-     must have run the register-blocked kernel and every fp32 launch the
-     generic one (`INSTANCE_LAUNCHES`); `cnn_eq._plan` must name the
-     kernel of the library's `cnn_eq_plan` for each datapath; and the
-     register-blocked kernel must equal the generic one forced on the
-     same inputs bitwise;
+     kernel's run nor its P; a strided view; tile_m 8192); each kernel
+     must equal its plain PyTorch version (`ref.py`) bitwise. With the
+     counts zeroed before, every launch of every datapath must have run
+     the register-blocked kernel (`INSTANCE_LAUNCHES`); `cnn_eq._plan`
+     must name the kernel of the library's `cnn_eq_plan` for each
+     datapath, "rb" in all three; and the register-blocked kernel must
+     equal the generic one forced on the same inputs bitwise, in every
+     datapath;
   4. the slice: `ServeRuntime(device="cuda")` serves 4 int8 "ht" tenants,
      4 bf16 "lp" tenants and 1 fp32 tenant (7320 symbols each, jittered
      chunks of ~1024 symbols, one chunk shorter than the receptive field);
      every stream must equal its offline engine bitwise, every kernel's
-     launch count, zeroed just before, must have gone up, and every bf16
-     and int8 launch must be the register-blocked kernel, every fp32 one
-     the generic; 4a. each kernel == plain bitwise at its most common
-     serving launch shape, with the same instance check; 4b. the same
-     serving run again under torch.profiler: device busy and idle share;
+     launch count, zeroed just before, must equal its datapath's stacked
+     serving launches (no autotune probe: no engine at these widths tiles
+     by tile_m), and every launch must be the register-blocked kernel;
+     4a. each kernel == plain bitwise at its most common serving launch
+     shape, with the same instance check; 4b. the same serving run again
+     under torch.profiler: device busy and idle share;
   6. train: `train_equalizer` on the card for the CNN (equalizer_ht widths,
      3-phase QAT), the FIR and the Volterra baselines on the default IM/DD
      link (40 GBd, 31.5 km, N_os = 2), 300 steps each; every loss finite,
@@ -47,17 +50,22 @@ result line), in the order they run:
      the CNN's three layers. Each kernel == its plain version bitwise (and
      the Volterra kernel also on two random parameter sets, up to the
      DSE's largest memory lengths); quantize_params == the QAT quantizer;
-     conv1d against F.conv1d (TF32 off) as a max abs error;
+     each conv1d layer ran the register-blocked kernel (3 "rb" launches in
+     `conv1d.INSTANCE_LAUNCHES`, no padding copy) and equals the generic
+     kernel forced on the same input bitwise; conv1d against F.conv1d
+     (TF32 off) as a max abs error;
   5. times: CUDA events over many calls after warm-up at the deployment
      shapes, and device time from torch.profiler, for all six kernels:
      kernel, plain version, and a PyTorch yardstick (a chain of F.conv1d +
      ReLU for cnn_eq, the einsum chain of `core.volterra.apply`,
      torch.fake_quantize_per_tensor_affine, F.conv1d), beside the least
-     time the card could take; for bf16 and int8 also the plan's kernel,
-     run W and P, the generic kernel forced on the same inputs, the device
-     time at the [4a] serving shape and, for bf16, the FP32-issue floor of
-     its fixed order (two FP32 instructions a MAC); beside them, the
-     device times before the redesign as PERF.md records them
+     time the card could take; for each cnn_eq datapath also the plan's
+     kernel, run W and P, the generic kernel forced on the same inputs,
+     the device time at the [4a] serving shape and, for fp32 and bf16, the
+     FP32-issue floor of their fixed order (two FP32 instructions a MAC);
+     for each conv1d layer the plan's kernel and run, its device time and
+     the generic kernel's forced on the same input; beside them, the
+     device times before the redesigns as PERF.md records them
      (OLD_DEVICE_MS, not measured here);
   8. LM serving: `repro_torch.launch.serve.serve_session` builds
      qwen3-0.6b at full width (28 layers, d_model 1024, 16/8 heads of 128,
@@ -203,6 +211,7 @@ from repro_torch.kernels.cnn_eq import sweep as K_sweep  # noqa: E402
 from repro_torch.kernels.conv1d import conv1d as C1  # noqa: E402
 from repro_torch.kernels.conv1d import ops as C1_ops  # noqa: E402
 from repro_torch.kernels.conv1d import ref as C1_ref  # noqa: E402
+from repro_torch.kernels.conv1d import sweep as C1_sweep  # noqa: E402
 from repro_torch.kernels.flash_attn import flash_attn as FA  # noqa: E402
 from repro_torch.kernels.flash_attn import ref as FA_ref  # noqa: E402
 from repro_torch.kernels.quant import ops as Q_ops  # noqa: E402
@@ -234,9 +243,11 @@ TILES = (16, 64, 256)
 EDGE_SHAPES = ((1, 2 * SYMS, 64, False), (4, 100, 64, False),
                (4, 16, 64, False), (4, 16 * 197 + 9, 16, True),
                (ROWS, 16 * 131 + 3, 8192, False))
-# device ms of the generic kernel before the register-blocked one took
-# these datapaths (PERF.md §6 rows 2, 3; NVIDIA H100 80GB HBM3, 700.00 W)
-OLD_DEVICE_MS = {"bf16": 0.0475, "int8": 0.0441}
+# device ms of the generic kernels before the register-blocked ones took
+# these calls (PERF.md §6 rows 1, 2, 3 and 6, conv1d's three layers
+# summed; NVIDIA H100 80GB HBM3, 700.00 W)
+OLD_DEVICE_MS = {"fp32": 0.0457, "bf16": 0.0475, "int8": 0.0441,
+                 "conv1d": 0.0610}
 FORMATS = {
     "ht": {"w_int": 2, "w_frac": 5, "a_int": 3, "a_frac": 4},   # → int8
     "lp": {"w_int": 3, "w_frac": 8, "a_int": 3, "a_frac": 8},   # → bf16
@@ -495,11 +506,9 @@ MODE_OF = {"fp32": K.MODE_FP32, "bf16": K.MODE_BF16, "int8": K.MODE_INT8}
 
 
 def require_instances(launches: dict, instances: dict, where: str) -> None:
-    """Every bf16 and int8 launch ran the register-blocked kernel, every
-    fp32 launch the generic one (counts zeroed together before)."""
-    want = {"rb": launches["cnn_eq_fused_bf16"]
-            + launches["cnn_eq_fused_int8"],
-            "generic": launches["cnn_eq_fused"]}
+    """Every launch of every datapath ran the register-blocked kernel
+    (counts zeroed together before)."""
+    want = {"rb": sum(launches.values()), "generic": 0}
     require(instances == want, f"{where}: kernel instances {instances}, "
                                f"expected {want} from launches {launches}")
 
@@ -510,8 +519,6 @@ def check_edges(inputs: dict) -> list:
     done = []
     for rows, width, tile, strided in EDGE_SHAPES:
         for dp, d in inputs.items():
-            if dp == "fp32" and tile > 1024:
-                continue       # the generic kernel refuses such a tile
             x = d["x"][:rows, :width]
             if strided:                     # a view with a row stride > W
                 x = d["x"][:rows, 5:5 + width]
@@ -538,19 +545,17 @@ def check_plans() -> dict:
         require(plan.instance == K._plan(mode, K._RB_DIMS),
                 f"{dp}: _plan {K._plan(mode, K._RB_DIMS)} != cnn_eq_plan "
                 f"{plan}")
-        want = "generic" if dp == "fp32" else "rb"
-        require(plan.instance == want, f"{dp}: plan {plan}, expected {want}")
+        require(plan.instance == "rb", f"{dp}: plan {plan}, expected rb")
         plans[dp] = plan._asdict()
     return plans
 
 
 def check_against_generic(inputs: dict) -> dict:
     """The register-blocked kernel == the generic kernel forced on the same
-    inputs (bf16, int8; stacked and shared weights), bitwise."""
-    fmts = {"bf16": None, "int8": inputs["int8"]["formats"]}
+    inputs (every datapath; stacked and shared weights), bitwise."""
+    fmts = {"fp32": None, "bf16": None, "int8": inputs["int8"]["formats"]}
     checked = {}
-    for dp in ("bf16", "int8"):
-        d = inputs[dp]
+    for dp, d in inputs.items():
         for form in ("stacked", "shared"):
             got = d["kernel"](d["x"], d[form], 64)
             gen = K._forced("generic", MODE_OF[dp], d["x"], d[form],
@@ -838,7 +843,7 @@ def time_kernels(inputs: dict, tiles_used: dict, serving: dict,
                     lambda: K._forced("generic", MODE_OF[dp], xs, ws, st,
                                       tile, formats=fmts), "cnn_eq_kernel",
                     warm=True))
-        if dp == "bf16":
+        if dp in ("fp32", "bf16"):
             # the fixed order issues a multiply and an add a MAC: two FP32
             # instructions at half the FMA peak's flop rate
             out[dp]["fp32_issue_floor_ms"] = (
@@ -984,7 +989,8 @@ def check_deploy(d: dict, run: dict) -> dict:
     out["max_abs_err"]["fixed_point_quantize"] = err
     out["quant_formats"] = [tuple(int(v) for v in (q["w_int"], q["w_frac"]))
                             for q in d["qat"].values()]
-    # conv1d: each layer on the deploy run's own input to it
+    # conv1d: each layer on the deploy run's own input to it, against the
+    # plain version and the generic kernel forced on the same input
     err, lib_err = 0.0, 0.0
     for i, (w, b, s) in enumerate(d["layers"]):
         x, got_lin = run["ins"][i], run["outs"][i]
@@ -994,6 +1000,10 @@ def check_deploy(d: dict, run: dict) -> dict:
         require(torch.equal(got_lin, want),
                 f"conv1d layer {i}: kernel != plain ({e:.3e})")
         k = w.shape[-1]
+        generic = C1._forced("generic", x, w, b, s,
+                             pad=(k // 2, k - 1 - k // 2))
+        require(torch.equal(got_lin, generic),
+                f"conv1d layer {i}: rb != generic forced")
         with fp32_exact():
             lib = F.conv1d(F.pad(x, (k // 2, k - 1 - k // 2)), w, b,
                            stride=s)
@@ -1085,25 +1095,34 @@ def time_deploy_kernels(d: dict, run: dict, iters: int) -> dict:
                  f"trained CNN's layer-0 weight format)"}
 
     layers = []
+    lib = C1._load()
     for i, (w, b, s) in enumerate(d["layers"]):
         h = run["ins"][i]
         k = w.shape[-1]
-        xp = F.pad(h, (k // 2, k - 1 - k // 2)).contiguous()
+        pad = (k // 2, k - 1 - k // 2)
+        xp = F.pad(h, pad).contiguous()
         n_o = (xp.shape[-1] - k) // s + 1
         c_out, c_in = int(w.shape[0]), int(w.shape[1])
         lb_ms, lb_by = _bound(
             4 * (h.numel() + xp.shape[0] * c_out * n_o + w.numel() + c_out),
             2 * xp.shape[0] * c_out * c_in * k * n_o)
+        plan = C1._lib_plan(lib, C1._dims(w, s))
+
+        def kernel():       # the deploy path's call: conv1d_same_lower
+            return C1_ops.conv1d_same_lower(h, w, b, s, device=h.device)
         with fp32_exact():
-            t_k = cuda_ms(lambda: C1.conv1d(xp, w, b, s), iters)
+            t_k = cuda_ms(kernel, iters)
             t_p = cuda_ms(lambda: C1_ref.conv1d(xp, w, b, s), 5, warmup=1)
             t_l = cuda_ms(lambda: F.conv1d(xp, w, b, stride=s), iters)
         layers.append({
             "shape": f"{tuple(h.shape)} -> ({xp.shape[0]}, {c_out}, {n_o}),"
                      f" stride {s}",
             "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-            "device_ms": _device_ms(lambda: C1.conv1d(xp, w, b, s),
-                                    "conv1d_kernel"),
+            "device_ms": _device_ms(kernel, "conv1d_kernel", warm=True),
+            "generic_device_ms": _device_ms(
+                lambda: C1._forced("generic", h, w, b, s, pad=pad),
+                "conv1d_kernel", warm=True),
+            "instance": plan.instance, "w_run": plan.w_run, "p": plan.p,
             "bound_ms": lb_ms, "bound_by": lb_by})
 
     def total(key):
@@ -1112,12 +1131,16 @@ def time_deploy_kernels(d: dict, run: dict, iters: int) -> dict:
     out["conv1d"] = {
         "ms": total("ms"), "plain_ms": total("plain_ms"),
         "library_ms": total("library_ms"), "device_ms": total("device_ms"),
+        "generic_device_ms": total("generic_device_ms"),
         "bound_ms": total("bound_ms"),
         "bound_by": "bytes" if all(l["bound_by"] == "bytes" for l in layers)
         else "operations",
-        "library": "F.conv1d (TF32 off) per layer, bias included",
+        "instance": "+".join(sorted({l["instance"] for l in layers})),
+        "library": "F.conv1d (TF32 off) per layer on the padded input, bias "
+                   "included",
         "shape": f"the trained CNN's three layers at {x.shape[0]} x "
-                 f"{x.shape[1]} samples; times summed over the layers",
+                 f"{x.shape[1]} samples through conv1d_same_lower; times "
+                 f"summed over the layers",
         "per_layer": layers}
     return out
 
@@ -2099,13 +2122,18 @@ def main() -> int:
             if any(k in line for k in ("registers", "spill",
                                        "Compiling entry", "smem")):
                 print(f"    ptxas: {line.strip()}")
-    rb_ptxas = K_sweep.ptxas(next(log for src, _, log, _ in built
-                                  if src == K.CSRC))
-    require(len(rb_ptxas) == 2 and all(
+    logs = {src: log for src, _, log, _ in built}
+    rb_ptxas = K_sweep.ptxas(logs[K.CSRC])
+    require(len(rb_ptxas) == 3 and all(
         v.get("spill_bytes") == 0 for v in rb_ptxas.values()),
         f"cnn_eq_kernel_rb instances spill or are missing: {rb_ptxas}")
+    c1_ptxas = C1_sweep.ptxas(logs[C1.CSRC])
+    require(len(c1_ptxas) == 3 and all(
+        v.get("spill_bytes") == 0 for v in c1_ptxas.values()),
+        f"conv1d_kernel_rb instances spill or are missing: {c1_ptxas}")
     print(f"[2] cnn_eq_kernel_rb registers and spill bytes: "
-          f"{json.dumps(rb_ptxas)}", flush=True)
+          f"{json.dumps(rb_ptxas)}; conv1d_kernel_rb: "
+          f"{json.dumps(c1_ptxas)}", flush=True)
 
     inputs = kernel_inputs(dev, ROWS, SYMS)
     K.reset_launch_counts()
@@ -2117,8 +2145,8 @@ def main() -> int:
     vs_generic = check_against_generic(inputs)
     print(f"[3] kernel == plain bitwise at {ROWS}x{SYMS} symbols, stacked "
           f"and shared weights, tile_m {TILES}: max |diff| {worst}; at the "
-          f"edge widths {edges}; kernel instances {instances} (bf16 and "
-          f"int8 all rb, fp32 all generic); plans (held to cnn_eq_plan) "
+          f"edge widths {edges}; kernel instances {instances} (all rb); "
+          f"plans (held to cnn_eq_plan) "
           f"{json.dumps(plans)}; rb == generic forced {vs_generic}",
           flush=True)
 
@@ -2126,8 +2154,11 @@ def main() -> int:
     run = serve(dev, specs, streams, max_batch=4)
     n_checked = check_offline(dev, specs, waves, run["outs"], SYMS)
     for dp, (name, _) in KERNELS.items():
-        require(run["launches"][name] > 0,
-                f"{name} was not launched on the serving path")
+        stacked = run["stats"]["traffic"][
+            f"L{CFG.layers}_K{CFG.kernel}_{BACKEND_OF[dp]}"]["launches"]
+        require(stacked > 0 and run["launches"][name] == stacked,
+                f"{name}: {run['launches'][name]} kernel launches on the "
+                f"serving path for {stacked} stacked serving launches")
     require_instances(run["launches"], run["instances"], "[4]")
     want_backends = {"ht": "fused_int8", "lp": "fused_bf16",
                      "fp": "fused_fp32"}
@@ -2153,8 +2184,7 @@ def main() -> int:
     again = {}
     trace = device_trace(lambda: again.update(
         serve(dev, specs, streams, max_batch=4)))
-    print(f"[4b] serve again under torch.profiler (fp32's autotune "
-          f"cached): "
+    print(f"[4b] serve again under torch.profiler: "
           f"{json.dumps(trace)}; p50 {again['stats']['p50_latency_ms']:.3f}"
           f" ms, p99 {again['stats']['p99_latency_ms']:.3f} ms", flush=True)
 
@@ -2176,20 +2206,24 @@ def main() -> int:
     drun = deploy(d)
     deploy_launches = {name: launches[name] for name, (_, _, launches)
                        in DEPLOY_KERNELS.items()}
+    c1_instances = dict(C1.INSTANCE_LAUNCHES)
     for name, n in deploy_launches.items():
         require(n > 0, f"{name} was not launched on the deploy path")
+    require(c1_instances == {"rb": len(d["layers"]), "generic": 0},
+            f"conv1d kernel instances on the deploy path {c1_instances}, "
+            f"expected all {len(d['layers'])} rb")
     checks = check_deploy(d, drun)
     print(f"[7] deploy at {ROWS}x{SYMS} symbols: kernel launches "
-          f"{deploy_launches}; kernel == plain bitwise; {json.dumps(checks)}",
-          flush=True)
+          f"{deploy_launches}, conv1d instances {c1_instances}; kernel == "
+          f"plain bitwise; {json.dumps(checks)}", flush=True)
 
     times = time_kernels(inputs, tiles_used, shapes, iters=200)
     dtimes = time_deploy_kernels(d, drun, iters=200)
     print(f"[5] times (ms; CUDA events, mean of 200 calls after warm-up; "
           f"device_ms from torch.profiler over 20 calls): "
-          f"{json.dumps(times)} {json.dumps(dtimes)}; bf16 / int8 device "
-          f"ms before the register-blocked kernel (PERF.md, not measured "
-          f"here): {json.dumps(OLD_DEVICE_MS)}", flush=True)
+          f"{json.dumps(times)} {json.dumps(dtimes)}; device ms before "
+          f"the register-blocked kernels (PERF.md, not measured here): "
+          f"{json.dumps(OLD_DEVICE_MS)}", flush=True)
 
     lm = serve_lm(dev)
     print(f"[8] LM serving: {lm['cfg'].name} (28 layers, bf16, "
@@ -2337,7 +2371,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "library": t["library"],
-            "shape": t["shape"], "card": card})
+            "shape": t["shape"], "card": card,
+            **{k: t[k] for k in ("instance", "generic_device_ms") if k in t}})
     kernels.append({
         "name": FLASH[0], "route": "cuda", "source": FLASH[1],
         "replaces": FLASH[2], "launches": flash_launches,

@@ -46,9 +46,9 @@ from .equalizer import (CNNEqConfig, fold_bn, folded_weights, init_bn_state,
 
 BACKENDS = ("ref", "fused_fp32", "fused_bf16", "fused_int8")
 
-# tile_m of a backend whose kernel takes none: "ref", and bf16 and int8 at
-# the paper's widths, whose kernel (cnn_eq_kernel_rb) splits each row into
-# runs of its own. The width still sets the serving layer's launch-width
+# tile_m of a backend whose kernel takes none: "ref", and fp32, bf16 and
+# int8 at the paper's widths, whose kernel (cnn_eq_kernel_rb) splits each
+# row into runs of its own. The width still sets the serving layer's launch-width
 # quantum (serve.scheduler's _bucket_width) and the chunker's tile
 # alignment, so it is fixed rather than timed: a timed pick would only
 # measure noise. 64 positions is the wrappers' default.

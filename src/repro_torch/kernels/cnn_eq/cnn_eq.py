@@ -20,10 +20,10 @@ dims, with no switch, no environment variable and no fallback.
 
   * "rb" — `cnn_eq_kernel_rb`, register-blocked and specialized to the
     paper's widths (L = 3, K = 9, C = 5, V_p = 8, N_os = 2, both equalizer
-    configs) for bf16 and int8. It reads the unpadded input, takes zeros
-    outside it, splits each row into its own runs of final positions (the
-    library's plan gives their length) and ignores `tile_m`.
-  * "generic" — `cnn_eq_kernel`, for fp32 and every other shape. It keeps
+    configs), in all three datapaths. It reads the unpadded input, takes
+    zeros outside it, splits each row into its own runs of final positions
+    (the library's plan gives their length) and ignores `tile_m`.
+  * "generic" — `cnn_eq_kernel`, for every other shape. It keeps
     the reference's padding and tiling: the input is padded with one halo
     on the left and up to the last tile's window on the right, the grid is
     (n_tiles, B), and each tile of `tile_m` positions computes from its own
@@ -110,10 +110,10 @@ def _dims(weights, strides) -> Tuple[Tuple[int, int, int, int], ...]:
 
 
 def _plan(mode: int, dims) -> str:
-    """The kernel a call runs: "rb" for bf16 and int8 at the paper's
-    widths, "generic" for fp32 and every other shape. The geometry of "rb"
-    is the library's (`_lib_plan`)."""
-    if (mode in (MODE_BF16, MODE_INT8)
+    """The kernel a call runs: "rb" at the paper's widths, in every
+    datapath, "generic" for every other shape. The geometry of "rb" is the
+    library's (`_lib_plan`)."""
+    if (mode in (MODE_FP32, MODE_BF16, MODE_INT8)
             and tuple(map(tuple, dims)) == _RB_DIMS):
         return "rb"
     return "generic"

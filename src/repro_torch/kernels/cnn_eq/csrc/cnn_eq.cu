@@ -8,7 +8,8 @@
 // launchers (src/repro_torch/kernels/cnn_eq/cnn_eq.py): the generic
 // cnn_eq_kernel<MODE> below (three instantiations, any widths), and, after
 // it, cnn_eq_kernel_rb, register-blocked and specialized to the paper's
-// widths, which the bf16 and int8 datapaths run there (cnn_eq_plan).
+// widths, which all three datapaths run there (cnn_eq_plan); every other
+// shape runs the generic kernel.
 //
 // What it computes. Block (tile, row) produces tile_m final positions
 // (tile_m·V_p symbols) of one row from its overlapping window of in_tile
@@ -274,19 +275,22 @@ extern "C" int cnn_eq_launch(int mode, const void* xp, void* out, int rows,
 // The register-blocked instances: cnn_eq_kernel_rb<MODE, K, C, VP, NOS, P>
 // ===========================================================================
 //
-// What they replace. The bf16 and int8 datapaths above (the TPU kernels
-// _cnn_eq_kernel with conv_valid_taps_bf16 and _cnn_eq_kernel_int8 of
-// src/repro/kernels/cnn_eq/cnn_eq.py) at the paper's widths: three layers,
-// K taps, C channels, V_p parallel outputs, N_os samples a symbol, strides
-// (V_p, 1, N_os). `cnn_eq_plan` picks them for exactly those dims; every
-// other shape, and the fp32 datapath, keeps cnn_eq_kernel<MODE>.
+// What they replace. All three datapaths above (the TPU kernels
+// _cnn_eq_kernel with conv_valid_taps, with conv_valid_taps_bf16, and
+// _cnn_eq_kernel_int8 of src/repro/kernels/cnn_eq/cnn_eq.py) at the paper's
+// widths: three layers, K taps, C channels, V_p parallel outputs, N_os
+// samples a symbol, strides (V_p, 1, N_os). `cnn_eq_plan` picks them for
+// exactly those dims, in every datapath; every other shape keeps
+// cnn_eq_kernel<MODE>.
 //
 // What bounds them. At (K, C, V_p, N_os) = (9, 5, 8, 2) a final position
 // (V_p symbols) costs 900 MACs and moves 64 B in, 32 B out: 9.4 FLOP/B,
 // under the card's fp32 ridge, so the byte bound (~1.7 µs at 64 × 7320
-// symbols) is the bound. But bf16 may not fuse its products into FMAs (the
-// plain version rounds every product and every sum in a fixed order), so
-// it issues two FP32 instructions a MAC: ~3.2 µs of FP32 issue at 132 SMs.
+// symbols) is the bound. But fp32 and bf16 may not fuse their products
+// into FMAs (the plain version rounds every product and every sum in a
+// fixed order), so they issue two FP32 instructions a MAC: ~3.2 µs of FP32
+// issue at 132 SMs. fp32 also keeps its activations at twice bf16's bytes,
+// in shared memory and in the registers of a thread's input windows.
 // Below ~10 µs what decides is latency: one block's global reads while it
 // stages, its chain of shared-memory reads and adds, and whether the grid
 // fills the card.
@@ -310,14 +314,23 @@ extern "C" int cnn_eq_launch(int mode, const void* xp, void* out, int rows,
 //   * Conflict-free layouts: a layer's input is kept split by that layer's
 //     stride into phase rows (element e in row e % S, at e / S), so lanes
 //     of adjacent positions read adjacent words; layer 0's phase rows sit
-//     at a stride ≡ 8 (mod 64) bf16 elements, so the staging stores of a
-//     warp land on distinct banks.
-//   * bf16: activations are stored as bf16 (the plain version rounds every
-//     layer input to bf16, so storing it is exact) and widened by a shift.
-//     Products and sums are fp32, one __fmul_rn / __fadd_rn pair at a time,
-//     tap-major then C_in ascending from 0, bias last: the plain version's
-//     order. No tensor cores: an mma sums in its own order and alignment,
-//     which is not the plain version's sequential fp32 sum.
+//     at a stride ≡ 4 (mod 32) words (8 mod 64 bf16 elements), so the
+//     staging stores of a warp land on distinct banks.
+//   * fp32 and bf16 share one body (`Act` says how an activation is
+//     stored). fp32 stores its activations as they are (the plain version
+//     rounds nothing between layers but the sums themselves); bf16 stores
+//     them as bf16 (the plain version rounds every layer input to bf16, so
+//     storing it is exact) and widens them by a shift. Products and sums
+//     are fp32, one __fmul_rn / __fadd_rn pair at a time, tap-major then
+//     C_in ascending from 0, bias last: the plain version's order. No
+//     tensor cores: an mma sums in its own order and alignment, which is
+//     not the plain version's sequential fp32 sum.
+//   * fp32's layer 1 holds C windows of P + K - 1 floats in registers (50
+//     at P = 2, twice bf16's packed pairs); it fits the 64-register cap
+//     without spills. The alternative, reading each (tap, C_in) pair's
+//     inputs from shared memory where it uses them (RB_FP32_L1_REGS 0,
+//     `SmemWin`, a sweep variant), compiles to as many registers and was
+//     ~1 % slower.
 //   * int8: activations are requantized into int8 once, packed 4 channels
 //     a word (C_in padded to a multiple of 4 with zeros), and every dot is
 //     __dp4a over 4 channels of one tap (layer 0, C_in = 1: over 4 taps of
@@ -337,6 +350,7 @@ extern "C" int cnn_eq_launch(int mode, const void* xp, void* out, int rows,
 #define RB_THREADS 128
 #define RB_MIN_BLOCKS 8          // ≤ 64 registers a thread
 #define RB_STAGE 8               // input samples a thread reads at once
+#define RB_FP32_L1_REGS 1        // fp32 layer 1: 0 reads per (tap, C_in)
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr int rup(int a, int b) { return cdiv(a, b) * b; }
@@ -347,7 +361,7 @@ __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 // bytes from the start of the dynamic buffer.
 struct RbLayout {
   int t0, t1, t2;               // tasks a layer
-  int ld0, ld1, ld2;            // bf16: elements a row; int8: words a buffer
+  int ld0, ld1, ld2;            // fp32, bf16: elements a row; int8: words
   int off_in, off_a1, off_a2, off_w0, off_w1, off_w2, off_b, bytes;
 };
 
@@ -356,7 +370,7 @@ struct Rb {
   static constexpr int P2 = P / NOS > 0 ? P / NOS : 1;  // last layer's P
   static constexpr int T = VP * NOS;       // input samples a final position
   static constexpr int HALO = (K / 2) * (1 + 2 * VP);   // receptive_halo
-  static constexpr int CP = rup(C, 4);     // bf16: C_out padded (weights)
+  static constexpr int CP = rup(C, 4);     // fp32, bf16: C_out padded
   static constexpr int VPP = rup(VP, 4);
   static constexpr int KW = cdiv(K, 4);    // int8 layer 0: words of taps
   static constexpr int CW = cdiv(C, 4);    // int8: words a position
@@ -376,17 +390,19 @@ struct Rb {
     L.t1 = cdiv(n1, P);
     L.t2 = cdiv(w, P2);
     int in_bytes, a1_bytes, a2_bytes, w_words[3];
-    if (MODE == MODE_BF16) {
-      // layer 0: VP phase rows; row 0 is read P + (K-1)/VP elements deep
+    if (MODE != MODE_INT8) {
+      constexpr int E = MODE == MODE_BF16 ? 2 : 4;   // bytes an activation
+      // layer 0: VP phase rows; row 0 is read P + (K-1)/VP elements deep;
+      // a row stride ≡ 16 (mod 128) bytes: 8 (mod 64) bf16, 4 (mod 32) fp32
       const int need0 = (L.t0 - 1) * P + rup(P + (K - 1) / VP, P);
-      L.ld0 = rup(imax(need0, 8) - 8, 64) + 8;            // ≡ 8 (mod 64)
+      L.ld0 = rup(imax(need0, 16 / E) - 16 / E, 128 / E) + 16 / E;
       const int need1 = (L.t1 - 1) * P + rup(P + K - 1, P);
       L.ld1 = rup(imax(need1, L.t0 * P), 8);
       const int need2 = (L.t2 - 1) * P2 + rup(P2 + (K - 1) / NOS, P2);
       L.ld2 = rup(imax(need2, L.t1 * P / NOS), 8);
-      in_bytes = 2 * VP * L.ld0;
-      a1_bytes = 2 * C * L.ld1;
-      a2_bytes = 2 * C * NOS * L.ld2;
+      in_bytes = E * VP * L.ld0;
+      a1_bytes = E * C * L.ld1;
+      a2_bytes = E * C * NOS * L.ld2;
       w_words[0] = K * CP;
       w_words[1] = K * C * CP;
       w_words[2] = K * C * VPP;
@@ -413,8 +429,8 @@ struct Rb {
     L.off_w0 = off;  off += rup(4 * w_words[0], 16);
     L.off_w1 = off;  off += rup(4 * w_words[1], 16);
     L.off_w2 = off;  off += rup(4 * w_words[2], 16);
-    L.off_b = off;   // bf16: b0[CP] b1[CP] b2[VPP]; int8: (b, scale) × 3
-    off += 4 * (MODE == MODE_BF16 ? 2 * CP + VPP : 2 * (2 * C + VP));
+    L.off_b = off;   // fp32, bf16: b0[CP] b1[CP] b2[VPP]; int8: (b, s) × 3
+    off += 4 * (MODE != MODE_INT8 ? 2 * CP + VPP : 2 * (2 * C + VP));
     L.bytes = rup(off, 16);
     return L;
   }
@@ -426,7 +442,7 @@ struct RbParams {
   float* out;              // (rows, n_pos·VP), contiguous
   long long x_stride;
   int width, n_pos, w_run, stacked;
-  const void* w[3];        // (rows|1, C_out, C_in, K) bf16 or int8
+  const void* w[3];        // (rows|1, C_out, C_in, K) fp32, bf16 or int8
   const float* b[3];       // (rows|1, C_out)
   const float* scale[3];   // (C_out,) int8 rescale
   float a_scale[3], a_lo[3], a_hi[3];   // int8 requant of each layer input
@@ -492,6 +508,50 @@ struct BfWin {
   }
 };
 
+// NE floats (rounded up to whole V-float vectors, V = 1, 2 or 4) from
+// 4·V-byte aligned shared memory, held in registers
+template <int V, int NE>
+struct FWin {
+  static constexpr int NV = cdiv(NE, V);
+  float w[NV * V];
+  __device__ __forceinline__ void load(const float* src) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if constexpr (V == 4) {
+        const float4 q = reinterpret_cast<const float4*>(src)[i];
+        w[4 * i] = q.x; w[4 * i + 1] = q.y;
+        w[4 * i + 2] = q.z; w[4 * i + 3] = q.w;
+      } else if constexpr (V == 2) {
+        const float2 q = reinterpret_cast<const float2*>(src)[i];
+        w[2 * i] = q.x; w[2 * i + 1] = q.y;
+      } else {
+        w[i] = src[i];
+      }
+    }
+  }
+  __device__ __forceinline__ float operator[](int i) const { return w[i]; }
+};
+
+// the same window read where it is used: element i is a lane of the V-float
+// vector that holds it, read from shared memory (once a task: the compiler
+// merges the reads of one vector)
+template <int V, int NE>
+struct SmemWin {
+  const float* src;
+  __device__ __forceinline__ void load(const float* p) { src = p; }
+  __device__ __forceinline__ float operator[](int i) const {
+    if constexpr (V == 4) {
+      const float4 q = reinterpret_cast<const float4*>(src)[i / 4];
+      return i % 4 == 0 ? q.x : i % 4 == 1 ? q.y : i % 4 == 2 ? q.z : q.w;
+    } else if constexpr (V == 2) {
+      const float2 q = reinterpret_cast<const float2*>(src)[i / 2];
+      return i % 2 == 0 ? q.x : q.y;
+    } else {
+      return src[i];
+    }
+  }
+};
+
 // the N weights of one (tap, C_in) pair, from a row padded to a multiple
 // of 4, as broadcast float4 reads (the padding lanes are read, not used)
 template <int N>
@@ -523,6 +583,62 @@ __device__ __forceinline__ void st_bf16(uint16_t* dst, const float* v) {
     }
   }
 }
+
+// V consecutive floats (V = 1, 2 or 4) to 4·V-byte aligned shared memory
+// in one store
+template <int V>
+__device__ __forceinline__ void st_f32(float* dst, const float* v) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+    dst[0] = v[0];
+  }
+}
+
+// How the float datapaths keep an activation in shared memory: fp32 as it
+// is, bf16 as its 16 bits (`T`, written by `put`, read one at a time by
+// `get`, V at a time by `st`); `Win` is a window held in registers, `L1Win`
+// layer 1's (see RB_FP32_L1_REGS); `WT` is the weights' type in memory.
+template <int MODE>
+struct Act;
+
+template <>
+struct Act<MODE_BF16> {
+  using T = uint16_t;
+  using WT = __nv_bfloat16;
+  template <int V, int NE> using Win = BfWin<V, NE>;
+  template <int V, int NE> using L1Win = BfWin<V, NE>;
+  static __device__ __forceinline__ T put(float v) { return bf_bits(v); }
+  static __device__ __forceinline__ float get(T u) {
+    return __uint_as_float(static_cast<uint32_t>(u) << 16);
+  }
+  static __device__ __forceinline__ float weight(WT w) {
+    return __bfloat162float(w);
+  }
+  template <int V>
+  static __device__ __forceinline__ void st(T* dst, const float* v) {
+    st_bf16<V>(dst, v);
+  }
+};
+
+template <>
+struct Act<MODE_FP32> {
+  using T = float;
+  using WT = float;
+  template <int V, int NE> using Win = FWin<V, NE>;
+  template <int V, int NE>
+  using L1Win = typename std::conditional<RB_FP32_L1_REGS != 0, FWin<V, NE>,
+                                          SmemWin<V, NE>>::type;
+  static __device__ __forceinline__ T put(float v) { return v; }
+  static __device__ __forceinline__ float get(T v) { return v; }
+  static __device__ __forceinline__ float weight(WT w) { return w; }
+  template <int V>
+  static __device__ __forceinline__ void st(T* dst, const float* v) {
+    st_f32<V>(dst, v);
+  }
+};
 
 // N table entries into shared memory by NT threads: every read of a
 // thread first (a compile-time count, predicated, so they are in flight
@@ -585,31 +701,31 @@ cnn_eq_kernel_rb(const RbParams p) {
   const int start = m0 * G::T - G::HALO;      // x index of window sample 0
   const long long srow = p.stacked ? row : 0;
 
-  if constexpr (MODE == MODE_BF16) {
+  if constexpr (MODE != MODE_INT8) {
+    using A = Act<MODE>;
+    using T = typename A::T;
+    using WT = typename A::WT;
     constexpr int CP = G::CP, VPP = G::VPP;
     // ---- stage: weights as fp32 [kk][ci][c_out padded], biases, input
     float* w0s = reinterpret_cast<float*>(smem_raw + L.off_w0);
     float* w1s = reinterpret_cast<float*>(smem_raw + L.off_w1);
     float* w2s = reinterpret_cast<float*>(smem_raw + L.off_w2);
-    const __nv_bfloat16* wg0 =
-        static_cast<const __nv_bfloat16*>(p.w[0]) + srow * (C * K);
-    const __nv_bfloat16* wg1 =
-        static_cast<const __nv_bfloat16*>(p.w[1]) + srow * (C * C * K);
-    const __nv_bfloat16* wg2 =
-        static_cast<const __nv_bfloat16*>(p.w[2]) + srow * (VP * C * K);
+    const WT* wg0 = static_cast<const WT*>(p.w[0]) + srow * (C * K);
+    const WT* wg1 = static_cast<const WT*>(p.w[1]) + srow * (C * C * K);
+    const WT* wg2 = static_cast<const WT*>(p.w[2]) + srow * (VP * C * K);
     // smem index i of each table -> its value (weights padded to CP / VPP
     // channels with zeros)
     auto w0v = [&](int i) {
       const int kk = i / CP, c = i % CP;
-      return c < C ? __bfloat162float(wg0[c * K + kk]) : 0.0f;
+      return c < C ? A::weight(wg0[c * K + kk]) : 0.0f;
     };
     auto w1v = [&](int i) {
       const int kk = i / (C * CP), ci = (i / CP) % C, c = i % CP;
-      return c < C ? __bfloat162float(wg1[(c * C + ci) * K + kk]) : 0.0f;
+      return c < C ? A::weight(wg1[(c * C + ci) * K + kk]) : 0.0f;
     };
     auto w2v = [&](int i) {
       const int kk = i / (C * VPP), ci = (i / VPP) % C, c = i % VPP;
-      return c < VP ? __bfloat162float(wg2[(c * C + ci) * K + kk]) : 0.0f;
+      return c < VP ? A::weight(wg2[(c * C + ci) * K + kk]) : 0.0f;
     };
     auto bv = [&](int i) {
       const int l = i < CP ? 0 : i < 2 * CP ? 1 : 2;
@@ -621,7 +737,7 @@ cnn_eq_kernel_rb(const RbParams p) {
     stage<K * C * CP, nt>(w1s, w1v);
     stage<K * C * VPP, nt>(w2s, w2v);
     stage<2 * CP + VPP, nt>(bsm, bv);
-    uint16_t* xs = reinterpret_cast<uint16_t*>(smem_raw + L.off_in);
+    T* xs = reinterpret_cast<T*>(smem_raw + L.off_in);
     for (int i0 = tid; i0 < VP * L.ld0; i0 += RB_STAGE * nt) {
       float v[RB_STAGE];
 #pragma unroll
@@ -632,13 +748,13 @@ cnn_eq_kernel_rb(const RbParams p) {
 #pragma unroll
       for (int u = 0; u < RB_STAGE; ++u) {
         const int i = i0 + u * nt;
-        if (i < VP * L.ld0) xs[(i % VP) * L.ld0 + i / VP] = bf_bits(v[u]);
+        if (i < VP * L.ld0) xs[(i % VP) * L.ld0 + i / VP] = A::put(v[u]);
       }
     }
     __syncthreads();
 
     // ---- layer 0: 1 → C, stride VP; input phase row r holds x[VP·q + r]
-    uint16_t* a1 = reinterpret_cast<uint16_t*>(smem_raw + L.off_a1);
+    T* a1 = reinterpret_cast<T*>(smem_raw + L.off_a1);
     for (int g = tid; g < L.t0; g += nt) {
       task_fence();
       const int base = g * P;
@@ -651,7 +767,7 @@ cnn_eq_kernel_rb(const RbParams p) {
       for (int kk = 0; kk < K; ++kk) {
         // taps kk of the P positions: phase row kk % VP from base + kk / VP
         const int d = kk / VP;
-        BfWin<P, P + (K - 1) / VP> win;
+        typename A::template Win<P, P + (K - 1) / VP> win;
         win.load(xs + (kk % VP) * L.ld0 + base);
         float wv[C];
         ld_w<C>(w0s + kk * CP, wv);
@@ -668,17 +784,17 @@ cnn_eq_kernel_rb(const RbParams p) {
         float h[P];
 #pragma unroll
         for (int q = 0; q < P; ++q) h[q] = relu(__fadd_rn(acc[c][q], bsm[c]));
-        st_bf16<P>(a1 + c * L.ld1 + base, h);
+        A::template st<P>(a1 + c * L.ld1 + base, h);
       }
     }
     __syncthreads();
 
     // ---- layer 1: C → C, stride 1; output split into NOS phase rows
-    uint16_t* a2 = reinterpret_cast<uint16_t*>(smem_raw + L.off_a2);
+    T* a2 = reinterpret_cast<T*>(smem_raw + L.off_a2);
     for (int g = tid; g < L.t1; g += nt) {
       task_fence();
       const int base = g * P;
-      BfWin<P, P + K - 1> win[C];
+      typename A::template L1Win<P, P + K - 1> win[C];
 #pragma unroll
       for (int ci = 0; ci < C; ++ci) win[ci].load(a1 + ci * L.ld1 + base);
       float acc[C][P];
@@ -708,7 +824,7 @@ cnn_eq_kernel_rb(const RbParams p) {
 #pragma unroll
           for (int q = 0; q < P / NOS; ++q)
             h[q] = relu(__fadd_rn(acc[c][NOS * q + ph], bsm[CP + c]));
-          st_bf16<P / NOS>(a2 + (c * NOS + ph) * L.ld2 + base / NOS, h);
+          A::template st<P / NOS>(a2 + (c * NOS + ph) * L.ld2 + base / NOS, h);
         }
     }
     __syncthreads();
@@ -719,8 +835,9 @@ cnn_eq_kernel_rb(const RbParams p) {
       const int base = g * P2;
       // phase row ph of channel ci holds layer-1 positions NOS·i + ph; at
       // P2 = 1 each value is read once, where it is used
-      const uint16_t* a2t = a2 + base;
-      BfWin<P2, P2 + (K - 1) / NOS> win[C][P2 > 1 ? NOS : 1];
+      const T* a2t = a2 + base;
+      typename A::template Win<P2, P2 + (K - 1) / NOS>
+          win[C][P2 > 1 ? NOS : 1];
       if constexpr (P2 > 1) {
 #pragma unroll
         for (int ci = 0; ci < C; ++ci)
@@ -745,8 +862,7 @@ cnn_eq_kernel_rb(const RbParams p) {
             if constexpr (P2 > 1) {
               xv = win[ci][kk % NOS][q + kk / NOS];
             } else {
-              xv = __uint_as_float(static_cast<uint32_t>(
-                  a2t[(ci * NOS + kk % NOS) * L.ld2 + kk / NOS]) << 16);
+              xv = A::get(a2t[(ci * NOS + kk % NOS) * L.ld2 + kk / NOS]);
             }
 #pragma unroll
             for (int c = 0; c < VP; ++c)
@@ -978,29 +1094,34 @@ cnn_eq_kernel_rb(const RbParams p) {
 #define RB_VP 8
 #define RB_NOS 2
 
-// the geometry the plan runs: final positions a block by mode, and the
-// positions a thread P of both datapaths' instances (chosen by
-// `python -m repro_torch.kernels.cnn_eq.sweep`, which times other P as
+// the geometry the plan runs: final positions a block W and positions a
+// thread P, the same for every datapath (chosen by `python -m
+// repro_torch.kernels.cnn_eq.sweep`, which times other W, and other P as
 // source variants)
-static const int RB_W_RUN[3] = {0, 60, 60};
+#define RB_W_RUN 60
 #define RB_PPOS 2
 
 static bool rb_dims(int mode, int n_layers, const int* kcs) {
   static const int want[3][4] = {{RB_K, 1, RB_C, RB_VP},
                                  {RB_K, RB_C, RB_C, 1},
                                  {RB_K, RB_C, RB_VP, RB_NOS}};
-  if ((mode != MODE_BF16 && mode != MODE_INT8) || n_layers != 3) return false;
+  if (mode < MODE_FP32 || mode > MODE_INT8 || n_layers != 3) return false;
   for (int l = 0; l < 3; ++l)
     for (int j = 0; j < 4; ++j)
       if (kcs[4 * l + j] != want[l][j]) return false;
   return true;
 }
 
-// the layout of a block of w_run final positions (mode bf16 or int8)
+// the layout of a block of w_run final positions
 static RbLayout rb_layout(int mode, int w_run) {
-  return mode == MODE_BF16
-             ? Rb<MODE_BF16, RB_K, RB_C, RB_VP, RB_NOS, RB_PPOS>::layout(w_run)
-             : Rb<MODE_INT8, RB_K, RB_C, RB_VP, RB_NOS, RB_PPOS>::layout(w_run);
+  switch (mode) {
+    case MODE_FP32:
+      return Rb<MODE_FP32, RB_K, RB_C, RB_VP, RB_NOS, RB_PPOS>::layout(w_run);
+    case MODE_BF16:
+      return Rb<MODE_BF16, RB_K, RB_C, RB_VP, RB_NOS, RB_PPOS>::layout(w_run);
+    default:
+      return Rb<MODE_INT8, RB_K, RB_C, RB_VP, RB_NOS, RB_PPOS>::layout(w_run);
+  }
 }
 
 // Returns 1 and fills geom = (w_run, p, threads, shared-memory bytes) when
@@ -1010,10 +1131,10 @@ extern "C" int cnn_eq_plan(int mode, int n_layers, const int* kcs,
                            int* geom) {
   geom[0] = geom[1] = geom[2] = geom[3] = 0;
   if (!rb_dims(mode, n_layers, kcs)) return 0;
-  geom[0] = RB_W_RUN[mode];
+  geom[0] = RB_W_RUN;
   geom[1] = RB_PPOS;
   geom[2] = RB_THREADS;
-  geom[3] = rb_layout(mode, RB_W_RUN[mode]).bytes;
+  geom[3] = rb_layout(mode, RB_W_RUN).bytes;
   return 1;
 }
 
@@ -1073,13 +1194,16 @@ extern "C" int cnn_eq_rb_launch_at(int w_run, int mode, const void* x,
   const dim3 grid(cdiv(n_pos, w_run), rows);
   const size_t smem = static_cast<size_t>(p.lay.bytes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return mode == MODE_BF16 ? rb_launch<MODE_BF16>(p, grid, smem, s)
-                           : rb_launch<MODE_INT8>(p, grid, smem, s);
+  switch (mode) {
+    case MODE_FP32: return rb_launch<MODE_FP32>(p, grid, smem, s);
+    case MODE_BF16: return rb_launch<MODE_BF16>(p, grid, smem, s);
+    default:        return rb_launch<MODE_INT8>(p, grid, smem, s);
+  }
 }
 
-// cnn_eq_kernel_rb at the plan's geometry: what cnn_eq_fused_bf16 and
-// cnn_eq_fused_int8 launch when cnn_eq_plan says so. Same arguments and
-// codes as cnn_eq_rb_launch_at.
+// cnn_eq_kernel_rb at the plan's geometry: what the three wrappers launch
+// when cnn_eq_plan says so. Same arguments and codes as
+// cnn_eq_rb_launch_at.
 extern "C" int cnn_eq_rb_launch(int mode, const void* x, void* out, int rows,
                                 int width, long long x_stride, int n_pos,
                                 int stacked, const void* kcs_v,

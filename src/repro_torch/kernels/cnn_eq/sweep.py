@@ -5,33 +5,40 @@
 
 At the deployment shape (64 rows × 14 640 samples = 7320 symbols each) and
 a serving shape (4 rows × 4096 samples), both with stacked weights (one
-random BN-folded set per row from a seed, cast to bf16 or quantized to
-int8 at Q2.5 weights / Q3.4 activations), it times by torch.profiler's
+random BN-folded set per row from a seed, fp32, cast to bf16 or quantized
+to int8 at Q2.5 weights / Q3.4 activations), it times by torch.profiler's
 device time per launch (mean of CALLS launches, every variant of a shape
 and datapath in one profiler session):
 - the plan's geometry of cnn_eq_kernel_rb (the library's `cnn_eq_plan`)
-  for bf16 and int8;
+  for fp32, bf16 and int8;
 - cnn_eq_kernel_rb at every final-position run W of RUNS
   (`cnn_eq_rb_launch_at`, at the source's P, 128 threads a block; W = 60
   and 124 make layer 1's 2W + 7 positions fill whole warps);
 - the generic kernel, cnn_eq_kernel, forced on the same inputs at each
   tile_m of TILES;
 - cnn_eq_kernel_rb built from copies of the source with one piece
-  rewritten (`VARIANTS`, built under build/kernels), at every run of
-  RUNS: P = 4 positions a thread (the source's is 2), the register cap
-  __launch_bounds__ sets (64, the source's, against 80 and 128 a
-  thread), the tasks without their compiler fence (task_fence), which
-  lets the compiler hoist the weight reads out of the task loops, bf16
-  weights read as the used scalars instead of whole float4s of the padded
-  row, and the input staged one read a thread at a time (RB_STAGE 1, not
-  8);
+  rewritten (`VARIANTS`, built under build/kernels, one nvcc each, all
+  started together), at every run of RUNS: P = 4 positions a thread (the
+  source's is 2), the register cap __launch_bounds__ sets (64, the
+  source's, against 80 and 128 a thread), fp32's layer 1 reading each
+  (tap, C_in) pair's inputs from shared memory where it uses them
+  (RB_FP32_L1_REGS 0; the source holds its C input windows in
+  registers), the tasks without their compiler fence (task_fence), which
+  lets the compiler hoist the weight reads out of the task loops, weights
+  read as the used scalars instead of whole float4s of the padded row,
+  and the input staged one read a thread at a time (RB_STAGE 1, not 8);
+  a variant that rewrites only one datapath's code is timed in that
+  datapath alone;
 - with --parent, the generic kernel of another copy of the source (an
-  earlier commit's), on the same inputs in the same process.
+  earlier commit's) and, for each datapath whose plan there is the
+  register-blocked kernel, that plan, on the same inputs in the same
+  process.
 A variant's or the parent's library takes the wrappers' launches through
 `built_from`, which stands it in for the source's own library.
 Every variant is first held bitwise against the plain version
-(`ref.cnn_eq_bf16`, `ref.cnn_eq_int8`) at both shapes. It prints the
--Xptxas -v registers and spills of every cnn_eq_kernel_rb instance. The
+(`ref.cnn_eq`, `ref.cnn_eq_bf16`, `ref.cnn_eq_int8`) at both shapes. It
+prints the -Xptxas -v registers and spills of every cnn_eq_kernel_rb
+instance. The
 result is one JSON object, printed and written to --out. int8 has one
 packing here (4 channels of one tap a word; layer 0: 4 taps of its one
 channel). Needs a CUDA card; exits 2 without one.
@@ -39,6 +46,7 @@ channel). Needs a CUDA card; exits 2 without one.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import functools
@@ -61,59 +69,71 @@ RUNS = (16, 32, 60, 64, 124, 128)
 TILES = (16, 32, 64, 128)
 CALLS = 20
 FORMATS = ((2, 5, 3, 4),) * 3
-MODES = {"bf16": K.MODE_BF16, "int8": K.MODE_INT8}
-# source variants: name -> (text in csrc/cnn_eq.cu, its replacement)
+MODES = {"fp32": K.MODE_FP32, "bf16": K.MODE_BF16, "int8": K.MODE_INT8}
+# source variants: name -> ((text in csrc/cnn_eq.cu, its replacement), ...)
+# and the datapaths whose code the rewrite touches (None: all)
 VARIANTS = {
-    "p4": ("#define RB_PPOS 2", "#define RB_PPOS 4"),
-    "regs128": ("#define RB_MIN_BLOCKS 8", "#define RB_MIN_BLOCKS 4"),
-    "regs80": ("#define RB_MIN_BLOCKS 8", "#define RB_MIN_BLOCKS 6"),
-    "no_fence": ('asm volatile("" ::: "memory");', ""),
-    "stage1": ("#define RB_STAGE 8", "#define RB_STAGE 1"),
-    "scalar_w": ("""  float4 q[cdiv(N, 4)];
+    "p4": ((("#define RB_PPOS 2", "#define RB_PPOS 4"),), None),
+    "regs128": ((("#define RB_MIN_BLOCKS 8", "#define RB_MIN_BLOCKS 4"),),
+                None),
+    "regs80": ((("#define RB_MIN_BLOCKS 8", "#define RB_MIN_BLOCKS 6"),),
+               None),
+    "l1_smem": ((("#define RB_FP32_L1_REGS 1", "#define RB_FP32_L1_REGS 0"),),
+                ("fp32",)),
+    "no_fence": ((('asm volatile("" ::: "memory");', ""),), None),
+    "stage1": ((("#define RB_STAGE 8", "#define RB_STAGE 1"),), None),
+    "scalar_w": ((("""  float4 q[cdiv(N, 4)];
 #pragma unroll
   for (int i = 0; i < cdiv(N, 4); ++i)
     q[i] = reinterpret_cast<const float4*>(src)[i];
 #pragma unroll
   for (int c = 0; c < N; ++c) dst[c] = reinterpret_cast<const float*>(q)[c];""",
-                 "  for (int c = 0; c < N; ++c) dst[c] = src[c];"),
+                   "  for (int c = 0; c < N; ++c) dst[c] = src[c];"),),
+                 ("fp32", "bf16")),
 }
 
 
 @contextlib.contextmanager
-def built_from(lib: ctypes.CDLL):
-    """Inside, the wrappers launch from `lib` (a variant's or the parent's
-    build of the source) instead of the source's own library."""
-    load = K._load
-    K._load = lambda: lib
+def built_from(lib: ctypes.CDLL, module=K):
+    """Inside, the wrappers of a kernel module (cnn_eq's by default) launch
+    from `lib` (a variant's or the parent's build of its source) instead of
+    the source's own library."""
+    load = module._load
+    module._load = lambda: lib
     try:
         yield
     finally:
-        K._load = load
+        module._load = load
 
 
-def on(lib: ctypes.CDLL, fn):
+def on(lib: ctypes.CDLL, fn, module=K):
     """fn, called with its launches from `lib` (`built_from`)."""
     def call():
-        with built_from(lib):
+        with built_from(lib, module):
             return fn()
     return call
 
 
 def variant_libs() -> dict:
-    """Each VARIANTS copy of the source, built and bound; name -> (lib,
-    ptxas summary)."""
+    """Each VARIANTS copy of the source, built (one nvcc each, all started
+    together) and bound; name -> (lib, ptxas summary)."""
     src = K.CSRC.read_text()
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    libs = {}
-    for name, (old, new) in VARIANTS.items():
-        if src.count(old) != 1:
-            raise RuntimeError(f"variant {name}: {old!r} not found once")
-        path = out_dir / f"cnn_eq_{name}.cu"
-        path.write_text(src.replace(old, new))
-        _, log = _build.build(path)
-        libs[name] = (_build.load(path, K._bind), ptxas(log))
-    return libs
+    paths = {}
+    for name, (edits, _) in VARIANTS.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"variant {name}: {old!r} not found once")
+            text = text.replace(old, new)
+        paths[name] = out_dir / f"cnn_eq_{name}.cu"
+        paths[name].write_text(text)
+    with concurrent.futures.ThreadPoolExecutor(len(paths)) as pool:
+        logs = dict(zip(paths, pool.map(lambda p: _build.build(p)[1],
+                                        paths.values())))
+    return {name: (_build.load(path, K._bind), ptxas(logs[name]))
+            for name, path in paths.items()}
 
 
 def inputs(dev, rows: int, width: int, seed: int = 0) -> dict:
@@ -133,16 +153,17 @@ def inputs(dev, rows: int, width: int, seed: int = 0) -> dict:
         return tuple((torch.stack([w[l][0] for w in ws]).to(dev),
                       torch.stack([w[l][1] for w in ws]).to(dev))
                      for l in range(3))
-    return {"x": x, "bf16": stack(per), "int8": stack(q)}
+    return {"x": x, "fp32": stack(per), "bf16": stack(per), "int8": stack(q)}
 
 
-def device_ms(fns: list, calls: int = CALLS) -> list:
+def device_ms(fns: list, calls: int = CALLS,
+              kernel: str = "cnn_eq_kernel") -> list:
     """Mean device time per launch of each function in fns (each launches
-    one cnn_eq kernel a call), from one torch.profiler session: every
-    function runs once in the schedule's warm-up step (a session after
-    many others can miss its first kernel events), then `calls` times
-    each, in turn, in the active step; the session's cnn_eq kernel events,
-    in launch order, split into runs of `calls`."""
+    one kernel whose name holds `kernel` a call), from one torch.profiler
+    session: every function runs once in the schedule's warm-up step (a
+    session after many others can miss its first kernel events), then
+    `calls` times each, in turn, in the active step; the session's events
+    of that kernel, in launch order, split into runs of `calls`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     box = {}
@@ -163,9 +184,9 @@ def device_ms(fns: list, calls: int = CALLS) -> list:
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in box.get("events", [])
                    if e.device_type == DeviceType.CUDA
-                   and "cnn_eq_kernel" in e.name)
+                   and kernel in e.name)
     if len(spans) != calls * len(fns):
-        raise RuntimeError(f"profiler saw {len(spans)} cnn_eq launches of "
+        raise RuntimeError(f"profiler saw {len(spans)} {kernel} launches of "
                            f"{calls * len(fns)}")
     return [float(np.mean([e - b for b, e in spans[i:i + calls]])) / 1e3
             for i in range(0, len(spans), calls)]
@@ -182,7 +203,7 @@ def ptxas(log: str) -> dict:
         if name is None or "cnn_eq_kernel_rb" not in name:
             continue
         m = re.search(r"ILi(\d)ELi9ELi5ELi8ELi2ELi(\d)E", name)
-        key = f"{'bf16' if m.group(1) == '1' else 'int8'} P={m.group(2)}"
+        key = f"{('fp32', 'bf16', 'int8')[int(m.group(1))]} P={m.group(2)}"
         s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if s:
@@ -196,13 +217,25 @@ def ptxas(log: str) -> dict:
 
 def parent_lib(path: pathlib.Path) -> ctypes.CDLL:
     """Another copy of csrc/cnn_eq.cu, built and bound (its generic launch
-    only)."""
+    only, where it has no register-blocked kernel)."""
     def bind(lib):
-        lib.cnn_eq_launch.restype = ctypes.c_int
-        lib.cnn_eq_launch.argtypes = (
-            [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-            + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 4)
+        try:
+            K._bind(lib)
+        except AttributeError:
+            lib.cnn_eq_launch.restype = ctypes.c_int
+            lib.cnn_eq_launch.argtypes = (
+                [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 4)
     return _build.load(path.resolve(), bind)
+
+
+def parent_plans(lib: ctypes.CDLL) -> set:
+    """The datapaths whose plan at the paper's widths is the register-
+    blocked kernel in another copy of the source."""
+    if not hasattr(lib, "cnn_eq_plan"):
+        return set()
+    return {dp for dp, mode in MODES.items()
+            if K._lib_plan(lib, mode, K._RB_DIMS).instance == "rb"}
 
 
 def main(argv=None) -> int:
@@ -220,6 +253,7 @@ def main(argv=None) -> int:
               "plan": {}, "shapes": {}}
     print(f"ptxas: {json.dumps(result['ptxas'])}", flush=True)
     parent = parent_lib(args.parent) if args.parent else None
+    parent_rb = parent_plans(parent) if parent is not None else set()
     variants = variant_libs()
     result["variant_ptxas"] = {n: v[1] for n, v in variants.items()}
     print(f"variant ptxas: {json.dumps(result['variant_ptxas'])}",
@@ -238,8 +272,9 @@ def main(argv=None) -> int:
         for dp, mode in MODES.items():
             w = d[dp]
             fmts = FORMATS if dp == "int8" else None
-            want = (ref.cnn_eq_int8(x, w, st, FORMATS) if dp == "int8"
-                    else ref.cnn_eq_bf16(x, w, st))
+            want = {"fp32": lambda: ref.cnn_eq(x, w, st),
+                    "bf16": lambda: ref.cnn_eq_bf16(x, w, st),
+                    "int8": lambda: ref.cnn_eq_int8(x, w, st, FORMATS)}[dp]()
             rows_out, fns = [], []
 
             def record(kind, fn, **kw):
@@ -252,14 +287,21 @@ def main(argv=None) -> int:
                 rows_out.append({"kind": kind, **kw})
                 fns.append(fn)
 
-            record("plan", (lambda: K.cnn_eq_fused_int8(x, w, st, FORMATS))
-                   if dp == "int8" else (lambda: K.cnn_eq_fused_bf16(
-                       x, w, st)), **result["plan"][dp])
+            plan_call = {
+                "fp32": lambda: K.cnn_eq_fused(x, w, st),
+                "bf16": lambda: K.cnn_eq_fused_bf16(x, w, st),
+                "int8": lambda: K.cnn_eq_fused_int8(x, w, st, FORMATS)}[dp]
+            record("plan", plan_call, **result["plan"][dp])
+            if dp in parent_rb:
+                record("parent_plan", on(parent, plan_call))
             for w_run in RUNS:
                 record("rb", functools.partial(
                     K._forced, "rb", mode, x, w, st, formats=fmts,
                     w_run=w_run), w_run=w_run)
             for name, (lib, _) in variants.items():
+                only = VARIANTS[name][1]
+                if only is not None and dp not in only:
+                    continue
                 for w_run in RUNS:
                     record(name, on(lib, functools.partial(
                         K._forced, "rb", mode, x, w, st, formats=fmts,

@@ -6,6 +6,7 @@ import torch
 import torch.nn.functional as F
 
 from ...device import DeviceLike, as_float32, resolve_device
+from . import conv1d as _kernel
 from .conv1d import conv1d as conv1d_kernel
 from .ref import conv1d as conv1d_ref
 
@@ -14,15 +15,16 @@ def conv1d_same_lower(x, w, b, stride: int = 1, use_kernel: bool = True,
                       tile_w: int = 256,
                       device: DeviceLike = "cuda") -> torch.Tensor:
     """SAME_LOWER-padded strided conv used by the equalizer layers: pads
-    (K//2, K−1−K//2), then the VALID kernel. Inputs move to ``device``;
+    (K//2, K−1−K//2), then the VALID kernel (the register-blocked one reads
+    the padding as zeros, with no copy). Inputs move to ``device``;
     ``use_kernel=False`` runs the plain version there."""
     dev = resolve_device(device)
     x, w, b = (as_float32(t, dev) for t in (x, w, b))
     k = w.shape[-1]
-    xp = F.pad(x, (k // 2, k - 1 - k // 2))
+    pad = (k // 2, k - 1 - k // 2)
     if use_kernel:
-        return conv1d_kernel(xp, w, b, stride, tile_w=tile_w)
-    return conv1d_ref(xp, w, b, stride)
+        return _kernel._conv1d(x, w, b, stride, tile_w, pad)
+    return conv1d_ref(F.pad(x, pad), w, b, stride)
 
 
 __all__ = ["conv1d_kernel", "conv1d_ref", "conv1d_same_lower"]

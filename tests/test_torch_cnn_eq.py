@@ -306,7 +306,8 @@ def _plan_dims(cfg):
                  for c_in, c_out, s in cfg.layer_specs())
 
 
-@pytest.mark.parametrize("mode", [tkern.MODE_BF16, tkern.MODE_INT8])
+@pytest.mark.parametrize("mode", [tkern.MODE_FP32, tkern.MODE_BF16,
+                                  tkern.MODE_INT8])
 @pytest.mark.parametrize("cfg_name", ["equalizer_ht", "equalizer_lp"])
 def test_plan_takes_register_blocked_kernel_at_paper_widths(mode, cfg_name):
     from repro_torch.configs import equalizer_ht, equalizer_lp
@@ -318,7 +319,7 @@ def test_plan_takes_register_blocked_kernel_at_paper_widths(mode, cfg_name):
 
 
 @pytest.mark.parametrize("mode,cfg", [
-    (tkern.MODE_FP32, HT.CNN),                               # fp32 datapath
+    (tkern.MODE_FP32, jeq.CNNEqConfig(kernel=7)),            # other K
     (tkern.MODE_BF16, jeq.CNNEqConfig(kernel=7)),            # other K
     (tkern.MODE_INT8, jeq.CNNEqConfig(channels=4)),          # other C
     (tkern.MODE_BF16, jeq.CNNEqConfig(v_parallel=4)),        # other V_p

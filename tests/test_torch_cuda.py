@@ -8,15 +8,20 @@ no jax, so it also runs on the card's host:
 
 Each kernel must equal its plain version (`ref.py`) bitwise on the card at
 any tile width, stacked or shared weights, and the serving path must run
-through the kernels. The register-blocked bf16 and int8 kernel
-(`cnn_eq_kernel_rb`) also equals the generic one forced on the same
+through the kernels. The register-blocked kernel (`cnn_eq_kernel_rb`,
+fp32, bf16 and int8) also equals the generic one forced on the same
 inputs, at one row and at 64, shorter than the receptive field, at one
 position, at a run that ends past the positions, at 7320 symbols, at any
 tile_m (8192 too), with per-channel int8 formats and with saturating int8
 inputs; `_plan` names the library's `cnn_eq_plan`, every run the sweep
-times covers every position bitwise, and other widths and fp32 take the
-generic kernel. The same holds for the Volterra, fixed-point-quantize
-and conv1d kernels, and the training path runs on the card. Two QAT
+times covers every position bitwise, and other widths take the generic
+kernel. The same holds for the Volterra, fixed-point-quantize and conv1d
+kernels; the register-blocked conv1d kernel (`conv1d_kernel_rb`, the
+deployed CNN's three layer shapes) equals the plain version and the
+generic kernel forced, with no padding and with SAME_LOWER padding read
+in the kernel, at a width shorter than one run, at one output position
+and on a strided view, and `conv1d._plan` names the library's
+`conv1d_plan`; the training path runs on the card. Two QAT
 trainings of the CNN from one seed give bitwise-equal parameters and
 widths (cuDNN held to its deterministic algorithms). The flash-attention
 kernel agrees with its plain version within f32 atol 2e-5 and bf16 atol
@@ -68,6 +73,7 @@ from repro_torch.data import equalizer_data as tdata
 from repro_torch.kernels.cnn_eq import cnn_eq as kern
 from repro_torch.kernels.cnn_eq import ref
 from repro_torch.kernels.conv1d import conv1d as c1_kern
+from repro_torch.kernels.conv1d import ops as c1_ops
 from repro_torch.kernels.conv1d import ref as c1_ref
 from repro_torch.kernels.flash_attn import flash_attn as fa
 from repro_torch.kernels.flash_attn import ref as fa_ref
@@ -191,10 +197,13 @@ def test_tile_too_large_for_shared_memory_raises(cuda_device):
     w = _folded(0, cuda_device)
     x = _x(1, 64, seed=4).to(cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
-        kern.cnn_eq_fused(x, w, st, tile_m=8192)
-    # a tile that fits still runs and equals the plain version
-    assert torch.equal(kern.cnn_eq_fused(x, w, st, tile_m=1024),
-                       ref.cnn_eq(x, w, st))
+        kern._forced("generic", kern.MODE_FP32, x, w, st, tile_m=8192)
+    # a tile that fits still runs and equals the plain version, and the
+    # wrapper (the register-blocked kernel, which takes no tile) runs at any
+    want = ref.cnn_eq(x, w, st)
+    assert torch.equal(
+        kern._forced("generic", kern.MODE_FP32, x, w, st, tile_m=1024), want)
+    assert torch.equal(kern.cnn_eq_fused(x, w, st, tile_m=8192), want)
 
 
 # the register-blocked kernel's cases: (rows, samples, tile_m, input scale,
@@ -230,21 +239,29 @@ def _rb_case(device, dp, stacked, case):
     return x, w, st, fmts, tile_m
 
 
+MODES = {"fp32": kern.MODE_FP32, "bf16": kern.MODE_BF16,
+         "int8": kern.MODE_INT8}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dp,stacked,case", [
-    (dp, stacked, case) for dp in ("bf16", "int8") for stacked in (False, True)
+    (dp, stacked, case) for dp in ("fp32", "bf16", "int8")
+    for stacked in (False, True)
     for case in RB_CASES if dp == "int8" or not RB_CASES[case][4]])
 def test_register_blocked_kernel_equals_plain_and_generic_on_card(
         cuda_device, dp, stacked, case):
     x, w, st, fmts, tile_m = _rb_case(cuda_device, dp, stacked, case)
-    mode = kern.MODE_INT8 if dp == "int8" else kern.MODE_BF16
+    mode = MODES[dp]
     assert kern._plan(mode, kern._dims(w, st)) == "rb"
     if dp == "int8":
         want = ref.cnn_eq_int8(x, w, st, fmts)
         call = lambda: kern.cnn_eq_fused_int8(x, w, st, fmts, tile_m)  # noqa
-    else:
+    elif dp == "bf16":
         want = ref.cnn_eq_bf16(x, w, st)
         call = lambda: kern.cnn_eq_fused_bf16(x, w, st, tile_m)  # noqa
+    else:
+        want = ref.cnn_eq(x, w, st)
+        call = lambda: kern.cnn_eq_fused(x, w, st, tile_m)  # noqa
     before = dict(kern.INSTANCE_LAUNCHES)
     got = call()
     torch.cuda.synchronize()
@@ -259,9 +276,9 @@ def test_register_blocked_kernel_equals_plain_and_generic_on_card(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dp", ["bf16", "int8"])
+@pytest.mark.parametrize("dp", ["fp32", "bf16", "int8"])
 def test_register_blocked_plan_is_the_librarys_on_card(cuda_device, dp):
-    mode = kern.MODE_INT8 if dp == "int8" else kern.MODE_BF16
+    mode = MODES[dp]
     lib = kern._load()
     other = tuple((7, ci, co, s) for _, ci, co, s in kern._RB_DIMS)
     for m, dims in ((mode, kern._RB_DIMS), (kern.MODE_FP32, kern._RB_DIMS),
@@ -278,9 +295,12 @@ def test_register_blocked_plan_is_the_librarys_on_card(cuda_device, dp):
     if dp == "int8":
         want = ref.cnn_eq_int8(x, w, st, fmts)
         ws, scales = w, kern._int8_scales(fmts, w, x.device)
-    else:
+    elif dp == "bf16":
         want = ref.cnn_eq_bf16(x, w, st)
         ws, scales, fmts = kern.cast_weights_bf16(w), None, None
+    else:
+        want = ref.cnn_eq(x, w, st)
+        ws, scales, fmts = w, None, None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     for w_run in (1, 3, 16, 32, 60, 64, 100, 124, 128):
         out = torch.full_like(want, float("nan"))
@@ -291,7 +311,7 @@ def test_register_blocked_plan_is_the_librarys_on_card(cuda_device, dp):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dp,k", [("fp32", 9), ("bf16", 7), ("int8", 7)])
+@pytest.mark.parametrize("dp,k", [("fp32", 7), ("bf16", 7), ("int8", 7)])
 def test_other_widths_take_the_generic_kernel_on_card(cuda_device, dp, k):
     cfg = teq.CNNEqConfig(kernel=k)
     st = teq.layer_strides(cfg)
@@ -373,6 +393,96 @@ def test_conv1d_kernel_equals_plain_on_card(cuda_device, c_in, c_out, k,
         torch.cuda.synchronize()
         assert c1_kern.LAUNCHES["conv1d"] == before + 1
         assert torch.equal(got, want), tile
+
+
+# the register-blocked conv1d kernel's cases: (rows, width, strided view);
+# a run is the plan's w_run output positions; "one_position" is 9 samples
+# (K) for the VALID conv, 1 for SAME_LOWER
+C1_CASES = {"long": (3, 2 * 8 * 300 + 5, False),
+            "shorter_than_a_run": (2, 8 * 40 + 3, False),
+            "one_position": (2, 9, False),
+            "strided_view": (2, 8 * 150 + 1, True)}
+
+
+def _c1_case(device, dims, case, same=False, seed=0):
+    k, c_in, c_out, stride = dims
+    rows, width, strided = C1_CASES[case]
+    if same and case == "one_position":
+        width = 1
+    g = torch.Generator().manual_seed(seed + stride)
+    w = (0.3 * torch.randn((c_out, c_in, k), generator=g)).to(device)
+    b = torch.randn(c_out, generator=g).to(device)
+    big = torch.randn((rows, c_in, width + 11), generator=g).to(device)
+    x = big[:, :, 5:5 + width] if strided else big[:, :, :width].contiguous()
+    return x, w, b, stride
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", list(c1_kern._RB_DIMS))
+@pytest.mark.parametrize("case", list(C1_CASES))
+@pytest.mark.parametrize("same", [False, True])
+def test_conv1d_register_blocked_equals_plain_and_generic_on_card(
+        cuda_device, dims, case, same):
+    x, w, b, stride = _c1_case(cuda_device, dims, case, same)
+    k = dims[0]
+    pad = (k // 2, k - 1 - k // 2) if same else (0, 0)
+    want = c1_ref.conv1d(torch.nn.functional.pad(x, pad), w, b, stride)
+    if case == "one_position":
+        assert want.shape[2] == 1
+    before = dict(c1_kern.INSTANCE_LAUNCHES)
+    got = (c1_ops.conv1d_same_lower(x, w, b, stride, device=cuda_device)
+           if same else c1_kern.conv1d(x, w, b, stride, tile_w=64))
+    torch.cuda.synchronize()
+    assert c1_kern.INSTANCE_LAUNCHES == {"rb": before["rb"] + 1,
+                                         "generic": before["generic"]}
+    assert got.is_cuda and got.shape == want.shape
+    assert torch.equal(got, want), float((got - want).abs().max())
+    for tile in (32, 256):
+        generic = c1_kern._forced("generic", x, w, b, stride, tile, pad=pad)
+        assert torch.equal(got, generic), tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", list(c1_kern._RB_DIMS))
+def test_conv1d_register_blocked_plan_is_the_librarys_on_card(cuda_device,
+                                                             dims):
+    lib = c1_kern._load()
+    k, c_in, c_out, stride = dims
+    for d in (dims, (7, c_in, c_out, stride), (k, c_in + 1, c_out, stride),
+              (k, c_in, c_out, stride + 1)):
+        assert c1_kern._plan(d) == c1_kern._lib_plan(lib, d).instance
+    plan = c1_kern._lib_plan(lib, dims)
+    assert plan.instance == "rb" and plan.w_run >= 1
+    assert plan.p in (1, 2, 4) and plan.threads == 128
+    assert 0 < plan.smem <= c1_kern._MAX_SMEM_BYTES and plan.smem % 16 == 0
+    # the runs cover every position, at each run the sweep times and at
+    # runs that leave the last block ragged: into an output filled with
+    # NaN, a position never stored stays NaN
+    x, w, b, stride = _c1_case(cuda_device, dims, "strided_view", True)
+    pad = (k // 2, k - 1 - k // 2)
+    want = c1_ref.conv1d(torch.nn.functional.pad(x, pad), w, b, stride)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for w_run in (1, 3, 64, 100, 128, 256, 512, 1024):
+        out = torch.full_like(want, float("nan"))
+        assert c1_kern._rb_call(lib, x, w, b, out, stride, pad[0], stream,
+                                w_run) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), w_run
+
+
+@pytest.mark.cuda
+def test_conv1d_other_shapes_take_the_generic_kernel_on_card(cuda_device):
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((2, 3, 301), generator=g).to(cuda_device)
+    w = torch.randn((7, 3, 15), generator=g).to(cuda_device)
+    b = torch.randn(7, generator=g).to(cuda_device)
+    before = dict(c1_kern.INSTANCE_LAUNCHES)
+    got = c1_ops.conv1d_same_lower(x, w, b, 4, device=cuda_device)
+    torch.cuda.synchronize()
+    assert c1_kern.INSTANCE_LAUNCHES == {"rb": before["rb"],
+                                         "generic": before["generic"] + 1}
+    assert torch.equal(got, c1_ref.conv1d(
+        torch.nn.functional.pad(x, (7, 7)), w, b, 4))
 
 
 @pytest.mark.cuda

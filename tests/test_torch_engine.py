@@ -195,10 +195,15 @@ def test_auto_tile_resolves_through_autotune(tmp_path, monkeypatch):
     monkeypatch.setattr(autotune, "CACHE_PATH", tmp_path / "cache.json")
     monkeypatch.setattr(autotune, "DEFAULT_TILES", (16, 64))
     autotune.clear_cache()
-    # fp32: its kernel tiles by tile_m (bf16 and int8 at these widths run a
-    # kernel that does not, test_untiled_kernels_skip_the_autotune)
-    engine = EqualizerEngine.from_params(*_params(9, FMT_BF16), CFG,
-                                         backend="fused_fp32", device="cpu")
+    # K = 7: its kernel tiles by tile_m (every datapath at the paper's
+    # widths runs a kernel that does not, test_untiled_kernels_skip_the_
+    # autotune)
+    cfg = teq.CNNEqConfig(kernel=7)
+    weights = teq.folded_weights(teq.fold_bn(
+        teq.init(torch.Generator().manual_seed(9), cfg, device="cpu"),
+        teq.init_bn_state(cfg, device="cpu"), cfg))
+    engine = EqualizerEngine(cfg=cfg, weights=weights, backend="fused_fp32",
+                             device="cpu")
     assert engine.tile_m == "auto" and engine.tile_is_timed()
     assert engine.resolved_tile_m() in (16, 64)
     assert isinstance(engine.tile_m, int)
@@ -209,7 +214,8 @@ def test_auto_tile_resolves_through_autotune(tmp_path, monkeypatch):
     ("fused_int8", 9, False),       # paper widths: cnn_eq_kernel_rb
     ("fused_bf16", 9, False),
     ("ref", 9, False),
-    ("fused_fp32", 9, True),        # the generic kernel tiles by tile_m
+    ("fused_fp32", 9, False),
+    ("fused_fp32", 7, True),        # the generic kernel tiles by tile_m
     ("fused_bf16", 7, True),
 ])
 def test_untiled_kernels_skip_the_autotune(monkeypatch, backend, kernel,

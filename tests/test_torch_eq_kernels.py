@@ -15,8 +15,12 @@ and the same weights (carried through `interop`):
               2.4e-6 (measured): a few float32 ulps, from the port's
               tap-major-then-C_in order against XLA's dots and FMAs.
 
-On the card each kernel must equal its plain version bitwise
-(tests/test_torch_cuda.py; chip_smoke.py at full size).
+The conv1d plan (`conv1d._plan`) takes the register-blocked kernel at the
+deployed CNN's three layer shapes and the generic one elsewhere, and the
+plain version both kernels repeat sums tap-major, then C_in ascending
+(checked bitwise against a float32 scalar loop). On the card each kernel
+must equal its plain version bitwise (tests/test_torch_cuda.py;
+chip_smoke.py at full size).
 """
 import jax
 import jax.numpy as jnp
@@ -281,9 +285,85 @@ def test_conv1d_wrapper_checks_its_inputs():
         tc1.conv1d(x, w.double(), b)
     with pytest.raises(ValueError, match="W >= K"):
         tc1.conv1d(x[:, :, :3], w, b)
-    before = dict(tc1.LAUNCHES)
+    before = dict(tc1.LAUNCHES), dict(tc1.INSTANCE_LAUNCHES)
     assert tc1.conv1d(x, w, b, 2).shape == (1, 3, 13)
-    assert tc1.LAUNCHES == before
+    assert (tc1.LAUNCHES, tc1.INSTANCE_LAUNCHES) == before
+
+
+# the register-blocked conv1d kernel's plan (conv1d._plan, mirrored by
+# csrc/conv1d.cu's conv1d_plan, which the card tests hold it to): the
+# deployed CNN's three layer shapes, as (k, c_in, c_out, stride)
+RB_LAYERS = [(9, 1, 5, 8), (9, 5, 5, 1), (9, 5, 8, 2)]
+
+
+@pytest.mark.parametrize("dims", RB_LAYERS)
+def test_conv1d_plan_takes_register_blocked_kernel_at_deploy_shapes(dims):
+    assert tc1._plan(dims) == "rb"
+    k, c_in, c_out, stride = dims
+    assert tc1._dims(torch.zeros(c_out, c_in, k), stride) == dims
+
+
+@pytest.mark.parametrize("dims", [(7, 1, 5, 8), (9, 4, 5, 1), (9, 5, 7, 2),
+                                  (9, 5, 8, 1), (9, 1, 5, 4), (15, 3, 7, 4)])
+def test_conv1d_plan_takes_generic_kernel_elsewhere(dims):
+    assert tc1._plan(dims) == "generic"
+
+
+@pytest.mark.parametrize("dims", RB_LAYERS)
+@pytest.mark.parametrize("width", [1, 9, 17, 301])
+def test_conv1d_same_lower_matches_jax_at_rb_shapes(dims, width):
+    """The deploy entry point at the register-blocked kernel's shapes, on
+    widths down to one sample (one output position), against the JAX
+    package's conv1d_same_lower (Pallas, interpret mode)."""
+    k, c_in, c_out, stride = dims
+    rng = np.random.default_rng(width * 10 + stride)
+    x = rng.standard_normal((2, c_in, width)).astype(np.float32)
+    w = (0.3 * rng.standard_normal((c_out, c_in, k))).astype(np.float32)
+    b = rng.standard_normal(c_out).astype(np.float32)
+    want = np.asarray(jc1_ops.conv1d_same_lower(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), stride,
+        use_pallas=True, tile_w=64))
+    got = tc1_ops.conv1d_same_lower(x, w, b, stride, device="cpu")
+    assert got.shape == want.shape == (2, c_out, (width - 1) // stride + 1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=CONV_RTOL,
+                               atol=CONV_ATOL)
+
+
+@pytest.mark.parametrize("dims", RB_LAYERS)
+def test_conv_valid_taps_sums_in_the_kernel_order(dims):
+    """The conv1d kernels' plain version adds each product in turn, tap-major
+    then C_in ascending, from zero, bias last: checked bitwise against a
+    float32 scalar loop at the deployed CNN's widths."""
+    k, c_in, c_out, stride = dims
+    rng = np.random.default_rng(stride)
+    x = rng.standard_normal((1, c_in, 4 * stride + k)).astype(np.float32)
+    w = (0.3 * rng.standard_normal((c_out, c_in, k))).astype(np.float32)
+    b = rng.standard_normal(c_out).astype(np.float32)
+    f = np.float32
+    n_out = (x.shape[2] - k) // stride + 1
+    want = np.zeros((c_out, n_out), np.float32)
+    for c in range(c_out):
+        for m in range(n_out):
+            acc = f(0)
+            for kk in range(k):
+                for ci in range(c_in):
+                    acc = f(acc + f(w[c, ci, kk] * x[0, ci, m * stride + kk]))
+            want[c, m] = f(acc + b[c])
+    got = tc1.conv1d(_t(x), _t(w), _t(b), stride)
+    np.testing.assert_array_equal(got[0].numpy(), want)
+
+
+def test_conv1d_forced_launch_refuses_a_host_tensor():
+    x, w, b = torch.zeros(1, 5, 30), torch.zeros(5, 5, 9), torch.zeros(5)
+    for instance in ("rb", "generic"):
+        with pytest.raises(ValueError, match="needs a CUDA tensor"):
+            tc1._forced(instance, x, w, b, 1)
+
+
+def test_conv1d_source_is_self_contained():
+    """csrc/conv1d.cu includes no header of its own (a header shared with
+    another source would tie their build keys together)."""
+    assert _build._INCLUDE.findall(tc1.CSRC.read_bytes()) == []
 
 
 # ---------------------------------------------------------------------------

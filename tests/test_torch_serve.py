@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import equalizer_ht as HT
 from repro.core import equalizer as jeq
@@ -253,14 +254,19 @@ def test_serve_aware_retune_uses_live_traffic(tmp_path, monkeypatch):
     monkeypatch.setattr(autotune, "CACHE_PATH", tmp_path / "cache.json")
     monkeypatch.setattr(autotune, "DEFAULT_TILES", (16, 32))
     autotune.clear_cache()
-    # fp32 tenants: their kernel tiles by tile_m (the int8 and bf16 ones
-    # at these widths take none, test_serve_never_retunes_untiled_kernels)
-    specs = _tenants(ops=("fp", "fp"), tile_m=16)
+    # fp32 tenants at K = 7: their kernel tiles by tile_m (every datapath
+    # at the paper's widths takes none, test_serve_never_retunes_untiled_
+    # kernels)
+    cfg = teq.CNNEqConfig(kernel=7)
+    specs = [TenantSpec(f"fp-{i}", cfg, params=teq.init(
+                 torch.Generator().manual_seed(i), cfg, device="cpu"),
+                 bn_state=teq.init_bn_state(cfg, device="cpu"), tile_m=16)
+             for i in range(2)]
     rt = ServeRuntime(BatchPolicy(max_batch=2, retune_after=2), device="cpu")
     for s in specs:
         rt.open(s)
     _serve(rt, _waves(specs, 300, seed=11), 200, seed=12)
-    late = TenantSpec("late", CFG, params=specs[0].params,
+    late = TenantSpec("late", cfg, params=specs[0].params,
                       bn_state=specs[0].bn_state)          # tile_m="auto"
     session = rt.open(late)
     assert session.spec.tile_m in (16, 32)
@@ -269,7 +275,7 @@ def test_serve_aware_retune_uses_live_traffic(tmp_path, monkeypatch):
     autotune.clear_cache()
 
 
-@pytest.mark.parametrize("op", ["ht", "lp"])
+@pytest.mark.parametrize("op", ["ht", "lp", "fp"])
 def test_serve_never_retunes_untiled_kernels(tmp_path, monkeypatch, op):
     from repro_torch.core import autotune
     from repro_torch.core.engine import UNTIMED_TILE_M
@@ -283,8 +289,7 @@ def test_serve_never_retunes_untiled_kernels(tmp_path, monkeypatch, op):
     late = TenantSpec("late", CFG, params=specs[0].params,
                       bn_state=specs[0].bn_state)          # tile_m="auto"
     session = rt.open(late)
-    assert session.engine.backend == {"ht": "fused_int8",
-                                      "lp": "fused_bf16"}[op]
+    assert session.engine.backend == BACKEND[op]
     assert session.spec.tile_m == "auto"
     assert session.engine.resolved_tile_m() == UNTIMED_TILE_M
     assert autotune._load_disk() == {}
