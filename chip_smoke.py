@@ -12,9 +12,11 @@ result line), in the order they run:
      shared-memory / spill lines of every kernel instance (the sLSTM
      source's: the cluster kernel's twelve, the stream kernel's four), and
      the registers and spills of the three register-blocked cnn_eq
-     instances (`cnn_eq_kernel_rb`, fp32, bf16 and int8 at the plan's P)
-     and the three register-blocked conv1d instances (`conv1d_kernel_rb`,
-     the deployed CNN's layer shapes); none may spill;
+     instances (`cnn_eq_kernel_rb`, fp32, bf16 and int8 at the plan's P),
+     the three register-blocked conv1d instances (`conv1d_kernel_rb`, the
+     deployed CNN's layer shapes) and the three register-blocked Volterra
+     instances (`volterra_kernel_rb`, the deployed baseline in float32,
+     bfloat16 and float16); none may spill;
   3. kernel == plain: each datapath (fp32, bf16, int8) on the card at the
      paper's deployment shape (equalizer_ht: 64 rows × 7320 symbols),
      shared and per-row stacked weights, tile_m ∈ {16, 64, 256}, and at
@@ -47,13 +49,22 @@ result line), in the order they run:
      trained parameters' deployment entry points, with every launch count
      zeroed just before and read just after: `volterra.ops.equalize`,
      `quant.ops.quantize_params`, `conv1d.ops.conv1d_same_lower` through
-     the CNN's three layers. Each kernel == its plain version bitwise (and
-     the Volterra kernel also on two random parameter sets, up to the
-     DSE's largest memory lengths); quantize_params == the QAT quantizer;
-     each conv1d layer ran the register-blocked kernel (3 "rb" launches in
-     `conv1d.INSTANCE_LAUNCHES`, no padding copy) and equals the generic
-     kernel forced on the same input bitwise; conv1d against F.conv1d
-     (TF32 off) as a max abs error;
+     the CNN's three layers. Each kernel == its plain version bitwise.
+     Volterra: the deploy run took the register-blocked kernel (1 "rb", 0
+     "generic" launches in `volterra.INSTANCE_LAUNCHES`, no padding copy)
+     and equals the generic kernel forced; rb == plain at the edges
+     (V_EDGES: fewer symbols than a run, n_out not a multiple of P, an
+     odd width, one row, a strided view) and in bfloat16 and float16; two
+     random parameter sets up to the DSE's largest memory lengths run the
+     generic kernel, as the plan says. quant: quantize_params made exactly
+     one launch (`quant_many_kernel`) and each tensor == its plain version
+     == the QAT quantizer; the per-tensor kernel == plain at 64 × 14 640
+     in float32 and bfloat16, at lengths 1, 3, 5, 17 and on a view off
+     the 16-byte boundary. conv1d: each layer ran the register-blocked
+     kernel (3 "rb" launches in `conv1d.INSTANCE_LAUNCHES`, no padding
+     copy) and equals the generic kernel forced on the same input bitwise,
+     in float32 and, on the same layers' inputs in bfloat16, bfloat16;
+     conv1d against F.conv1d (TF32 off) as a max abs error;
   5. times: CUDA events over many calls after warm-up at the deployment
      shapes, and device time from torch.profiler, for all six kernels:
      kernel, plain version, and a PyTorch yardstick (a chain of F.conv1d +
@@ -64,9 +75,14 @@ result line), in the order they run:
      the device time at the [4a] serving shape and, for fp32 and bf16, the
      FP32-issue floor of their fixed order (two FP32 instructions a MAC);
      for each conv1d layer the plan's kernel and run, its device time and
-     the generic kernel's forced on the same input; beside them, the
-     device times before the redesigns as PERF.md records them
-     (OLD_DEVICE_MS, not measured here);
+     the generic kernel's forced on the same input; for Volterra the
+     plan's kernel and its device time beside the generic kernel's forced
+     in the same call (and rb in bfloat16); for quant the deploy shape
+     (quantize_params: one launch, against six per-tensor launches and
+     six torch.fake_quantize_per_tensor_affine calls) and the large shape
+     (64 × 14 640, float32 and bfloat16); beside them, the device times
+     before the redesigns as PERF.md records them (OLD_DEVICE_MS, not
+     measured here);
   8. LM serving: `repro_torch.launch.serve.serve_session` builds
      qwen3-0.6b at full width (28 layers, d_model 1024, 16/8 heads of 128,
      bf16, fused_attention, tp = 1) with seeded random weights on the
@@ -219,6 +235,7 @@ from repro_torch.kernels.quant import quant as Q  # noqa: E402
 from repro_torch.kernels.quant import ref as Q_ref  # noqa: E402
 from repro_torch.kernels.volterra import ops as V_ops  # noqa: E402
 from repro_torch.kernels.volterra import ref as V_ref  # noqa: E402
+from repro_torch.kernels.volterra import sweep as V_sweep  # noqa: E402
 from repro_torch.kernels.slstm import ref as SL_ref  # noqa: E402
 from repro_torch.kernels.slstm import slstm as SL  # noqa: E402
 from repro_torch.kernels.volterra import volterra as V  # noqa: E402
@@ -243,11 +260,12 @@ TILES = (16, 64, 256)
 EDGE_SHAPES = ((1, 2 * SYMS, 64, False), (4, 100, 64, False),
                (4, 16, 64, False), (4, 16 * 197 + 9, 16, True),
                (ROWS, 16 * 131 + 3, 8192, False))
-# device ms of the generic kernels before the register-blocked ones took
-# these calls (PERF.md §6 rows 1, 2, 3 and 6, conv1d's three layers
-# summed; NVIDIA H100 80GB HBM3, 700.00 W)
+# device ms of the kernels before their redesigns took these calls
+# (PERF.md §6 rows 1–6, conv1d's three layers summed; NVIDIA H100 80GB
+# HBM3, 700.00 W)
 OLD_DEVICE_MS = {"fp32": 0.0457, "bf16": 0.0475, "int8": 0.0441,
-                 "conv1d": 0.0610}
+                 "conv1d": 0.0610, "volterra": 0.0241,
+                 "fixed_point_quantize_64x14640": 0.00621}
 FORMATS = {
     "ht": {"w_int": 2, "w_frac": 5, "a_int": 3, "a_frac": 4},   # → int8
     "lp": {"w_int": 3, "w_frac": 8, "a_int": 3, "a_frac": 8},   # → bf16
@@ -281,6 +299,12 @@ QAT_CFG = qat.QATConfig(init_int_bits=8.0, init_frac_bits=8.0)
 FAMILIES = {"cnn": (HT.CNN, QAT_CFG), "fir": (fir.FIRConfig(), None),
             "volterra": (vol.VolterraConfig(), None)}
 VOLTERRA_SETS = ((41, 15, 9), (121, 35, 15))    # random; the DSE's largest
+# [7] the register-blocked Volterra kernel's edges: (rows, samples, strided
+# view); its plan's run is 512 symbols, P = 4
+V_EDGES = ((ROWS, 2 * 100, False), (ROWS, 2 * 257, False),
+           (ROWS, 2 * 1001 + 1, False), (1, 2 * SYMS, False),
+           (ROWS, 2 * 513 + 1, True))
+HALF_TYPES = (torch.bfloat16, torch.float16)
 # the LM serving slice (phase 8)
 LM_ARCH = "qwen3-0.6b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
@@ -693,6 +717,7 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
 
 
 KERNEL_NAMES = ("cnn_eq_kernel", "volterra_kernel", "quant_kernel",
+                "quant_many_kernel",
                 "conv1d_kernel", "flash_attn_kernel", "flash_bwd_dkv_kernel",
                 "flash_bwd_dq_kernel", "slstm_kernel")
 
@@ -955,13 +980,48 @@ def check_deploy(d: dict, run: dict) -> dict:
     out["volterra_kernel_vs_core_max_abs"] = float((got - core).abs().max())
     out["volterra_decisions_differ"] = int(
         (pam_decision(got) != pam_decision(core)).sum())
+    ws = [d["vol"]["w0"], d["vol"]["w1"], d["vol"]["w2"], None]
+    generic = V._forced("generic", d["rx"], *ws, stride=vcfg.n_os)
+    require(torch.equal(got, generic), "volterra: rb != generic forced")
+    # the register-blocked kernel at the edges and in the 16-bit types
+    gen = torch.Generator().manual_seed(9)
+    edges = []
+    for rows, width, strided in V_EDGES:
+        big = torch.randn((rows, width + 11), generator=gen).to(dev)
+        for dt in (torch.float32,) + HALF_TYPES:
+            xb = big.to(dt)
+            x = xb[:, 5:5 + width] if strided else xb[:, :width].contiguous()
+            before = dict(V.INSTANCE_LAUNCHES)
+            k = V.volterra(x, *ws, stride=vcfg.n_os)
+            require(V.INSTANCE_LAUNCHES["rb"] == before["rb"] + 1,
+                    f"volterra {rows}x{width} {dt}: not the rb kernel")
+            p = V_ref.volterra(x, *ws, vcfg.n_os)
+            e = float((k.float() - p.float()).abs().max())
+            require(k.dtype == dt and torch.equal(k, p),
+                    f"volterra {rows}x{width} {dt}: kernel != plain "
+                    f"({e:.3e})")
+            require(torch.equal(k, V._forced("generic", x, *ws,
+                                             stride=vcfg.n_os)),
+                    f"volterra {rows}x{width} {dt}: rb != generic forced")
+            err = max(err, e)
+        edges.append(f"{rows}x{width}{' strided' if strided else ''}")
+    for dt in HALF_TYPES:
+        x = d["rx"].to(dt)
+        k = V_ops.equalize(d["vol"], x, vcfg, device=dev)
+        require(k.dtype == dt and torch.equal(k, V_ops.equalize(
+            d["vol"], x, vcfg, use_kernel=False, device=dev)),
+            f"volterra deploy in {dt}: kernel != plain")
+    out["volterra_edges_bitwise"] = edges + ["bf16", "f16"]
     rng = torch.Generator().manual_seed(8)
     for m1, m2, m3 in VOLTERRA_SETS:
         ws = [torch.tensor(0.05), 0.3 * torch.randn(m1, generator=rng),
               0.1 * torch.randn((m2, m2), generator=rng),
               0.05 * torch.randn((m3, m3, m3), generator=rng)]
         ws = [w.to(dev) for w in ws]
+        before = dict(V.INSTANCE_LAUNCHES)
         k = V.volterra(d["rx"], *ws, stride=HT.CNN.n_os)
+        require(V.INSTANCE_LAUNCHES["generic"] == before["generic"] + 1,
+                f"volterra ({m1}, {m2}, {m3}): not the generic kernel")
         p = V_ref.volterra(d["rx"], *ws, HT.CNN.n_os)
         e = float((k - p).abs().max())
         require(torch.equal(k, p), f"volterra ({m1}, {m2}, {m3}): kernel != "
@@ -982,10 +1042,19 @@ def check_deploy(d: dict, run: dict) -> dict:
                 d["cnn"]["conv"][i][key], qw["w_int"], qw["w_frac"])),
                 f"quant layer {i} {key}: != core.qat.quantize_fixed")
             err = max(err, e)
+    # the per-tensor kernel: the waveform (64 x 14640) in float32 and
+    # bfloat16, short lengths, a view off the 16-byte boundary
     qi, qf = d["qat"]["layer0"]["w_int"], d["qat"]["layer0"]["w_frac"]
-    big = Q.fixed_point_quantize(d["rx"], qi, qf)
-    require(torch.equal(big, Q_ref.fixed_point_quantize(d["rx"], qi, qf)),
-            "quant at 64 x 14640: kernel != plain")
+    flat = d["rx"].reshape(-1)
+    cases = {"64x14640 f32": d["rx"], "64x14640 bf16": d["rx"].to(
+        torch.bfloat16), "offset 1": flat[1:]}
+    cases.update({f"length {n}": flat[:n] for n in (1, 3, 5, 17)})
+    for name, x in cases.items():
+        k = Q.fixed_point_quantize(x, qi, qf)
+        require(k.dtype == x.dtype and torch.equal(
+            k, Q_ref.fixed_point_quantize(x, qi, qf)),
+            f"quant {name}: kernel != plain")
+    out["quant_per_tensor_bitwise"] = list(cases)
     out["max_abs_err"]["fixed_point_quantize"] = err
     out["quant_formats"] = [tuple(int(v) for v in (q["w_int"], q["w_frac"]))
                             for q in d["qat"].values()]
@@ -1011,6 +1080,16 @@ def check_deploy(d: dict, run: dict) -> dict:
         err = max(err, e)
     out["max_abs_err"]["conv1d"] = err
     out["conv1d_vs_F_conv1d_max_abs"] = lib_err
+    # bfloat16 through the three deploy layers, on the deploy run's inputs
+    h = run["ins"][0].to(torch.bfloat16)
+    for i, (w, b, s) in enumerate(d["layers"]):
+        got = C1_ops.conv1d_same_lower(h, w, b, s, device=dev)
+        want = C1_ops.conv1d_same_lower(h, w, b, s, use_kernel=False,
+                                        device=dev)
+        require(got.dtype == torch.bfloat16 and torch.equal(got, want),
+                f"conv1d layer {i} in bfloat16: kernel != plain")
+        h = torch.relu(got)
+    out["conv1d_bf16_bitwise"] = len(d["layers"])
     y = run["outs"][-1].transpose(1, 2).reshape(ROWS, -1)
     require(y.shape == (ROWS, SYMS), f"CNN output {tuple(y.shape)}")
     out["cnn_ber_conv1d_chain"] = float(ber_from_soft(y, d["syms"]))
@@ -1052,47 +1131,37 @@ def time_deploy_kernels(d: dict, run: dict, iters: int) -> dict:
     n_out = x.shape[0] * (x.shape[1] // vcfg.n_os)
     b_ms, b_by = _bound(x.numel() * 4 + n_out * 4 + 4 * (1 + m1 + m2 * m2),
                         2 * macs * n_out)
+    vplan = V._lib_plan(V._load(), V._dims(ws[1], ws[2], ws[3], vcfg.n_os))
+
+    def v_kernel():         # the deploy path's call
+        return V.volterra(x, *ws, stride=vcfg.n_os)
+
+    def v_generic():
+        return V._forced("generic", x, *ws, stride=vcfg.n_os)
+    x16 = x.to(torch.bfloat16)
     with fp32_exact():
-        t_k = cuda_ms(lambda: V.volterra(x, *ws, stride=vcfg.n_os), iters)
+        t_k = cuda_ms(v_kernel, iters)
         t_p = cuda_ms(lambda: V_ref.volterra(x, *ws, vcfg.n_os), 5, warmup=1)
         t_l = cuda_ms(lambda: vol.apply(d["vol"], x, vcfg), iters)
-        t_k2 = cuda_ms(lambda: V.volterra(x, *ws, stride=vcfg.n_os), iters)
+        t_g = cuda_ms(v_generic, iters)
+        t_k2 = cuda_ms(v_kernel, iters)
     out["volterra"] = {
         "ms": t_k, "ms_repeat": t_k2, "plain_ms": t_p, "library_ms": t_l,
-        "device_ms": _device_ms(lambda: V.volterra(x, *ws, stride=vcfg.n_os),
-                                "volterra_kernel"),
+        "generic_ms": t_g,
+        "device_ms": _device_ms(v_kernel, "volterra_kernel", warm=True),
+        "generic_device_ms": _device_ms(v_generic, "volterra_kernel",
+                                        warm=True),
+        "bf16_device_ms": _device_ms(
+            lambda: V.volterra(x16, *ws, stride=vcfg.n_os),
+            "volterra_kernel", warm=True),
+        "instance": vplan.instance, "w_run": vplan.w_run, "p": vplan.p,
         "bound_ms": b_ms, "bound_by": b_by, "flop": 2 * macs * n_out,
         "library": "einsum chain of core.volterra.apply (unfold + 2 "
                    "einsums, TF32 off): a chain, no single call",
         "shape": f"{x.shape[0]}x{x.shape[1]} samples, (M1, M2, M3) = "
-                 f"({m1}, {m2}, {m3}), tile 128"}
+                 f"({m1}, {m2}, {m3}); generic kernel at tile 128"}
 
-    qi, qf = d["qat"]["layer0"]["w_int"], d["qat"]["layer0"]["w_frac"]
-    i_, f_ = int(qi), int(qf)
-    bits = torch.stack([qi, qf]).float()
-    b_ms, b_by = _bound(8 * x.numel(), 5 * x.numel())
-    t_k = cuda_ms(lambda: Q.fixed_point_quantize(x, bits[0], bits[1]), iters)
-    t_p = cuda_ms(lambda: Q_ref.fixed_point_quantize(x, bits[0], bits[1]),
-                  iters)
-    t_l, lib_diff = None, None
-    if i_ + f_ < 31:
-        def lib():
-            return torch.fake_quantize_per_tensor_affine(
-                x, 2.0 ** -f_, 0, -2 ** (i_ + f_), 2 ** (i_ + f_) - 1)
-        t_l = cuda_ms(lib, iters)
-        lib_diff = float((lib() - Q.fixed_point_quantize(x, qi, qf)).abs()
-                         .max())
-    out["fixed_point_quantize"] = {
-        "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-        "library_max_abs_diff": lib_diff,
-        "device_ms": _device_ms(
-            lambda: Q.fixed_point_quantize(x, bits[0], bits[1]),
-            "quant_kernel"),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library": "torch.fake_quantize_per_tensor_affine(x, 2^-f, 0, "
-                   "-2^(i+f), 2^(i+f)-1)",
-        "shape": f"{x.shape[0]}x{x.shape[1]} floats at Q{i_}.{f_} (the "
-                 f"trained CNN's layer-0 weight format)"}
+    out["fixed_point_quantize"] = time_quant(d, iters)
 
     layers = []
     lib = C1._load()
@@ -1142,6 +1211,74 @@ def time_deploy_kernels(d: dict, run: dict, iters: int) -> dict:
                  f"{x.shape[1]} samples through conv1d_same_lower; times "
                  f"summed over the layers",
         "per_layer": layers}
+    return out
+
+
+def _fake_quant(x: torch.Tensor, wi, wf):
+    """torch.fake_quantize_per_tensor_affine at Q(wi).(wf) (integer widths,
+    wi + wf < 31), or None where it cannot take them: a library yardstick,
+    never called by the port."""
+    i_, f_ = int(wi), int(wf)
+    if i_ + f_ >= 31:
+        return None
+    return lambda: torch.fake_quantize_per_tensor_affine(
+        x, 2.0 ** -f_, 0, -2 ** (i_ + f_), 2 ** (i_ + f_) - 1)
+
+
+def time_quant(d: dict, iters: int) -> dict:
+    """The quant kernels' times. The deploy shape (the main path's): the
+    trained CNN's six tensors through `fixed_point_quantize_many` (one
+    launch), against six per-tensor launches and six
+    torch.fake_quantize_per_tensor_affine calls. The large shape: the
+    64 × 14 640 waveform at the layer-0 format, float32 and bfloat16."""
+    xs, widths = [], []
+    for i, layer in enumerate(d["cnn"]["conv"]):
+        q = d["qat"][f"layer{i}"]
+        xs += [layer["w"], layer["b"]]
+        widths += [(q["w_int"], q["w_frac"])] * 2
+    n = sum(x.numel() for x in xs)
+    b_ms, b_by = _bound(8 * n + 8 * len(xs), 5 * n)
+
+    def many():             # the deploy path's call
+        return Q.fixed_point_quantize_many(xs, widths)
+    six = [lambda x=x, w=w: Q.fixed_point_quantize(x, *w)
+           for x, w in zip(xs, widths)]
+    libs = [_fake_quant(x, *w) for x, w in zip(xs, widths)]
+    t_lib = (cuda_ms(lambda: [f() for f in libs], iters)
+             if all(f is not None for f in libs) else None)
+    six_dev = [_device_ms(f, "quant_kernel", warm=True) for f in six]
+    out = {
+        "ms": cuda_ms(many, iters), "launches": 1,
+        "plain_ms": cuda_ms(lambda: Q_ref.fixed_point_quantize_many(
+            xs, widths), iters),
+        "library_ms": None, "library_six_calls_ms": t_lib,
+        "device_ms": _device_ms(many, "quant_many_kernel", warm=True),
+        "six_tensor_ms": cuda_ms(lambda: [f() for f in six], iters),
+        "six_tensor_device_ms": (None if None in six_dev else sum(six_dev)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library": "none: no one PyTorch call quantizes six tensors at their "
+                   "own widths (library_six_calls_ms: six calls of "
+                   "torch.fake_quantize_per_tensor_affine)",
+        "shape": f"the trained CNN's six tensors ({n} floats) at their "
+                 f"layers' formats through quantize_params' call"}
+    x = d["rx"]
+    qi, qf = d["qat"]["layer0"]["w_int"], d["qat"]["layer0"]["w_frac"]
+    lib = _fake_quant(x, qi, qf)
+    large = {"shape": f"{x.shape[0]}x{x.shape[1]} floats at "
+                      f"Q{int(qi)}.{int(qf)} (the layer-0 format)",
+             "bound_ms": _bound(8 * x.numel(), 5 * x.numel())[0],
+             "ms": cuda_ms(lambda: Q.fixed_point_quantize(x, qi, qf), iters),
+             "plain_ms": cuda_ms(lambda: Q_ref.fixed_point_quantize(
+                 x, qi, qf), iters),
+             "library_ms": None if lib is None else cuda_ms(lib, iters),
+             "library_max_abs_diff": None if lib is None else float(
+                 (lib() - Q.fixed_point_quantize(x, qi, qf)).abs().max())}
+    for name, xt in (("device_ms", x), ("bf16_device_ms",
+                                        x.to(torch.bfloat16))):
+        large[name] = _device_ms(
+            lambda xt=xt: Q.fixed_point_quantize(xt, qi, qf),
+            "quant_kernel", warm=True)
+    out["large"] = large
     return out
 
 
@@ -2131,9 +2268,14 @@ def main() -> int:
     require(len(c1_ptxas) == 3 and all(
         v.get("spill_bytes") == 0 for v in c1_ptxas.values()),
         f"conv1d_kernel_rb instances spill or are missing: {c1_ptxas}")
+    v_ptxas = V_sweep.ptxas(logs[V.CSRC])
+    require(len(v_ptxas) == 3 and all(
+        v.get("spill_bytes") == 0 for v in v_ptxas.values()),
+        f"volterra_kernel_rb instances spill or are missing: {v_ptxas}")
     print(f"[2] cnn_eq_kernel_rb registers and spill bytes: "
           f"{json.dumps(rb_ptxas)}; conv1d_kernel_rb: "
-          f"{json.dumps(c1_ptxas)}", flush=True)
+          f"{json.dumps(c1_ptxas)}; volterra_kernel_rb: "
+          f"{json.dumps(v_ptxas)}", flush=True)
 
     inputs = kernel_inputs(dev, ROWS, SYMS)
     K.reset_launch_counts()
@@ -2207,15 +2349,25 @@ def main() -> int:
     deploy_launches = {name: launches[name] for name, (_, _, launches)
                        in DEPLOY_KERNELS.items()}
     c1_instances = dict(C1.INSTANCE_LAUNCHES)
+    v_instances = dict(V.INSTANCE_LAUNCHES)
+    q_instances = dict(Q.INSTANCE_LAUNCHES)
     for name, n in deploy_launches.items():
         require(n > 0, f"{name} was not launched on the deploy path")
     require(c1_instances == {"rb": len(d["layers"]), "generic": 0},
             f"conv1d kernel instances on the deploy path {c1_instances}, "
             f"expected all {len(d['layers'])} rb")
+    require(v_instances == {"rb": 1, "generic": 0},
+            f"volterra kernel instances on the deploy path {v_instances}, "
+            f"expected one rb")
+    require(deploy_launches["fixed_point_quantize"] == 1
+            and q_instances == {"tensor": 0, "many": 1},
+            f"quantize_params made {deploy_launches['fixed_point_quantize']}"
+            f" launches {q_instances}, expected one of quant_many_kernel")
     checks = check_deploy(d, drun)
     print(f"[7] deploy at {ROWS}x{SYMS} symbols: kernel launches "
-          f"{deploy_launches}, conv1d instances {c1_instances}; kernel == "
-          f"plain bitwise; {json.dumps(checks)}", flush=True)
+          f"{deploy_launches}, conv1d instances {c1_instances}, volterra "
+          f"instances {v_instances}, quant instances {q_instances}; kernel "
+          f"== plain bitwise; {json.dumps(checks)}", flush=True)
 
     times = time_kernels(inputs, tiles_used, shapes, iters=200)
     dtimes = time_deploy_kernels(d, drun, iters=200)
@@ -2372,7 +2524,9 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "library": t["library"],
             "shape": t["shape"], "card": card,
-            **{k: t[k] for k in ("instance", "generic_device_ms") if k in t}})
+            **{k: t[k] for k in ("instance", "generic_device_ms",
+                                 "library_six_calls_ms", "large")
+               if k in t}})
     kernels.append({
         "name": FLASH[0], "route": "cuda", "source": FLASH[1],
         "replaces": FLASH[2], "launches": flash_launches,

@@ -26,6 +26,11 @@ DeviceLike = Union[str, torch.device, None]
 
 DEFAULT_DEVICE = "cuda"
 
+# the float types the deploy kernels read and write (the reference's
+# conv1d, volterra and fixed_point_quantize take any of them, compute in
+# float32 and return x's type)
+FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
 
 def resolve_device(device: DeviceLike = DEFAULT_DEVICE) -> torch.device:
     """``device`` → `torch.device`; raises RuntimeError for an absent card.
@@ -63,3 +68,19 @@ def as_float32(a, device: torch.device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(device, torch.float32)
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+
+def as_float(a, device: torch.device) -> torch.Tensor:
+    """A tensor or array-like on ``device`` that keeps a float32, bfloat16
+    or float16 type (numpy's float16 and bfloat16 arrays, such as JAX's,
+    too); any other type becomes float32, as `as_float32` makes it."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, a.dtype if a.dtype in FLOAT_DTYPES
+                    else torch.float32)
+    arr = np.asarray(a)
+    if arr.dtype == np.float16:
+        return torch.from_numpy(np.array(arr)).to(device)
+    if arr.dtype.name == "bfloat16":      # exact through float32
+        return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+            device, torch.bfloat16)
+    return as_float32(arr, device)

@@ -26,10 +26,16 @@ import subprocess
 import threading
 from typing import Callable, Dict, Tuple
 
+from ..device import FLOAT_DTYPES
+
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
+
+# the type code a launcher takes for a float32, bfloat16 or float16 tensor
+# (the sources' DT_F32, DT_BF16 and DT_F16)
+DTYPE_CODE = {dt: i for i, dt in enumerate(FLOAT_DTYPES)}
 
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 

@@ -157,39 +157,43 @@ def inputs(dev, rows: int, width: int, seed: int = 0) -> dict:
 
 
 def device_ms(fns: list, calls: int = CALLS,
-              kernel: str = "cnn_eq_kernel") -> list:
+              kernel: str = "cnn_eq_kernel", sessions: int = 3) -> list:
     """Mean device time per launch of each function in fns (each launches
     one kernel whose name holds `kernel` a call), from one torch.profiler
     session: every function runs once in the schedule's warm-up step (a
     session after many others can miss its first kernel events), then
     `calls` times each, in turn, in the active step; the session's events
-    of that kernel, in launch order, split into runs of `calls`."""
+    of that kernel, in launch order, split into runs of `calls`. A session
+    that still misses some of the launches (seen late in a long sweep) is
+    run again, up to `sessions` in all; then it raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
-    box = {}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: box.update(
-                     events=list(p.events()))) as prof:
-        for fn in fns:
-            fn()
+    want = calls * len(fns)
+    for _ in range(sessions):
+        box = {}
         torch.cuda.synchronize()
-        prof.step()
-        for fn in fns:
-            for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: box.update(
+                         events=list(p.events()))) as prof:
+            for fn in fns:
                 fn()
-        torch.cuda.synchronize()
-        prof.step()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in box.get("events", [])
-                   if e.device_type == DeviceType.CUDA
-                   and kernel in e.name)
-    if len(spans) != calls * len(fns):
-        raise RuntimeError(f"profiler saw {len(spans)} {kernel} launches of "
-                           f"{calls * len(fns)}")
-    return [float(np.mean([e - b for b, e in spans[i:i + calls]])) / 1e3
-            for i in range(0, len(spans), calls)]
+            torch.cuda.synchronize()
+            prof.step()
+            for fn in fns:
+                for _ in range(calls):
+                    fn()
+            torch.cuda.synchronize()
+            prof.step()
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in box.get("events", [])
+                       if e.device_type == DeviceType.CUDA
+                       and kernel in e.name)
+        if len(spans) == want:
+            return [float(np.mean([e - b for b, e in spans[i:i + calls]]))
+                    / 1e3 for i in range(0, len(spans), calls)]
+    raise RuntimeError(f"profiler saw {len(spans)} {kernel} launches of "
+                       f"{want} in each of {sessions} sessions")
 
 
 def ptxas(log: str) -> dict:

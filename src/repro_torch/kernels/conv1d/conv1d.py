@@ -20,6 +20,12 @@ switch and no fallback.
     every window is in bounds. `tile_w` is never shrunk to the output
     width.
 
+Types, as the reference's: x, w and b may be float32, bfloat16 or
+float16; the arithmetic is float32 and the result has x's type. Both
+kernels are float32 instances: on the card a 16-bit x is widened to
+float32 before the launch (exact), and the float32 result rounded once to
+x's type after it, which is the plain version's one rounding.
+
 Where the work runs. On a CUDA tensor the wrapper launches the planned
 kernel, or raises (a failed build, a refused launch): there is no
 fallback. On a CPU tensor it runs the plain version (`ref.conv1d`), which
@@ -38,6 +44,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...device import FLOAT_DTYPES
 from .. import _build
 from . import ref
 
@@ -134,9 +141,9 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"channel mismatch: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, b {tuple(b.shape)}")
     for name, t in (("x", x), ("w", w), ("b", b)):
-        if t.dtype != torch.float32 or t.device != x.device:
-            raise ValueError(f"{name} must be float32 on {x.device}, got "
-                             f"{t.dtype} on {t.device}")
+        if t.dtype not in FLOAT_DTYPES or t.device != x.device:
+            raise ValueError(f"{name} must be float32, bfloat16 or float16 "
+                             f"on {x.device}, got {t.dtype} on {t.device}")
     if x.shape[0] > _MAX_ROWS:
         raise ValueError(f"at most {_MAX_ROWS} rows per launch, got "
                          f"{int(x.shape[0])}")
@@ -221,18 +228,26 @@ def _call_rb(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int,
     return out
 
 
+def _in_f32(call, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+           *args) -> torch.Tensor:
+    """call(x, w, b, *args) on float32 copies of 16-bit tensors (float32
+    ones as they are), its float32 result rounded once to x's type."""
+    f32 = [t.float() for t in (x, w, b)]
+    return call(*f32, *args).to(x.dtype)
+
+
 def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int,
             tile_w: int, pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """VALID strided conv of x padded by pad = (left, right) zeros: the
     planned kernel on a CUDA tensor (the rb kernel pads in the kernel, the
     generic one runs on an F.pad copy), the plain version on a CPU one."""
     _check(x, w, b, stride, pad)
-    if x.is_cuda and _plan(_dims(w, stride)) == "rb":
-        return _call_rb(x, w, b, stride, pad)
-    xp = F.pad(x, pad) if any(pad) else x
     if not x.is_cuda:
-        return ref.conv1d(xp, w, b, stride)
-    return _call_generic(xp, w, b, stride, tile_w)
+        return ref.conv1d(F.pad(x, pad) if any(pad) else x, w, b, stride)
+    if _plan(_dims(w, stride)) == "rb":
+        return _in_f32(_call_rb, x, w, b, stride, pad)
+    return _in_f32(_call_generic, F.pad(x, pad) if any(pad) else x, w, b,
+                   stride, tile_w)
 
 
 def _forced(instance: str, x: torch.Tensor, w: torch.Tensor,
@@ -248,13 +263,13 @@ def _forced(instance: str, x: torch.Tensor, w: torch.Tensor,
                          f"got one on {x.device}")
     _check(x, w, b, stride, pad)
     if instance == "rb":
-        return _call_rb(x, w, b, stride, pad, w_run)
-    return _call_generic(F.pad(x, pad) if any(pad) else x, w, b, stride,
-                         tile_w)
+        return _in_f32(_call_rb, x, w, b, stride, pad, w_run)
+    return _in_f32(_call_generic, F.pad(x, pad) if any(pad) else x, w, b,
+                   stride, tile_w)
 
 
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            stride: int = 1, tile_w: int = 256) -> torch.Tensor:
     """VALID strided conv: x (B, C_in, W), w (C_out, C_in, K), b (C_out,)
-    → (B, C_out, (W − K)//stride + 1), float32."""
+    → (B, C_out, (W − K)//stride + 1), of x's type."""
     return _conv1d(x, w, b, stride, tile_w)

@@ -7,7 +7,7 @@ from typing import Dict
 import torch
 
 from ...core.volterra import VolterraConfig
-from ...device import DeviceLike, as_float32, resolve_device
+from ...device import DeviceLike, as_float, resolve_device
 from .ref import volterra as volterra_ref
 from .volterra import volterra as volterra_kernel
 
@@ -18,15 +18,15 @@ def equalize(params: Dict[str, torch.Tensor], x, cfg: VolterraConfig,
     """Deployment-path inference with the kernel's stream semantics (one
     common halo; `core.volterra.apply` pads each order on its own, with the
     same zeros, so the two differ by rounding only). x: (S·N_os,) or
-    (B, S·N_os), moved to
-    ``device`` with the params; ``use_kernel=False`` runs the plain
-    version there."""
+    (B, S·N_os), moved to ``device`` with the params; a float32, bfloat16
+    or float16 x keeps its type, which the result takes (anything else
+    becomes float32); ``use_kernel=False`` runs the plain version there."""
     dev = resolve_device(device)
-    x = as_float32(x, dev)
+    x = as_float(x, dev)
     squeeze = x.dim() == 1
     if squeeze:
         x = x[None]
-    w = {k: as_float32(v, dev) for k, v in params.items()}
+    w = {k: as_float(v, dev) for k, v in params.items()}
     w2 = w.get("w2") if cfg.m2 > 0 else None
     w3 = w.get("w3") if cfg.m3 > 0 else None
     if use_kernel:

@@ -72,11 +72,12 @@ def volterra_valid(xp: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
 def volterra(x: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
              w2: Optional[torch.Tensor], w3: Optional[torch.Tensor],
              stride: int) -> torch.Tensor:
-    """x: (B, W) → (B, W//stride). w1: (M1,), w2: (M2, M2), w3: (M3,M3,M3);
-    orders 2/3 off when None."""
+    """x: (B, W) → (B, W//stride), of x's type (float32 arithmetic, one
+    rounding at the end, as the reference). w1: (M1,), w2: (M2, M2), w3:
+    (M3,M3,M3); orders 2/3 off when None."""
     halo = max(m // 2 for m in memory_lengths(w1, w2, w3))
     xp = F.pad(x.float(), (halo, halo))
     return volterra_valid(xp, w0.float(), w1.float(),
                           None if w2 is None else w2.float(),
                           None if w3 is None else w3.float(), stride, halo,
-                          x.shape[1] // stride)
+                          x.shape[1] // stride).to(x.dtype)

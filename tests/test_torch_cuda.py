@@ -16,7 +16,15 @@ tile_m (8192 too), with per-channel int8 formats and with saturating int8
 inputs; `_plan` names the library's `cnn_eq_plan`, every run the sweep
 times covers every position bitwise, and other widths take the generic
 kernel. The same holds for the Volterra, fixed-point-quantize and conv1d
-kernels; the register-blocked conv1d kernel (`conv1d_kernel_rb`, the
+kernels, in float32, bfloat16 and float16 (x's type out): the
+register-blocked Volterra kernel (`volterra_kernel_rb`, the deployed
+baseline (25, 9, 0) at N_os = 2) equals the plain version and the generic
+kernel forced at a run shorter than the plan's, at n_out not a multiple of
+P, at an odd width, at one row, at one symbol and on a strided view, and
+`volterra._plan` names the library's `volterra_plan`; the per-tensor
+quant kernel holds at lengths 1 to 64 × 14 640 and at views that start
+off a 16-byte boundary; `quantize_params` makes one launch; the
+register-blocked conv1d kernel (`conv1d_kernel_rb`, the
 deployed CNN's three layer shapes) equals the plain version and the
 generic kernel forced, with no padding and with SAME_LOWER padding read
 in the kernel, at a width shorter than one run, at one output position
@@ -353,8 +361,104 @@ def test_volterra_kernel_equals_plain_on_card(cuda_device, m1, m2, m3):
         torch.cuda.synchronize()
         assert v_kern.LAUNCHES["volterra"] == before + 1
         assert got.is_cuda and torch.equal(got, want), tile
+    # the generic kernel's tile (the register-blocked one, which the
+    # deployed baseline takes, has none)
     with pytest.raises(ValueError, match="shared memory"):
-        v_kern.volterra(x, *ws, stride=2, tile=1 << 16)
+        v_kern._forced("generic", x, *ws, stride=2, tile=1 << 16)
+
+
+# the register-blocked Volterra kernel's cases: (rows, samples, strided
+# view); the plan's run is 512 symbols, P = 4
+V_CASES = {"long": (3, 2 * 1001, False),
+           "shorter_than_a_run": (2, 2 * 100, False),
+           "ragged_p": (2, 2 * 257, False),           # n_out not a multiple of P
+           "odd_width": (2, 2 * 300 + 1, False),
+           "one_row": (1, 2 * 7320, False),
+           "one_symbol": (2, 3, False),
+           "strided_view": (3, 2 * 513 + 1, True)}
+HALF_TYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _v_case(device, case, dtype, seed=0):
+    rows, width, strided = V_CASES[case]
+    g = torch.Generator().manual_seed(seed + width)
+    ws = [torch.tensor(0.05), 0.3 * torch.randn(25, generator=g),
+          0.1 * torch.randn((9, 9), generator=g), None]
+    big = torch.randn((rows, width + 11), generator=g).to(dtype)
+    x = big[:, 5:5 + width] if strided else big[:, :width].contiguous()
+    return x.to(device), [None if w is None else w.to(device) for w in ws]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF_TYPES, ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("case", list(V_CASES))
+def test_volterra_register_blocked_equals_plain_and_generic_on_card(
+        cuda_device, case, dtype):
+    x, ws = _v_case(cuda_device, case, dtype)
+    want = v_ref.volterra(x, *ws, 2)
+    before = dict(v_kern.INSTANCE_LAUNCHES)
+    got = v_kern.volterra(x, *ws, stride=2)
+    torch.cuda.synchronize()
+    assert v_kern.INSTANCE_LAUNCHES == {"rb": before["rb"] + 1,
+                                        "generic": before["generic"]}
+    assert got.is_cuda and got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want), float((got.float() - want.float()).abs()
+                                         .max())
+    for tile in (16, 128):
+        generic = v_kern._forced("generic", x, *ws, stride=2, tile=tile)
+        assert torch.equal(got, generic), tile
+    # the same weights in the 16-bit type: widened exactly, same result
+    got16 = v_kern.volterra(x, *[None if w is None else w.to(dtype)
+                                 for w in ws], stride=2)
+    assert torch.equal(got16, v_ref.volterra(
+        x, *[None if w is None else w.to(dtype) for w in ws], 2))
+
+
+@pytest.mark.cuda
+def test_volterra_register_blocked_plan_is_the_librarys_on_card(cuda_device):
+    lib = v_kern._load()
+    for d in ((25, 9, 0, 2), (25, 9, 0, 1), (25, 9, 3, 2), (41, 15, 9, 2),
+              (121, 35, 15, 2), (23, 9, 0, 2), (25, 7, 0, 2)):
+        assert v_kern._plan(d) == v_kern._lib_plan(lib, d).instance, d
+    plan = v_kern._lib_plan(lib, (25, 9, 0, 2))
+    assert plan.instance == "rb" and plan.w_run >= 1
+    assert plan.p in (1, 2, 4) and plan.threads == 128
+    assert 0 < plan.smem <= v_kern._MAX_SMEM_BYTES and plan.smem % 16 == 0
+    # the runs cover every symbol, at each run the sweep times and at runs
+    # that leave the last block ragged: into an output filled with NaN, a
+    # symbol never stored stays NaN
+    for dtype in HALF_TYPES:
+        x, ws = _v_case(cuda_device, "strided_view", dtype)
+        want = v_ref.volterra(x, *ws, 2)
+        w0, w1, w2, _ = v_kern._f32(ws)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for w_run in (1, 3, 64, 100, 128, 256, 512, 1024):
+            out = torch.full_like(want, float("nan"))
+            assert v_kern._rb_call(lib, x, w0, w1, w2, out, 2, stream,
+                                   w_run) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), (dtype, w_run)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m1,m2,m3", [(41, 15, 9), (121, 35, 15), (25, 9, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_volterra_generic_kernel_takes_16bit_on_card(cuda_device, m1, m2, m3,
+                                                     dtype):
+    g = torch.Generator().manual_seed(m1 + m3)
+    ws = [torch.tensor(0.05), 0.3 * torch.randn(m1, generator=g),
+          0.1 * torch.randn((m2, m2), generator=g),
+          0.05 * torch.randn((m3, m3, m3), generator=g)]
+    ws = [w.to(cuda_device) for w in ws]
+    x = _x(2, 700, seed=m2).to(dtype).to(cuda_device)
+    before = dict(v_kern.INSTANCE_LAUNCHES)
+    got = v_kern.volterra(x, *ws, stride=2)
+    torch.cuda.synchronize()
+    assert v_kern.INSTANCE_LAUNCHES == {"rb": before["rb"],
+                                        "generic": before["generic"] + 1}
+    assert got.dtype == dtype
+    assert torch.equal(got, v_ref.volterra(x, *ws, 2))
 
 
 @pytest.mark.cuda
@@ -375,6 +479,61 @@ def test_quant_kernel_equals_plain_on_card(cuda_device, shape, ib, fb):
     if float(ib).is_integer() and float(fb).is_integer():
         assert torch.equal(got.cpu(),
                            q_ref.fixed_point_quantize(x.cpu(), ib, fb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF_TYPES, ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [1, 3, 5, 8, 17, 1000, 64 * 14640])
+def test_quant_vector_kernel_at_aligned_and_unaligned_views_on_card(
+        cuda_device, dtype, n):
+    g = torch.Generator().manual_seed(n)
+    base = (4 * torch.randn(n + 16, generator=g)).to(dtype).to(cuda_device)
+    bits = torch.tensor([2.0, 5.0], device=cuda_device)
+    for off in (0, 1, 3, 7):
+        x = base[off:off + n]
+        for ib, fb in ((bits[0], bits[1]), (3, 4), (2.6, 5.3)):
+            before = dict(q_kern.INSTANCE_LAUNCHES)
+            got = q_kern.fixed_point_quantize(x, ib, fb)
+            torch.cuda.synchronize()
+            assert q_kern.INSTANCE_LAUNCHES["tensor"] == before["tensor"] + 1
+            assert got.dtype == dtype and got.shape == x.shape
+            assert torch.equal(got, q_ref.fixed_point_quantize(x, ib, fb)), \
+                (off, ib, fb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF_TYPES, ids=["f32", "bf16", "f16"])
+def test_quantize_params_makes_one_launch_on_card(cuda_device, dtype):
+    p = teq.init(torch.Generator().manual_seed(5), HT.CNN, device="cpu")
+    p = {"conv": [{k: v.to(dtype).to(cuda_device) for k, v in layer.items()}
+                  for layer in p["conv"]]}
+    qp = {f"layer{i}": {"w_int": torch.tensor(float(i), device=cuda_device),
+                        "w_frac": torch.tensor(5.0 + i, device=cuda_device)}
+          for i in range(3)}
+    before = dict(q_kern.INSTANCE_LAUNCHES)
+    q = q_ops.quantize_params(p, qp, device=cuda_device)
+    torch.cuda.synchronize()
+    assert q_kern.INSTANCE_LAUNCHES == {"tensor": before["tensor"],
+                                        "many": before["many"] + 1}
+    for i, (layer, lq) in enumerate(zip(p["conv"], q["conv"])):
+        for key in ("w", "b"):
+            want = q_ref.fixed_point_quantize(layer[key], qp[f"layer{i}"][
+                "w_int"], qp[f"layer{i}"]["w_frac"])
+            assert lq[key].dtype == dtype and torch.equal(lq[key], want)
+            # each tensor as its own per-tensor launch, too
+            assert torch.equal(lq[key], q_kern.fixed_point_quantize(
+                layer[key], qp[f"layer{i}"]["w_int"],
+                qp[f"layer{i}"]["w_frac"]))
+    # more tensors than one launch takes: one launch per MAX_SEGMENTS
+    xs = [torch.randn(k + 1, device=cuda_device).to(dtype) for k in range(
+        q_kern.MAX_SEGMENTS + 3)]
+    ws = [(1, 4)] * len(xs)
+    before = q_kern.INSTANCE_LAUNCHES["many"]
+    got = q_kern.fixed_point_quantize_many(xs, ws)
+    torch.cuda.synchronize()
+    assert q_kern.INSTANCE_LAUNCHES["many"] == before + 2
+    for a, x in zip(got, xs):
+        assert torch.equal(a, q_ref.fixed_point_quantize(x, 1, 4))
 
 
 @pytest.mark.cuda
@@ -471,6 +630,23 @@ def test_conv1d_register_blocked_plan_is_the_librarys_on_card(cuda_device,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dims", list(c1_kern._RB_DIMS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_conv1d_takes_16bit_on_card(cuda_device, dims, dtype):
+    x, w, b, stride = _c1_case(cuda_device, dims, "strided_view", True)
+    k = dims[0]
+    pad = (k // 2, k - 1 - k // 2)
+    x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+    want = c1_ref.conv1d(torch.nn.functional.pad(x, pad), w, b, stride)
+    got = c1_ops.conv1d_same_lower(x, w, b, stride, device=cuda_device)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(got, c1_kern._forced("generic", x, w, b, stride, 64,
+                                            pad=pad))
+
+
+@pytest.mark.cuda
 def test_conv1d_other_shapes_take_the_generic_kernel_on_card(cuda_device):
     g = torch.Generator().manual_seed(11)
     x = torch.randn((2, 3, 301), generator=g).to(cuda_device)
@@ -519,7 +695,7 @@ def test_training_runs_on_card_and_deploys(cuda_device):
                         for k, v in QAT.items()} for i in range(3)}
     before = q_kern.LAUNCHES["fixed_point_quantize"]
     q = q_ops.quantize_params(p, qp, device=cuda_device)
-    assert q_kern.LAUNCHES["fixed_point_quantize"] == before + 6
+    assert q_kern.LAUNCHES["fixed_point_quantize"] == before + 1
     plain = q_ops.quantize_params(p, qp, use_kernel=False,
                                   device=cuda_device)
     for a, b in zip(q["conv"], plain["conv"]):

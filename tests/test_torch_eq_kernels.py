@@ -15,11 +15,21 @@ and the same weights (carried through `interop`):
               2.4e-6 (measured): a few float32 ulps, from the port's
               tap-major-then-C_in order against XLA's dots and FMAs.
 
+In bfloat16 and float16 (x, and the weights, in the 16-bit type; float32
+arithmetic, one rounding to x's type, as the reference): quant bitwise;
+volterra and conv1d within one ulp of x's type of the JAX result (the
+float32 sums differ by a few float32 ulps, which can move the one
+rounding to the next 16-bit value). Each deploy entry point returns x's
+type. `fixed_point_quantize_many` (one launch on the card for the deploy
+path's six tensors) is bitwise the JAX `quantize_params`.
+
 The conv1d plan (`conv1d._plan`) takes the register-blocked kernel at the
 deployed CNN's three layer shapes and the generic one elsewhere, and the
 plain version both kernels repeat sums tap-major, then C_in ascending
-(checked bitwise against a float32 scalar loop). On the card each kernel
-must equal its plain version bitwise (tests/test_torch_cuda.py;
+(checked bitwise against a float32 scalar loop); the Volterra plan
+(`volterra._plan`) takes its register-blocked kernel at the deployed
+baseline (25, 9, 0) at N_os = 2 and the generic one elsewhere. On the card
+each kernel must equal its plain version bitwise (tests/test_torch_cuda.py;
 chip_smoke.py at full size).
 """
 import jax
@@ -40,11 +50,13 @@ from repro_torch.configs import equalizer_ht as THT
 from repro_torch.core import equalizer as teq
 from repro_torch.core import qat as tqat
 from repro_torch.core import volterra as tvol
+from repro_torch.device import as_float
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv1d import conv1d as tc1
 from repro_torch.kernels.conv1d import ops as tc1_ops
 from repro_torch.kernels.quant import ops as tq_ops
 from repro_torch.kernels.quant import quant as tq
+from repro_torch.kernels.quant import ref as tq_ref
 from repro_torch.kernels.volterra import ops as tv_ops
 from repro_torch.kernels.volterra import ref as tv_ref
 from repro_torch.kernels.volterra import volterra as tv
@@ -52,10 +64,34 @@ from repro_torch.kernels.volterra import volterra as tv
 VOL_TOL = 1e-5
 CONV_ATOL = CONV_RTOL = 1e-6
 KEY = jax.random.PRNGKey(0)
+HALF = [(jnp.bfloat16, torch.bfloat16), (jnp.float16, torch.float16)]
+HALF_IDS = ["bf16", "f16"]
+# explicit mantissa bits and least normal exponent of each 16-bit type
+_ULP = {torch.bfloat16: (7, -126), torch.float16: (10, -14)}
 
 
 def _t(a):
     return torch.from_numpy(np.array(a))
+
+
+def _h(a):
+    """A JAX array of any float type as a torch tensor of that type."""
+    return as_float(np.asarray(a), torch.device("cpu"))
+
+
+def _assert_within_one_ulp(got: torch.Tensor, want, dtype) -> None:
+    """|got − want| ≤ one ulp of ``dtype`` at the larger magnitude."""
+    assert got.dtype == dtype
+    g = got.float().numpy()
+    w = np.asarray(want).astype(np.float32)
+    assert g.shape == w.shape
+    mant, emin = _ULP[dtype]
+    mag = np.maximum(np.abs(g), np.abs(w))
+    exp = np.floor(np.log2(np.where(mag > 0, mag, 1.0)))
+    ulp = np.exp2(np.maximum(exp, emin) - mant)
+    bad = np.abs(g - w) > ulp
+    assert not bad.any(), (f"{int(bad.sum())} values beyond one ulp; max "
+                           f"|diff| {float(np.abs(g - w).max())}")
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +203,63 @@ def test_volterra_wrapper_checks_its_inputs():
     assert tv.LAUNCHES == before            # the CPU path launches nothing
 
 
+@pytest.mark.parametrize("jdt,tdt", HALF, ids=HALF_IDS)
+@pytest.mark.parametrize("m1,m2,m3", [(25, 9, 0), (41, 15, 9), (121, 35, 15)])
+def test_volterra_16bit_matches_pallas_within_one_ulp(m1, m2, m3, jdt, tdt):
+    """x and the weights in bfloat16 / float16 through `ops.equalize`,
+    against the JAX kernel on the same 16-bit arrays: x's type out, within
+    one ulp of it (the deployed baseline and the DSE's two largest sets)."""
+    jcfg, tcfg, params = _vol_params(m1, m2, m3)
+    x = np.random.default_rng(1).standard_normal((2, 256)).astype(np.float32)
+    jx = jnp.asarray(x).astype(jdt)
+    jp = {k: jnp.asarray(v).astype(jdt) for k, v in params.items()}
+    want = jv_ops.equalize(jp, jx, jcfg, use_pallas=True, tile=32)
+    assert want.dtype == jdt
+    tp = {k: np.asarray(v) for k, v in jp.items()}
+    got = tv_ops.equalize(tp, np.asarray(jx), tcfg, device="cpu")
+    assert got.shape == (2, 128)
+    _assert_within_one_ulp(got, want, tdt)
+    plain = tv_ops.equalize(tp, np.asarray(jx), tcfg, use_kernel=False,
+                            device="cpu")
+    assert torch.equal(got, plain)
+
+
+def test_volterra_plain_version_rounds_once_to_x_dtype():
+    """In bfloat16 the plain version is the float32 computation on the
+    widened inputs, rounded once."""
+    _, _, p = _vol_params(25, 9, 0, seed=6)
+    tp = {k: _t(v) for k, v in p.items()}
+    x = _t(np.random.default_rng(7).standard_normal((2, 300)).astype(
+        np.float32)).to(torch.bfloat16)
+    got = tv_ref.volterra(x, tp["w0"], tp["w1"], tp["w2"], None, 2)
+    want = tv_ref.volterra(x.float(), tp["w0"], tp["w1"], tp["w2"], None, 2)
+    assert got.dtype == torch.bfloat16 and want.dtype == torch.float32
+    assert torch.equal(got, want.to(torch.bfloat16))
+
+
+def test_volterra_plan_takes_register_blocked_kernel_at_deployed_shape():
+    cfg = tvol.VolterraConfig()
+    p = tvol.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    dims = tv._dims(p["w1"], p.get("w2"), p.get("w3"), cfg.n_os)
+    assert dims == (25, 9, 0, 2) and tv._plan(dims) == "rb"
+
+
+@pytest.mark.parametrize("dims", [(25, 9, 0, 1), (25, 9, 3, 2), (41, 15, 9, 2),
+                                  (121, 35, 15, 2), (25, 0, 0, 2),
+                                  (23, 9, 0, 2), (25, 7, 0, 2)])
+def test_volterra_plan_takes_generic_kernel_elsewhere(dims):
+    assert tv._plan(dims) == "generic"
+
+
+def test_volterra_forced_launch_refuses_a_host_tensor():
+    _, _, p = _vol_params(25, 9, 0)
+    tp = interop.to_torch(p, device="cpu")
+    for instance in ("rb", "generic"):
+        with pytest.raises(ValueError, match="needs a CUDA tensor"):
+            tv._forced(instance, torch.zeros(1, 40), tp["w0"], tp["w1"],
+                       tp["w2"])
+
+
 # ---------------------------------------------------------------------------
 # quant
 # ---------------------------------------------------------------------------
@@ -183,8 +276,10 @@ def _quant_inputs(ib, fb):
     return x.astype(np.float32).reshape(-1, 4)
 
 
-@pytest.mark.parametrize("ib,fb", [(0, 0), (1, 3), (2, 5), (3, 4), (5, 10),
-                                   (8, 8)])
+QUANT_WIDTHS = [(0, 0), (1, 3), (2, 5), (3, 4), (5, 10), (8, 8)]
+
+
+@pytest.mark.parametrize("ib,fb", QUANT_WIDTHS)
 def test_fixed_point_quantize_is_bitwise_jax(ib, fb):
     x = _quant_inputs(ib, fb)
     want = np.asarray(jquant_pallas(jnp.asarray(x), float(ib), float(fb),
@@ -199,9 +294,26 @@ def test_fixed_point_quantize_is_bitwise_jax(ib, fb):
     assert torch.equal(tqat.quantize_fixed(_t(x), ib, fb), got)
 
 
-def test_quantize_params_is_bitwise_jax():
+@pytest.mark.parametrize("jdt,tdt", HALF, ids=HALF_IDS)
+@pytest.mark.parametrize("ib,fb", QUANT_WIDTHS)
+def test_fixed_point_quantize_16bit_is_bitwise_jax(ib, fb, jdt, tdt):
+    """bfloat16 / float16 in, the same type out, equal to the JAX kernel's
+    values on the same 16-bit array (as the float32 test: a zero result's
+    sign is not held, since jnp.clip and torch.minimum differ there)."""
+    x = jnp.asarray(_quant_inputs(ib, fb)).astype(jdt)
+    want = jquant_pallas(x, float(ib), float(fb), block=64, interpret=True)
+    assert want.dtype == jdt
+    got = tq.fixed_point_quantize(_h(x), float(ib), float(fb))
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want).astype(np.float32))
+    assert torch.equal(got, tq_ref.fixed_point_quantize(
+        _h(x).float(), ib, fb).to(tdt))
+
+
+def _cnn_params(seed=7):
     cfg = jeq.CNNEqConfig(layers=3, kernel=9, channels=5, v_parallel=8)
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     params = jax.tree.map(np.asarray, jeq.init(KEY, cfg))
     for layer in params["conv"]:
         layer["b"] = (0.3 * rng.standard_normal(layer["b"].shape)).astype(
@@ -209,6 +321,11 @@ def test_quantize_params_is_bitwise_jax():
     qparams = {f"layer{i}": {"w_int": np.float32(wi), "w_frac": np.float32(wf),
                              "a_int": np.float32(3), "a_frac": np.float32(4)}
                for i, (wi, wf) in enumerate([(1, 6), (0, 7), (2, 5)])}
+    return params, qparams
+
+
+def test_quantize_params_is_bitwise_jax():
+    params, qparams = _cnn_params()
     want = jax.tree.map(np.asarray, jq_ops.quantize_params(
         jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, qparams),
         use_pallas=True))
@@ -222,6 +339,64 @@ def test_quantize_params_is_bitwise_jax():
                                    device="cpu")
     for lp, lg in zip(plain["conv"], got["conv"]):
         assert torch.equal(lp["w"], lg["w"]) and torch.equal(lp["b"], lg["b"])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fixed_point_quantize_many_is_bitwise_jax_quantize_params(dtype):
+    """The one-launch entry point on the trained CNN's six tensors, each at
+    its layer's widths (0-d tensors, as learned widths arrive), against the
+    JAX package's quantize_params (one Pallas call per tensor)."""
+    params, qparams = _cnn_params(seed=9)
+    params = jax.tree.map(lambda a: jnp.asarray(a).astype(dtype), params)
+    want = jq_ops.quantize_params(params, jax.tree.map(jnp.asarray, qparams),
+                                  use_pallas=True)
+    xs, widths, wants = [], [], []
+    for i, (layer, lw) in enumerate(zip(params["conv"], want["conv"])):
+        q = qparams[f"layer{i}"]
+        for key in ("w", "b"):
+            xs.append(_h(layer[key]))
+            widths.append((torch.tensor(q["w_int"]),
+                           torch.tensor(q["w_frac"])))
+            wants.append(_h(lw[key]))
+    before = dict(tq.LAUNCHES)
+    got = tq.fixed_point_quantize_many(xs, widths)
+    assert tq.LAUNCHES == before            # the CPU path launches nothing
+    assert len(got) == 6
+    for g, w, x in zip(got, wants, xs):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        np.testing.assert_array_equal(g.float().numpy(), w.float().numpy())
+
+
+def test_fixed_point_quantize_many_checks_its_inputs():
+    x = torch.zeros(4)
+    assert tq.fixed_point_quantize_many([], []) == []
+    with pytest.raises(ValueError, match="widths"):
+        tq.fixed_point_quantize_many([x, x], [(1, 2)])
+    with pytest.raises(ValueError, match="float32"):
+        tq.fixed_point_quantize_many([x.double()], [(1, 2)])
+
+
+def test_quant_output_lines_up_with_an_unaligned_input():
+    """The per-tensor kernel reads and writes 16 bytes an access: the
+    wrapper's output sits at the input's offset within 16 bytes."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for off in range(9):
+            x = torch.zeros(40, dtype=dtype)[off:off + 17]
+            out = tq._out_like(x)
+            assert out.shape == x.shape and out.dtype == dtype
+            assert (out.data_ptr() - x.data_ptr()) % 16 == 0
+
+
+def test_quant_widths_travel_by_value_or_by_device_pointer():
+    card = torch.device("cuda", 0)         # a device object; no card needed
+    assert tq._width(2, card)[:2] == (0, 2.0)
+    assert tq._width(torch.tensor(3.5), card)[:2] == (0, 3.5)
+    host = torch.tensor(4.0)
+    ptr, _, held = tq._width(host, torch.device("cpu"))
+    assert ptr == host.data_ptr() and held is host
+    with pytest.raises(ValueError, match="one value"):
+        tq._width(torch.zeros(2), card)
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +423,32 @@ def test_conv1d_matches_pallas(batch, c_in, c_out, width, kernel, stride):
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=CONV_RTOL,
                                atol=CONV_ATOL)
+
+
+@pytest.mark.parametrize("jdt,tdt", HALF, ids=HALF_IDS)
+@pytest.mark.parametrize("batch,c_in,c_out,width,kernel,stride", [
+    (1, 1, 5, 128, 9, 8),
+    (2, 5, 5, 256, 9, 1),
+    (2, 5, 8, 254, 9, 2),
+    (1, 3, 7, 64, 15, 4),
+    (4, 2, 2, 33, 3, 1),
+    (1, 1, 1, 512, 21, 2),
+])
+def test_conv1d_16bit_matches_pallas_within_one_ulp(batch, c_in, c_out, width,
+                                                    kernel, stride, jdt, tdt):
+    """The reference's own bf16 grid (tests/test_kernels.py), and f16: x, w
+    and b in the 16-bit type, x's type out, within one ulp of the JAX
+    kernel's result on the same arrays."""
+    rng = np.random.default_rng(batch * 100 + width)
+    x = jnp.asarray(rng.standard_normal((batch, c_in, width)).astype(
+        np.float32)).astype(jdt)
+    w = (0.3 * jnp.asarray(rng.standard_normal((c_out, c_in, kernel)).astype(
+        np.float32))).astype(jdt)
+    b = jnp.asarray(rng.standard_normal(c_out).astype(np.float32)).astype(jdt)
+    want = jconv1d_pallas(x, w, b, stride, tile_w=64, interpret=True)
+    assert want.dtype == jdt
+    got = tc1.conv1d(_h(x), _h(w), _h(b), stride, tile_w=64)
+    _assert_within_one_ulp(got, want, tdt)
 
 
 @pytest.mark.parametrize("layer", range(3))
@@ -364,6 +565,54 @@ def test_conv1d_source_is_self_contained():
     """csrc/conv1d.cu includes no header of its own (a header shared with
     another source would tie their build keys together)."""
     assert _build._INCLUDE.findall(tc1.CSRC.read_bytes()) == []
+
+
+# ---------------------------------------------------------------------------
+# the deploy entry points keep x's type, as the reference's do
+# ---------------------------------------------------------------------------
+
+ENTRY_DTYPES = [(torch.float32, torch.float32),
+                (torch.bfloat16, torch.bfloat16),
+                (torch.float16, torch.float16),
+                (torch.float64, torch.float32)]     # anything else → f32
+
+
+@pytest.mark.parametrize("dtype,out", ENTRY_DTYPES,
+                         ids=["f32", "bf16", "f16", "f64"])
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_volterra_equalize_returns_x_dtype(dtype, out, use_kernel):
+    _, tcfg, p = _vol_params(25, 9, 0)
+    x = torch.randn(2, 64, generator=torch.Generator().manual_seed(0))
+    for xi in (x.to(dtype), x[0].to(dtype)):
+        y = tv_ops.equalize(p, xi, tcfg, use_kernel=use_kernel, device="cpu")
+        assert y.dtype == out and y.shape == xi.shape[:-1] + (32,)
+
+
+@pytest.mark.parametrize("dtype,out", ENTRY_DTYPES,
+                         ids=["f32", "bf16", "f16", "f64"])
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_quantize_params_returns_params_dtype(dtype, out, use_kernel):
+    params, qparams = _cnn_params()
+    params = {"conv": [{k: _t(v).to(dtype) for k, v in layer.items()}
+                       for layer in params["conv"]]}
+    got = tq_ops.quantize_params(params, qparams, use_kernel=use_kernel,
+                                 device="cpu")
+    for layer, lg in zip(params["conv"], got["conv"]):
+        for key in ("w", "b"):
+            assert lg[key].dtype == out
+            assert lg[key].shape == layer[key].shape
+
+
+@pytest.mark.parametrize("dtype,out", ENTRY_DTYPES,
+                         ids=["f32", "bf16", "f16", "f64"])
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_conv1d_same_lower_returns_x_dtype(dtype, out, use_kernel):
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 5, 40, generator=g).to(dtype)
+    w, b = torch.randn(8, 5, 9, generator=g), torch.randn(8, generator=g)
+    y = tc1_ops.conv1d_same_lower(x, w, b, 2, use_kernel=use_kernel,
+                                  device="cpu")
+    assert y.dtype == out and y.shape == (2, 8, 20)
 
 
 # ---------------------------------------------------------------------------
