@@ -40,6 +40,39 @@ result line), in the order they run:
      4a. each kernel == plain bitwise at its most common serving launch
      shape, with the same instance check; 4b. the same serving run again
      under torch.profiler: device busy and idle share;
+  11. stream partitioning at full width: one stream of N_i = 64 instances
+     of ℓ_inst = 7320 symbols (936 960 samples) through
+     `core.stream_partition.partitioned_apply` on an engine of each
+     datapath (int8 "ht", bf16 "lp", fp32), split over 8 and over 64
+     instances (o_act 128 and 1024 symbols); with the counts zeroed
+     before each split, every call is one register-blocked launch, and
+     the merged interior [o_sym : −o_sym] (every chunk border included)
+     equals the unsplit engine on the same stream bitwise; on the split's
+     own chunks (a view whose rows overlap: row stride < width, passed to
+     the kernel with no copy) each engine's kernel equals its plain
+     version (`ref.py`, the engine's weights and strides) bitwise, and
+     the merge of that output is the partitioned output; ℓ_inst lies on
+     `seqlen_opt.granularity` and is at least what
+     `seqlen_opt.optimal_l_inst` asks for the paper's 80 GSa/s share of
+     T_max; prints per datapath the partitioned call's ms and symbols/s
+     (CUDA events), the unsplit call's ms and the kernel's device ms;
+  12. threaded serving: phase 4's tenants in jittered ~1024-symbol chunks
+     from `serve.loadgen.chop`, replayed by `serve.loadgen.replay` through
+     `ServeRuntime` and `AsyncServeRuntime(device="cuda")`, each with an
+     `obs.LinkMonitor` (through ``link=``) and an `obs.SloEngine`
+     attached, the counts zeroed before each replay; then the async
+     runtime again under a `FaultPlan` (a launch error, retried in place,
+     and a NaN-corrupted output, replayed by failover). Every async
+     stream equals the sync stream and its offline engine bitwise, every
+     launch is the register-blocked kernel, every async execute ran on
+     the runtime's own CUDA stream, no session is poisoned, each tenant's
+     `LinkEstimate` is finite and equal between the runtimes, and
+     `obs.report.render` shows the serve, link and slo sections; prints
+     each run's symbols/s, chunk latency p50/p99 and p50 wait (submit to
+     launch); 12a. each kernel == plain bitwise at the async run's most
+     common launch shape, as 4a; 12b. the async replay again under
+     torch.profiler (the replay only: the tenants are opened before the
+     profiled window): device busy and idle share;
   6. train: `train_equalizer` on the card for the CNN (equalizer_ht widths,
      3-phase QAT), the FIR and the Volterra baselines on the default IM/DD
      link (40 GBd, 31.5 km, N_os = 2), 300 steps each; every loss finite,
@@ -176,13 +209,14 @@ result line), in the order they run:
   9d (last): one full-width LM train step under torch.profiler, after a
      warm-up step inside the profiler's schedule: idle share and the top
      device activities.
-The line before the last is the `kernels` JSON (eleven kernels); the last
-line is
+The line before the last is the `kernels` JSON (eleven kernels; the
+three cnn_eq rows also carry their launches on each path, `path_launches`);
+the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-Phases 3–5 use random weights from a seed (numpy), carried in through
-`repro_torch.interop`, and waveforms of PAM-2 through a short ISI filter
-with noise, also from a seed; phases 6–7 train from seeded generators on
+Phases 3–5, 11 and 12 use random weights from a seed (numpy), carried in
+through `repro_torch.interop`, and waveforms of PAM-2 through a short ISI
+filter with noise, also from a seed; phases 6–7 train from seeded generators on
 the simulated link; phases 8, 9 and 10 draw their weights from seeded card
 generators, phase 9 its tokens from the reference's seeded stream. Without
 a CUDA card the script exits with code 2.
@@ -191,6 +225,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import dataclasses
 import gc
 import json
 import pathlib
@@ -215,7 +250,9 @@ from repro_torch.channels.common import (ber_from_soft,  # noqa: E402
                                          pam_decision)
 from repro_torch.configs import equalizer_ht as HT  # noqa: E402
 from repro_torch.core import equalizer as eq  # noqa: E402
-from repro_torch.core import fir, qat, train_eq  # noqa: E402
+from repro_torch.core import fir, qat, seqlen_opt, train_eq  # noqa: E402
+from repro_torch.core import stream_partition as SP  # noqa: E402
+from repro_torch.core import timing_model as TM  # noqa: E402
 from repro_torch.core import volterra as vol  # noqa: E402
 from repro_torch.data import PipelineConfig, lm_batches  # noqa: E402
 from repro_torch.data.equalizer_data import channel_fn  # noqa: E402
@@ -248,8 +285,12 @@ from repro_torch.models import registry as LM_registry  # noqa: E402
 from repro_torch.models import transformer as LM_tr  # noqa: E402
 from repro_torch.models import xlstm as XL  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
-from repro_torch.serve import (BatchPolicy, ServeRuntime,  # noqa: E402
-                               TenantSpec)
+from repro_torch.obs import (LinkMonitor, Observability,  # noqa: E402
+                             SloEngine, SloRule)
+from repro_torch.obs import report as OBS_report  # noqa: E402
+from repro_torch.serve import (AsyncServeRuntime, BatchPolicy,  # noqa: E402
+                               Fault, FaultPlan, ServeRuntime, TenantSpec,
+                               loadgen)
 
 CFG = HT.CNN
 ROWS = HT.N_INSTANCES                 # 64 parallel instances
@@ -417,6 +458,13 @@ SLSTM_ATOL, SLSTM_ENVELOPE, SLSTM_RESOLVED = 1e-4, 4.0, 1e-3
 # vs prefill at LM_PROMPT; both within LM_LOGIT_TOL, stated before the
 # first run
 XL_F32_TOKENS = 512
+# [11] one stream of N_i = 64 instances of l_inst symbols, split over 8 and
+# over 64 instances
+PART_SYMS = HT.N_INSTANCES * HT.L_INST          # 468 480 symbols
+PART_INSTANCES = (8, HT.N_INSTANCES)
+# [12] each tenant's link-quality floor (random weights: a breach is
+# recorded, not a failure)
+SLO_SNR_FLOOR_DB = 10.0
 
 
 def require(cond: bool, msg: str) -> None:
@@ -695,6 +743,248 @@ def check_serving_shapes(inputs: dict, stats: dict, tiles: dict) -> dict:
         shapes[dp] = {"rows": rows, "width": width, "tile_m": tiles[dp]}
     require_instances(K.LAUNCHES, K.INSTANCE_LAUNCHES, "[4a]")
     return shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 11: stream partitioning at full width
+# ---------------------------------------------------------------------------
+
+DATAPATH_OP = {"int8": "ht", "bf16": "lp", "fp32": "fp"}
+
+
+def partition_engines(dev) -> dict:
+    """One engine per datapath from seeded params (QAT widths of the
+    int8 "ht" and bf16 "lp" operating points; none for fp32)."""
+    rng = np.random.default_rng(11)
+    engines = {}
+    for dp, op in DATAPATH_OP.items():
+        spec = TenantSpec(f"part-{dp}", CFG,
+                          params=np_params(rng, FORMATS.get(op)),
+                          bn_state=np_bn_state(rng))
+        engines[dp] = spec.build_engine(dev)
+        require(engines[dp].backend == BACKEND_OF[dp],
+                f"[11] {dp}: deployed {engines[dp].backend}")
+    return engines
+
+
+def engine_plain(e):
+    """The plain PyTorch version (`ref.py`) of an engine's kernel, on the
+    engine's own kernel weights, strides and int8 formats."""
+    strides = eq.layer_strides(e.cfg)
+    w = e._layer_weights()
+    if e.backend == "fused_int8":
+        return lambda x: R.cnn_eq_int8(x, w, strides, e.formats)
+    plain = {"fused_fp32": R.cnn_eq, "fused_bf16": R.cnn_eq_bf16}
+    return lambda x: plain[e.backend](x, w, strides)
+
+
+def check_split_chunks(engines: dict, x, n_inst: int, ys: dict) -> dict:
+    """On the split's own chunks — the strided view whose rows overlap,
+    which the wrapper hands to the kernel with no copy — each engine's
+    kernel == its plain version bitwise, and the merge of that output ==
+    the partitioned output. Returns the view's shape and row stride."""
+    o_act = SP.actual_overlap(CFG, n_inst)
+    chunks = SP.split_with_overlap(x, n_inst, o_act, CFG.n_os)
+    require(chunks.stride(0) < chunks.shape[1] and chunks.stride(1) == 1,
+            f"[11] N_i = {n_inst}: chunks {tuple(chunks.shape)} with "
+            f"strides {chunks.stride()} do not overlap")
+    for dp, e in engines.items():
+        got, want = e(chunks), engine_plain(e)(chunks)
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"[11] {dp}, N_i = {n_inst}: kernel != plain on the "
+                f"overlapping chunks {tuple(chunks.shape)} (max |diff| "
+                f"{float((got - want).abs().max()):.3e})")
+        require(torch.equal(SP.merge_with_overlap_removal(got, o_act),
+                            ys[dp]),
+                f"[11] {dp}, N_i = {n_inst}: merged kernel output != "
+                f"partitioned output")
+    return {"shape": list(chunks.shape), "row_stride": chunks.stride(0),
+            "kernel_vs_plain": "bitwise"}
+
+
+def check_partitioned(dev) -> dict:
+    """`partitioned_apply` over N_i instances on one PART_SYMS stream, per
+    datapath: the merged interior (every chunk border included) equals the
+    unsplit engine bitwise, each call one register-blocked launch, and
+    the kernel == plain bitwise on the split's chunks; ℓ_inst
+    on the granularity of `seqlen_opt` and at least the length its
+    framework asks for the paper's throughput target. Returns the checks,
+    the N_i = 64 launch counts (zeroed just before) and the engines."""
+    engines = partition_engines(dev)
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(waveform(rng, PART_SYMS)).to(dev)
+    o_sym = SP.overlap_symbols(CFG)
+    hw = TM.fpga_profile(CFG, f_clk=HT.F_CLK)
+    t_share = HT.T_REQ_SAMPLES / TM.max_throughput(hw, HT.N_INSTANCES)
+    full = {dp: e(x) for dp, e in engines.items()}
+    out = {"syms": PART_SYMS, "samples": int(x.shape[0]), "o_sym": o_sym,
+           "instances": {}}
+    launches = instances = None
+    for n_inst in PART_INSTANCES:
+        l_inst = SP.chunk_lengths(PART_SYMS, n_inst)
+        gran = seqlen_opt.granularity(CFG, n_inst)
+        want_l = seqlen_opt.optimal_l_inst(
+            CFG, hw, n_inst, t_share * TM.max_throughput(hw, n_inst))
+        require(l_inst % gran == 0 and l_inst >= want_l,
+                f"[11] N_i = {n_inst}: l_inst {l_inst} off granularity "
+                f"{gran} or below the framework's {want_l}")
+        K.reset_launch_counts()
+        ys = {dp: SP.partitioned_apply(e, x, n_inst, CFG)
+              for dp, e in engines.items()}
+        torch.cuda.synchronize(dev)
+        launches, instances = dict(K.LAUNCHES), dict(K.INSTANCE_LAUNCHES)
+        for dp, (name, _) in KERNELS.items():
+            require(launches[name] == 1,
+                    f"[11] {dp}: {launches[name]} launches for one "
+                    f"partitioned call")
+        require_instances(launches, instances, f"[11] N_i = {n_inst}")
+        for dp, y in ys.items():
+            require(y.shape == full[dp].shape == (PART_SYMS,)
+                    and bool(torch.isfinite(y).all()),
+                    f"[11] {dp}: partitioned {tuple(y.shape)} or "
+                    f"non-finite")
+            require(torch.equal(y[o_sym:-o_sym], full[dp][o_sym:-o_sym]),
+                    f"[11] {dp}, N_i = {n_inst}: partitioned interior != "
+                    f"unsplit (max |diff| "
+                    f"{float((y - full[dp])[o_sym:-o_sym].abs().max()):.3e})")
+        chunks = check_split_chunks(engines, x, n_inst, ys)
+        out["instances"][n_inst] = {
+            "l_inst": l_inst, "o_act": SP.actual_overlap(CFG, n_inst),
+            "granularity": gran, "optimal_l_inst": want_l,
+            "chunk_samples": (l_inst + 2 * SP.actual_overlap(CFG, n_inst))
+            * CFG.n_os, "interior": "bitwise", "chunks": chunks}
+    return {"checks": out, "launches": launches, "instances": instances,
+            "engines": engines, "x": x}
+
+
+def time_partitioned(part: dict, iters: int) -> dict:
+    """Per datapath: CUDA-event ms of the N_i = 64 partitioned call and of
+    the unsplit engine on the same stream, symbols/s of the partitioned
+    call, and its kernel's device ms from torch.profiler."""
+    x, out = part["x"], {}
+    n_inst = HT.N_INSTANCES
+    for dp, e in part["engines"].items():
+        ms = cuda_ms(lambda: SP.partitioned_apply(e, x, n_inst, CFG), iters)
+        out[dp] = {"ms": ms, "syms_per_s": PART_SYMS / (ms / 1e3),
+                   "unsplit_ms": cuda_ms(lambda: e(x), iters),
+                   "kernel_device_ms": _device_ms(
+                       lambda: SP.partitioned_apply(e, x, n_inst, CFG),
+                       "cnn_eq_kernel_rb")}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: threaded serving, with link estimation and SLO rules
+# ---------------------------------------------------------------------------
+
+def slice_traffic(specs, waves) -> dict:
+    """Each tenant's waveform in jittered ~1024-symbol chunks
+    (`serve.loadgen.chop`, seeded per tenant)."""
+    return {s.tenant_id: loadgen.chop(waves[s.tenant_id], 1024 * CFG.n_os,
+                                      seed=i, jitter=0.5)
+            for i, s in enumerate(specs)}
+
+
+def serve_threaded(dev, specs, streams, runtime: str,
+                   fault_plan=None, traced: bool = False) -> dict:
+    """One `loadgen.replay` of the tenants through ServeRuntime ("sync")
+    or AsyncServeRuntime ("async"), each with a LinkMonitor and an
+    SloEngine attached; launch counts zeroed just before the replay and
+    read just after. The async runtime's batcher records the current
+    stream of every execute. With ``traced``, the replay alone (the
+    tenants are opened before) runs under `device_trace`."""
+    obs = Observability()
+    slo = SloEngine(obs, rules=(SloRule(
+        "snr_floor", "link.{tenant}.snr_db", threshold=SLO_SNR_FLOOR_DB,
+        patience=3),))
+    link = LinkMonitor(obs, slo=slo)
+    policy = BatchPolicy(max_batch=4)
+    streams_seen = set()
+    if runtime == "sync":
+        rt = ServeRuntime(policy, device=dev, obs=obs, link=link,
+                          fault_plan=fault_plan)
+    else:
+        rt = AsyncServeRuntime(policy, device=dev, obs=obs, link=link,
+                               launch_retries=2, fault_plan=fault_plan)
+        execute = rt.batcher.execute
+
+        def recording_execute(batch):
+            streams_seen.add(torch.cuda.current_stream(dev).cuda_stream)
+            return execute(batch)
+        rt.batcher.execute = recording_execute
+    try:
+        for s in specs:
+            rt.open(s)
+        K.reset_launch_counts()
+        box = {}
+        trace = (device_trace(lambda: box.update(
+            acct=loadgen.replay(rt, streams))) if traced else None)
+        acct = box["acct"] if traced else loadgen.replay(rt, streams)
+        launches, instances = dict(K.LAUNCHES), dict(K.INSTANCE_LAUNCHES)
+        st = rt.stats()
+        outs = {s.tenant_id: rt.close(s.tenant_id) for s in specs}
+    finally:
+        if runtime == "async":
+            rt.shutdown()
+    return {"outs": outs, "acct": acct, "stats": st, "launches": launches,
+            "instances": instances, "link": {
+                s.tenant_id: link.estimate(s.tenant_id) for s in specs},
+            "slo_breached": slo.breached_tenants(), "obs": obs,
+            "streams_seen": streams_seen,
+            "own_stream": (rt.stream.cuda_stream if runtime == "async"
+                           else None),
+            "recovery": st.get("recovery"), "trace": trace}
+
+
+def check_threaded(dev, specs, waves) -> dict:
+    """Sync and async replays of the same traffic, then an async replay
+    under a FaultPlan (a transient launch failure and a corrupted output):
+    every async stream == the sync stream == its offline engine bitwise,
+    every launch rb and, in the async runs, on the runtime's stream; link
+    estimates finite and equal between the runtimes; the report has its
+    serve, link and slo sections."""
+    streams = slice_traffic(specs, waves)
+    runs = {"sync": serve_threaded(dev, specs, streams, "sync"),
+            "async": serve_threaded(dev, specs, streams, "async")}
+    fault_plan = FaultPlan([Fault("launch_error", 3),
+                            Fault("corrupt", 7, mode="nan")])
+    runs["async_faults"] = serve_threaded(dev, specs, streams, "async",
+                                          fault_plan=fault_plan)
+    require(fault_plan.pending == 0,
+            f"[12] faults not fired: {fault_plan.summary()}")
+    rec = runs["async_faults"]["recovery"]
+    require(rec["sessions_poisoned"] == 0 and rec["corrupt_detected"] >= 1
+            and rec["chunks_replayed"] >= 1,
+            f"[12] fault run recovery {rec}")
+    n_checked = check_offline(dev, specs, waves, runs["sync"]["outs"], SYMS)
+    for name, run in runs.items():
+        require(run["acct"]["total_syms"] == n_checked,
+                f"[12] {name}: {run['acct']['total_syms']} symbols served, "
+                f"{n_checked} expected")
+        require_instances(run["launches"], run["instances"], f"[12] {name}")
+        for tid, out in run["outs"].items():
+            require(np.array_equal(out, runs["sync"]["outs"][tid]),
+                    f"[12] {name} {tid}: stream != sync stream")
+        for tid, est in run["link"].items():
+            vals = dataclasses.asdict(est)
+            require(est.syms == run["outs"][tid].shape[0]
+                    and all(np.isfinite(v) for k, v in vals.items()
+                            if k != "tenant_id"),
+                    f"[12] {name} {tid}: link estimate {est}")
+            require(est == runs["sync"]["link"][tid],
+                    f"[12] {name} {tid}: link estimate {est} != sync "
+                    f"{runs['sync']['link'][tid]}")
+        if name != "sync":
+            require(run["streams_seen"] == {run["own_stream"]}
+                    and run["own_stream"] != torch.cuda.default_stream(
+                        dev).cuda_stream,
+                    f"[12] {name}: executes on streams "
+                    f"{run['streams_seen']}, the runtime's is "
+                    f"{run['own_stream']}")
+        text = OBS_report.render(run["obs"].snapshot())
+        require(all(sec in text for sec in ("[serve]", "[link]", "[slo]")),
+                f"[12] {name}: report lacks a section:\n{text}")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -2330,6 +2620,60 @@ def main() -> int:
           f"{json.dumps(trace)}; p50 {again['stats']['p50_latency_ms']:.3f}"
           f" ms, p99 {again['stats']['p99_latency_ms']:.3f} ms", flush=True)
 
+    part = check_partitioned(dev)
+    ptimes = time_partitioned(part, iters=50)
+    print(f"[11] stream partitioning: one stream of {PART_SYMS} symbols "
+          f"({2 * PART_SYMS} samples) through `partitioned_apply` per "
+          f"datapath; interior [o_sym : -o_sym] == unsplit bitwise at N_i "
+          f"{list(PART_INSTANCES)}: {json.dumps(part['checks'])}; N_i = "
+          f"{HT.N_INSTANCES} launches {part['launches']}, instances "
+          f"{part['instances']}; times (ms; CUDA events, mean of 50 calls; "
+          f"kernel_device_ms from torch.profiler over 20 calls) "
+          f"{json.dumps(ptimes)}; {card}", flush=True)
+    part_launches = part["launches"]
+    del part
+
+    threaded = check_threaded(dev, specs, waves)
+    lines = {}
+    for name, r in threaded.items():
+        lines[name] = {
+            "agg_syms_per_s": r["acct"]["agg_syms_per_s"],
+            "elapsed_s": r["acct"]["elapsed_s"],
+            "p50_latency_ms": r["stats"]["p50_latency_ms"],
+            "p99_latency_ms": r["stats"]["p99_latency_ms"],
+            "p50_wait_ms": r["stats"]["p50_wait_ms"],
+            "launches": r["stats"]["launches"],
+            "mean_batch": r["stats"]["mean_batch"],
+            "kernel_launches": r["launches"],
+            "slo_breached": len(r["slo_breached"])}
+    lines["async_faults"]["recovery"] = threaded["async_faults"]["recovery"]
+    snr = {tid: est.snr_db for tid, est in threaded["async"]["link"].items()}
+    print(f"[12] threaded serving ({len(specs)} tenants x {SYMS} symbols, "
+          f"loadgen.chop ~1024-symbol chunks, loadgen.replay, BatchPolicy "
+          f"max_batch 4, a LinkMonitor and an SloEngine on each runtime): "
+          f"async == sync == offline bitwise, also under a FaultPlan "
+          f"(launch_error at 3, corrupt at 7); every launch rb; async "
+          f"executes on the launcher's stream; link estimates finite and "
+          f"equal between runtimes; report has [serve] [link] [slo]: "
+          f"{json.dumps(lines)}; link snr_db {json.dumps(snr)}; {card}",
+          flush=True)
+    shapes12 = check_serving_shapes(inputs, threaded["async"]["stats"],
+                                    tiles_used)
+    print(f"[12a] kernel == plain bitwise at the async run's launch shapes: "
+          f"{shapes12}", flush=True)
+    atrace = serve_threaded(dev, specs, slice_traffic(specs, waves),
+                            "async", traced=True)["trace"]
+    print(f"[12b] the async replay again under torch.profiler (the replay "
+          f"only; the tenants were opened before): {json.dumps(atrace)}",
+          flush=True)
+    path_launches = {
+        name: {"[4] serve": run["launches"][name],
+               "[11] partitioned N_i=64": part_launches[name],
+               "[12] sync": threaded["sync"]["launches"][name],
+               "[12] async": threaded["async"]["launches"][name]}
+        for name, _ in KERNELS.values()}
+    del threaded
+
     trained = train_families(dev)
     summary = {k: {"ber": v["info"]["ber"], "ms_per_step": v["ms_per_step"],
                    "loss_first50": v["loss_first50"],
@@ -2511,6 +2855,7 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "library": library[dp],
             "tile_m": t["tile_m"], "shape": t["shape"], "card": card,
+            "path_launches": path_launches[name],
             **{k: t[k] for k in ("instance", "generic_device_ms",
                                  "serving_shape", "serving_device_ms")
                if k in t}})

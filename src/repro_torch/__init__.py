@@ -4,7 +4,9 @@ The package mirrors `repro` (the JAX reference) module for module, so each
 port module sits at the same relative path as its counterpart:
 
   core/      equalizer topology, QAT formats, autotune, EqualizerEngine;
-             the FIR and Volterra baselines and their training (train_eq)
+             the FIR and Volterra baselines and their training (train_eq);
+             stream partitioning over N_i instances and the paper's
+             timing model and l_inst framework
   channels/  simulated IM/DD and Proakis-B links
   data/      channel frames drawn on the device for training
   optim/     AdamW and learning-rate schedules on tensor trees
@@ -17,9 +19,13 @@ port module sits at the same relative path as its counterpart:
              MLP, prefill and decode over ring-buffer KV caches
   parallel/  head-count resolution for tensor parallelism
   launch/    serving steps and the batched prefill + decode driver
-  obs/       metrics registry, chunk tracer, Observability hub
+  obs/       metrics registry, chunk tracer, Observability hub; link
+             quality, SLO rules and the console report
   runtime/   straggler monitor
   serve/     chunker, engine pool, sessions, micro-batcher, ServeRuntime
+             and the threaded AsyncServeRuntime; load generation
+  examples/  quickstart and stream_equalizer (`python -m
+             repro_torch.examples.<name> [--device cpu]`)
 
 It imports torch, numpy and the standard library only — never jax and
 nothing of `repro`. `interop` carries parameter trees across as numpy.

@@ -1,4 +1,5 @@
-from . import autotune, engine, equalizer, fir, qat, train_eq, volterra
+from . import (autotune, engine, equalizer, fir, qat, seqlen_opt,
+               stream_partition, timing_model, train_eq, volterra)
 from .engine import EqualizerEngine
 from .equalizer import CNNEqConfig
 from .fir import FIRConfig
@@ -7,4 +8,5 @@ from .volterra import VolterraConfig
 
 __all__ = ["CNNEqConfig", "EqualizerEngine", "FIRConfig", "QATConfig",
            "VolterraConfig", "autotune", "engine", "equalizer", "fir", "qat",
-           "train_eq", "volterra"]
+           "seqlen_opt", "stream_partition", "timing_model", "train_eq",
+           "volterra"]

@@ -20,18 +20,21 @@ A launch is split into three phases so an asynchronous front-end can
 pipeline them:
 
   take_ready()  policy check + pop + ASSEMBLE: build the padded stacked
-                input and look up the memoized per-group launch fn — pure
-                host work (numpy, dict lookups);
-  execute()     the device phase: copy the stacked input to the device,
-                launch the fused kernel, copy the output back (the copy
-                to the host waits for the kernel);
+                input and look up the memoized per-group launch fn (a new
+                tenant set stacks its weights on the device once), and on
+                a card record an event on the assembling thread's stream;
+  execute()     the device phase, on the executing thread's current
+                stream: wait for the assembly's event, copy the stacked
+                input to the device, launch the fused kernel, copy the
+                output back (the copy to the host waits for the kernel);
   descatter()   host work again: slice each tenant's rows out, append to
                 its session, resolve its future, record latency/traffic.
 
 The synchronous `pump()`/`drain()`/`flush_session()` drivers run all three
 phases inline on the caller's thread (deterministic, single-threaded — the
-parity surface). The reference's threaded front-end, which overlaps the
-host phases with the device phase, is not ported yet.
+parity surface); `AsyncServeRuntime` runs execute() on a dedicated
+launcher thread and CUDA stream, so the host phases of launch k+1 overlap
+the device phase of launch k.
 
 Every request carries submit/launch/done timestamps; `latency_stats()`
 reports p50/p99 queueing and total latency plus batch-occupancy history —
@@ -137,6 +140,10 @@ class LaunchBatch:
     x: np.ndarray                   # (B, W) padded stacked input
     fn: Callable[[torch.Tensor], torch.Tensor]
     device: torch.device            # where the group's engines live
+    # on a card, when the batcher is `cross_stream`: recorded on the
+    # assembling thread's stream after the fn (and any weight stack it
+    # made) was queued; execute waits for it
+    ready: Optional[torch.cuda.Event] = None
 
 
 class TrafficStats:
@@ -240,6 +247,10 @@ class MicroBatcher:
         scope.callback("latency", self.latency_stats)
         scope.callback("traffic", self.traffic_stats)
         self._groups: Dict[Tuple, List[Request]] = {}
+        # True when execute may run on another CUDA stream than assemble
+        # (the async runtime's launcher): assemble then records an event
+        # that execute waits for. One thread on one stream needs no fence.
+        self.cross_stream = False
         # (id(engine), …) → (engine refs, stacked fn). Holding the refs
         # keeps the ids valid; bounded FIFO so evicted engines can be GC'd.
         self._fn_cache: "Dict[Tuple, Tuple[list, Callable]]" = {}
@@ -395,13 +406,20 @@ class MicroBatcher:
         x = np.zeros((len(reqs), width), np.float32)
         for i, r in enumerate(reqs):
             x[i, :r.plan.width] = r.plan.data      # right zero-pad = offline
-        return LaunchBatch(key=key, reqs=reqs, x=x, fn=fn,
-                           device=engines[0].device)
+        device = engines[0].device
+        ready = None
+        if self.cross_stream and device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(device))
+        return LaunchBatch(key=key, reqs=reqs, x=x, fn=fn, device=device,
+                           ready=ready)
 
     def execute(self, batch: LaunchBatch) -> np.ndarray:
-        """Device phase: host→device copy of the stacked input, ONE stacked
-        fused-kernel launch, device→host copy of the (B, S) output (which
-        waits for the kernel). Touches no scheduler state beyond
+        """Device phase, on the calling thread's current stream: wait for
+        the batch's assembly (`LaunchBatch.ready`), host→device copy of
+        the stacked input, ONE stacked fused-kernel launch, device→host
+        copy of the (B, S) output (which waits for the kernel). Touches no
+        scheduler state beyond
         the attempt counter — safe to run off-thread without the runtime
         lock. Each call consumes one `exec_seq` index; an installed
         `FaultPlan` may raise/delay before the dispatch or corrupt the
@@ -417,6 +435,8 @@ class MicroBatcher:
             for r in batch.reqs:         # raised injection never stamps —
                 if r.plan.span is not None:   # the retry's stamps describe
                     r.plan.span.stamp("launch", t_launch)  # the real launch
+        if batch.ready is not None:
+            torch.cuda.current_stream(batch.device).wait_event(batch.ready)
         y = batch.fn(torch.from_numpy(batch.x).to(batch.device))
         y = y.cpu().numpy()
         if self.fault_plan is not None:

@@ -62,9 +62,15 @@ ragged row groups at RB = 2 and 4, Q = 7). The cluster kernel gives the
 same bits on a second launch, a split pass equals one pass bitwise, the
 wrapper refuses a bad type, a bad shape and autograd, and xlstm serving
 launches the cluster kernel once per sLSTM block per prefill and decode
-step.
+step. The streaming slice: `partitioned_apply` over 8 and 64 instances of
+7320 symbols equals the unsplit engine bitwise on the interior in every
+datapath, through the register-blocked kernel; `AsyncServeRuntime` on the
+card equals `ServeRuntime` and the offline engine bitwise, and every
+execute — on the launcher thread or the deadline watchdog's worker — runs
+on the runtime's own CUDA stream.
 """
 import hashlib
+import threading
 
 import numpy as np
 import pytest
@@ -100,7 +106,9 @@ from repro_torch.launch import serve as lm_serve
 from repro_torch.launch import train as lm_train
 from repro_torch.models import attention as lm_attn
 from repro_torch.models import registry as lm_registry
-from repro_torch.serve import BatchPolicy, ServeRuntime, TenantSpec
+from repro_torch.core import stream_partition as sp
+from repro_torch.serve import (AsyncServeRuntime, BatchPolicy, MicroBatcher,
+                               ServeRuntime, TenantSpec, chop)
 
 FMTS = ((2, 5, 3, 4),) * 3
 QAT = {"w_int": 2.0, "w_frac": 5.0, "a_int": 3.0, "a_frac": 4.0}
@@ -197,6 +205,129 @@ def test_serve_runtime_on_card_is_bitwise_offline(cuda_device):
     for s in specs:
         want = s.build_engine()(waves[s.tenant_id]).cpu().numpy()
         np.testing.assert_array_equal(outs[s.tenant_id], want)
+
+
+SLICE_QAT = {"int8": QAT, "bf16": {"w_int": 3.0, "w_frac": 8.0,
+                                   "a_int": 3.0, "a_frac": 8.0},
+             "fp32": None}
+SLICE_BACKEND = {"int8": "fused_int8", "bf16": "fused_bf16",
+                 "fp32": "fused_fp32"}
+
+
+def _slice_spec(tid, dp, seed):
+    p = teq.init(torch.Generator().manual_seed(seed), HT.CNN, device="cpu")
+    if SLICE_QAT[dp] is not None:
+        p["qat"] = {f"layer{l}": dict(SLICE_QAT[dp]) for l in range(3)}
+    return TenantSpec(tid, HT.CNN, params=p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp", ["int8", "bf16", "fp32"])
+def test_partitioned_equals_unsplit_bitwise_on_card(cuda_device, dp):
+    engine = _slice_spec("p", dp, 40).build_engine(cuda_device)
+    assert engine.backend == SLICE_BACKEND[dp]
+    for n_inst in (8, 64):
+        x = _x(1, 7320 * n_inst, seed=n_inst)[0].to(cuda_device)
+        kern.reset_launch_counts()
+        y_split = sp.partitioned_apply(engine, x, n_inst, HT.CNN)
+        y_full = engine(x)
+        assert kern.INSTANCE_LAUNCHES == {"rb": 2, "generic": 0}
+        o = sp.overlap_symbols(HT.CNN)
+        assert y_split.shape == y_full.shape == (7320 * n_inst,)
+        assert torch.equal(y_split[o:-o], y_full[o:-o]), (dp, n_inst)
+        # the split's chunks are a view whose rows overlap (row stride <
+        # width), read by the kernel with no copy: kernel == plain there
+        o_act = sp.actual_overlap(HT.CNN, n_inst)
+        chunks = sp.split_with_overlap(x, n_inst, o_act, HT.CNN.n_os)
+        assert chunks.stride(0) < chunks.shape[1]
+        strides = teq.layer_strides(HT.CNN)
+        w = engine._layer_weights()
+        want = (ref.cnn_eq_int8(chunks, w, strides, engine.formats)
+                if dp == "int8" else
+                ref.cnn_eq_bf16(chunks, w, strides) if dp == "bf16" else
+                ref.cnn_eq(chunks, w, strides))
+        got = engine(chunks)
+        assert torch.equal(got, want), (dp, n_inst)
+        assert torch.equal(sp.merge_with_overlap_removal(got, o_act),
+                           y_split)
+
+
+def _slice_tenants():
+    specs = [_slice_spec(f"{dp}-{i}", dp, 50 + 3 * i + j)
+             for j, dp in enumerate(("int8", "bf16", "fp32"))
+             for i in range(2)]
+    rng = np.random.default_rng(4)
+    waves = {s.tenant_id: rng.standard_normal(2 * 1500).astype(np.float32)
+             for s in specs}
+    streams = {t: chop(w, 400, seed=i) for i, (t, w) in
+               enumerate(sorted(waves.items()))}
+    return specs, waves, streams
+
+
+def _serve_streams(rt, specs, streams):
+    for s in specs:
+        rt.open(s)
+    iters = {t: iter(c) for t, c in streams.items()}
+    live = set(iters)
+    while live:
+        for t in sorted(live):
+            c = next(iters[t], None)
+            if c is None:
+                live.discard(t)
+            else:
+                rt.submit(t, c)
+    return {t: rt.close(t) for t in sorted(streams)}
+
+
+@pytest.mark.cuda
+def test_async_runtime_on_card_equals_sync_bitwise(cuda_device):
+    specs, waves, streams = _slice_tenants()
+    sync = _serve_streams(ServeRuntime(BatchPolicy(max_batch=3)), specs,
+                          streams)
+    kern.reset_launch_counts()
+    with AsyncServeRuntime(BatchPolicy(max_batch=3)) as rt:
+        assert rt.device.type == "cuda" and rt.stream is not None
+        got = _serve_streams(rt, specs, streams)
+    assert kern.INSTANCE_LAUNCHES["generic"] == 0
+    assert kern.INSTANCE_LAUNCHES["rb"] == sum(kern.LAUNCHES.values()) > 0
+    for s in specs:
+        tid = s.tenant_id
+        np.testing.assert_array_equal(got[tid], sync[tid])
+        want = s.build_engine(cuda_device)(waves[tid]).cpu().numpy()
+        np.testing.assert_array_equal(got[tid], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deadline", [None, 60.0])
+def test_async_launches_run_on_the_launchers_stream_on_card(
+        cuda_device, monkeypatch, deadline):
+    """Every execute — on the launcher thread, or on the watchdog's worker
+    thread when a deadline is set — runs with the runtime's own stream
+    current, never the default stream."""
+    kern._load()                      # built before any deadline runs
+    seen = []
+    orig = MicroBatcher.execute
+
+    def recording_execute(self, batch):
+        seen.append((torch.cuda.current_stream(batch.device).cuda_stream,
+                     threading.current_thread().name))
+        return orig(self, batch)
+
+    monkeypatch.setattr(MicroBatcher, "execute", recording_execute)
+    specs, waves, streams = _slice_tenants()
+    with AsyncServeRuntime(BatchPolicy(max_batch=3),
+                           launch_deadline_s=deadline) as rt:
+        own = rt.stream.cuda_stream
+        got = _serve_streams(rt, specs, streams)
+    assert seen
+    assert own != torch.cuda.default_stream(cuda_device).cuda_stream
+    assert {s for s, _ in seen} == {own}
+    want_thread = ("serve-watchdog-exec" if deadline is not None
+                   else "serve-launcher")
+    assert {t for _, t in seen} == {want_thread}
+    for s in specs:
+        want = s.build_engine(cuda_device)(waves[s.tenant_id]).cpu().numpy()
+        np.testing.assert_array_equal(got[s.tenant_id], want)
 
 
 @pytest.mark.cuda

@@ -28,7 +28,8 @@ from repro_torch.launch import serve as lm_serve
 from repro_torch.launch import train as lm_train
 from repro_torch.models import transformer as lm_transformer
 from repro_torch.models import xlstm as lm_xlstm
-from repro_torch.serve import ServeRuntime
+from repro_torch.examples import quickstart, stream_equalizer
+from repro_torch.serve import AsyncServeRuntime, ServeRuntime
 
 REPO_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 
@@ -123,6 +124,35 @@ def test_xlstm_serving_modules_import_without_jax(name):
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+STREAMING_MODULES = ("repro_torch.serve", "repro_torch.serve.runtime",
+                     "repro_torch.serve.loadgen", "repro_torch.obs",
+                     "repro_torch.obs.link", "repro_torch.obs.slo",
+                     "repro_torch.obs.report",
+                     "repro_torch.core.stream_partition",
+                     "repro_torch.core.timing_model",
+                     "repro_torch.core.seqlen_opt",
+                     "repro_torch.examples.quickstart",
+                     "repro_torch.examples.stream_equalizer")
+
+
+@pytest.mark.parametrize("name", STREAMING_MODULES)
+def test_streaming_modules_import_without_jax(name):
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({name!r})
+        bad = sorted(k for k in sys.modules
+                     if k == "jax" or k.startswith("jax.")
+                     or k == "repro" or k.startswith("repro."))
+        assert not bad, bad
+        assert not any(k.startswith("repro_torch.serve.fleet")
+                       for k in sys.modules)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO_SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -143,6 +173,9 @@ def _folded():
     lambda: EqualizerEngine(cfg=HT.CNN, weights=_folded()),
     lambda: autotune.platform_key("cuda"),
     lambda: ServeRuntime(),
+    lambda: AsyncServeRuntime(),
+    lambda: quickstart.main([]),
+    lambda: stream_equalizer.main([]),
     lambda: lm_serve.serve_session(
         lm_configs.get_config("qwen3-0.6b", True, tp=1), 1, 4, 8),
     lambda: lm_serve.main(["--batch", "1", "--prompt-len", "4", "--gen",
