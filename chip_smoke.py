@@ -73,6 +73,34 @@ result line), in the order they run:
      common launch shape, as 4a; 12b. the async replay again under
      torch.profiler (the replay only: the tenants are opened before the
      profiled window): device busy and idle share;
+  13. the packetized wire: [12]'s nine tenants, and the first int8 tenant
+     again on an fp32 wire, in [12]'s chunks as DATA frames from a
+     `net.NetClient` over an impaired `net.loopback_pair` (reorder window
+     6, duplicates 0.2, each way) to a `net.NetGateway` serving
+     `ServeRuntime`, then `AsyncServeRuntime`, by
+     `serve.loadgen.replay_wire(burst=4)`, the counts zeroed before each
+     replay; int8 tenants on an int8 wire on their engine's layer-0 grid,
+     the first bf16 tenant on a BF16 wire (its offline engine sees the
+     bf16-rounded waveform), the rest fp32. Every tenant's egress symbols
+     equal its offline engine bitwise, the int8-wire tenant equals its
+     fp32-wire twin (contract #12), no wire error, duplicates and
+     reordering above 0, every datapath launched, every launch rb, the
+     report has its [net] section; prints symbols/s, ingress-to-emit p50
+     and p99, chunk latency and the frame counts, beside the same chunks
+     replayed by `loadgen.replay` on a `ServeRuntime` with no wire and no
+     link telemetry (`sync_no_wire`); 13a. each kernel ==
+     plain bitwise at the async wire run's most common launch shape; 13b.
+     the control plane: an int8 tenant OPENed over the wire, DATA,
+     SWAP_WEIGHTS, DATA, ROLLBACK, DATA, EOS and CLOSE, the spliced stream
+     equal to each weight epoch's offline engine on its segment bitwise;
+     then a frame dropped on one of three tenants surfaces a stream_gap
+     and a NACK for that tenant only, the other two bitwise; 13c. drift
+     traffic: `loadgen.drift_streams` on the card for `DriftingProakis`
+     and `DriftingIMDD` (4 tenants, 16 bursts of 7320 symbols,
+     DriftSchedule(8, 8)); at t = 0 each burst equals the stationary
+     simulator on the same generator within atol 1e-4, a second draw
+     repeats bitwise and is timed (ms per burst); the IM/DD tenant 0's
+     whole drift stream served over the int8 wire equals offline bitwise;
   6. train: `train_equalizer` on the card for the CNN (equalizer_ht widths,
      3-phase QAT), the FIR and the Volterra baselines on the default IM/DD
      link (40 GBd, 31.5 km, N_os = 2), 300 steps each; every loss finite,
@@ -210,13 +238,15 @@ result line), in the order they run:
      warm-up step inside the profiler's schedule: idle share and the top
      device activities.
 The line before the last is the `kernels` JSON (eleven kernels; the
-three cnn_eq rows also carry their launches on each path, `path_launches`);
+three cnn_eq rows also carry their launches on each path, `path_launches`:
+[4], [11], [12] and [13]);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-Phases 3–5, 11 and 12 use random weights from a seed (numpy), carried in
+Phases 3–5 and 11–13 use random weights from a seed (numpy), carried in
 through `repro_torch.interop`, and waveforms of PAM-2 through a short ISI
-filter with noise, also from a seed; phases 6–7 train from seeded generators on
+filter with noise, also from a seed ([13c] draws its traffic from seeded
+card generators through the simulated channels); phases 6–7 train from seeded generators on
 the simulated link; phases 8, 9 and 10 draw their weights from seeded card
 generators, phase 9 its tokens from the reference's seeded stream. Without
 a CUDA card the script exits with code 2.
@@ -245,7 +275,10 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import configs as LM_configs  # noqa: E402
 from repro_torch import interop  # noqa: E402
-from repro_torch.channels import imdd  # noqa: E402
+from repro_torch import net  # noqa: E402
+from repro_torch.channels import imdd, proakis  # noqa: E402
+from repro_torch.channels.drift import (DriftingIMDD,  # noqa: E402
+                                        DriftingProakis, DriftSchedule)
 from repro_torch.channels.common import (ber_from_soft,  # noqa: E402
                                          pam_decision)
 from repro_torch.configs import equalizer_ht as HT  # noqa: E402
@@ -465,6 +498,13 @@ PART_INSTANCES = (8, HT.N_INSTANCES)
 # [12] each tenant's link-quality floor (random weights: a breach is
 # recorded, not a failure)
 SLO_SNR_FLOOR_DB = 10.0
+# [13] the wire's impairment, each way
+WIRE_REORDER, WIRE_DUP = 6, 0.2
+# [13c] drift traffic: tenants, bursts of SYMS symbols, and the bound of a
+# drifting channel at t = 0 against the stationary simulator on the same
+# draws (the channels' bound, tests/test_torch_channels.py)
+DRIFT_TENANTS, DRIFT_BURSTS = 4, 16
+DRIFT_ATOL = 1e-4
 
 
 def require(cond: bool, msg: str) -> None:
@@ -985,6 +1025,270 @@ def check_threaded(dev, specs, waves) -> dict:
         require(all(sec in text for sec in ("[serve]", "[link]", "[slo]")),
                 f"[12] {name}: report lacks a section:\n{text}")
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the packetized wire, its control plane and drift traffic
+# ---------------------------------------------------------------------------
+
+def wire_pair(seed: int, drop_idx=()):
+    """(client end, server end) of an impaired loopback: reorder window 6
+    and duplicates 0.2 each way (with drops, FIFO and one-way instead)."""
+    if drop_idx:
+        return net.loopback_pair(net.WireSchedule(seed, drop_idx=drop_idx))
+    sch = dict(reorder_window=WIRE_REORDER, dup_prob=WIRE_DUP)
+    return net.loopback_pair(net.WireSchedule(seed, **sch),
+                             net.WireSchedule(seed + 1, **sch))
+
+
+def wire_tenants(specs, waves):
+    """[12]'s tenants plus a twin of the first int8 tenant on an fp32 wire;
+    each tenant's wire type (int8 tenants on their engine's int8 grid, the
+    first bf16 tenant on a BF16 wire, the rest fp32) and the waveform its
+    offline engine must see (a BF16 wire rounds the samples)."""
+    first = specs[0]
+    twin = dataclasses.replace(first, tenant_id=f"{first.tenant_id}-fp32")
+    specs = list(specs) + [twin]
+    wire = {s.tenant_id: (net.WireDtype.INT8 if s.tenant_id.startswith("ht")
+                          else net.WireDtype.FP32) for s in specs}
+    wire[twin.tenant_id] = net.WireDtype.FP32
+    wire["lp-0"] = net.WireDtype.BF16
+    seen = {}
+    for s in specs:
+        w = waves[first.tenant_id if s is twin else s.tenant_id]
+        if wire[s.tenant_id] == net.WireDtype.BF16:
+            w = net.decode_samples(net.encode_samples(w, net.WireDtype.BF16),
+                                   net.WireDtype.BF16)
+        seen[s.tenant_id] = w
+    return specs, wire, seen, twin.tenant_id
+
+
+def serve_wire(dev, specs, streams, wire, runtime: str, seed: int) -> dict:
+    """One `loadgen.replay_wire` (burst 4) of the streams: NetClient →
+    impaired loopback → NetGateway → ServeRuntime ("sync") or
+    AsyncServeRuntime ("async"); launch counts zeroed just before the
+    replay and read just after."""
+    obs = Observability()
+    policy = BatchPolicy(max_batch=4)
+    rt = (ServeRuntime(policy, device=dev, obs=obs) if runtime == "sync"
+          else AsyncServeRuntime(policy, device=dev, obs=obs))
+    try:
+        cli_t, srv_t = wire_pair(seed)
+        gw, client = net.NetGateway(rt, srv_t), net.NetClient(cli_t)
+        for s in specs:
+            sess = rt.open(s)
+            gw.open_wire(s.tenant_id)
+            client.attach(s.tenant_id, wire[s.tenant_id],
+                          grid=net.wire_grid(sess.engine))
+        K.reset_launch_counts()
+        acct = loadgen.replay_wire(gw, client, streams, burst=4)
+        launches, instances = dict(K.LAUNCHES), dict(K.INSTANCE_LAUNCHES)
+        st = rt.stats()
+    finally:
+        if runtime == "async":
+            rt.shutdown()
+    return {"syms": {s.tenant_id: client.symbols(s.tenant_id)
+                     for s in specs},
+            "acct": acct, "stats": st, "net": obs.snapshot()["net"],
+            "launches": launches, "instances": instances, "obs": obs}
+
+
+def check_wire(dev, specs, waves) -> dict:
+    """[12]'s tenants over the impaired wire through both runtimes: every
+    tenant's egress symbols == its offline engine bitwise; the int8 tenant
+    on an int8 wire == its twin on an fp32 wire (contract #12); no wire
+    error, and the impairment fired (duplicates and reordering); every
+    datapath launched, every launch rb."""
+    specs, wire, seen, twin = wire_tenants(specs, waves)
+    want = {s.tenant_id: s.build_engine(dev)(seen[s.tenant_id]).cpu().numpy()
+            for s in specs}
+    streams = slice_traffic(specs, {s.tenant_id: seen[s.tenant_id]
+                                    for s in specs})
+    runs = {rt: serve_wire(dev, specs, streams, wire, rt, seed=91)
+            for rt in ("sync", "async")}
+    # the same chunks through `loadgen.replay`, no wire and no telemetry:
+    # what the wire's host work costs, in the same call
+    rt = ServeRuntime(BatchPolicy(max_batch=4), device=dev)
+    for s in specs:
+        rt.open(s)
+    no_wire = {"acct": loadgen.replay(rt, streams), "stats": rt.stats()}
+    require(no_wire["acct"]["total_syms"] == runs["sync"]["acct"][
+        "total_syms"], f"[13] no-wire replay {no_wire['acct']}")
+    for name, run in runs.items():
+        c = run["net"]
+        require(not run["acct"]["errors"],
+                f"[13] {name}: wire errors {run['acct']['errors']}")
+        require(c["duplicates"] > 0 and c["reordered"] > 0
+                and c["gaps"] == 0 and c["crc_errors"] == 0,
+                f"[13] {name}: wire counters {c}")
+        for s in specs:
+            tid = s.tenant_id
+            got = run["syms"][tid]
+            require(got.shape == want[tid].shape
+                    and np.array_equal(got, want[tid]),
+                    f"[13] {name} {tid} ({wire[tid].name} wire): egress "
+                    f"symbols != offline")
+        require(np.array_equal(run["syms"][specs[0].tenant_id],
+                               run["syms"][twin]),
+                f"[13] {name}: int8 wire != fp32 wire for "
+                f"{specs[0].tenant_id}")
+        require(all(run["launches"][n] > 0 for n, _ in KERNELS.values()),
+                f"[13] {name}: launches {run['launches']}")
+        require_instances(run["launches"], run["instances"], f"[13] {name}")
+        text = OBS_report.render(run["obs"].snapshot())
+        require("[net]" in text, f"[13] {name}: report lacks [net]:\n{text}")
+    return {"runs": runs, "no_wire": no_wire,
+            "wire": {t: w.name for t, w in wire.items()}}
+
+
+def check_control(dev, specs, waves) -> dict:
+    """One int8 tenant over the wire: OPEN → DATA → SWAP_WEIGHTS → DATA →
+    ROLLBACK → DATA → EOS → CLOSE; the spliced stream == each weight
+    epoch's offline engine on its segment, bitwise. Then a frame dropped
+    on one of three tenants: a stream_gap and a NACK for that tenant only,
+    the other two bitwise."""
+    rng = np.random.default_rng(13)
+    fmts = tuple(tuple(FORMATS["ht"][k] for k in ("w_int", "w_frac",
+                                                  "a_int", "a_frac"))
+                 for _ in range(CFG.layers))
+    w_old, w_new = [tuple((w.numpy(), b.numpy()) for w, b in
+                          host_folded(rng)) for _ in range(2)]
+    wave = waveform(rng, SYMS)
+    chunks = loadgen.chop(wave, 1024 * CFG.n_os, seed=13)
+    rt = ServeRuntime(BatchPolicy(max_batch=4), device=dev)
+    cli_t, srv_t = wire_pair(71)
+    gw, client = net.NetGateway(rt, srv_t), net.NetClient(cli_t)
+    ack = client.open("ctl", CFG, w_old, formats=fmts, backend="fused_int8",
+                      pump=gw.step)
+    require(ack["backend"] == "fused_int8"
+            and ack["wire_dtype"] == int(net.WireDtype.INT8)
+            and (ack["a_int"], ack["a_frac"]) == fmts[0][2:],
+            f"[13b] open ack {ack}")
+    def send(part):
+        for c in part:
+            client.send_samples("ctl", c)
+        gw.settle()
+        client.poll(max_datagrams=256)
+
+    third = len(chunks) // 3
+    send(chunks[:third])
+    epochs = [client.swap_weights("ctl", w_new, pump=gw.step)["epoch"]]
+    send(chunks[third:2 * third])
+    epochs.append(client.rollback_weights("ctl", pump=gw.step)["epoch"])
+    for c in chunks[2 * third:]:
+        client.send_samples("ctl", c)
+    client.finish("ctl")
+    acct = loadgen.replay_wire(gw, client, {"ctl": []})
+    require(not acct["errors"] and epochs == [1, 2],
+            f"[13b] errors {acct['errors']}, epochs {epochs}")
+    log = rt.sessions.get("ctl").swap_log
+    (_, p0), (_, p1), (_, p2) = log
+    require(p0 == 0 < p1 < p2, f"[13b] swap log {log}")
+
+    def offline(w):
+        return TenantSpec("x", CFG, weights=w, formats=fmts,
+                          backend="fused_int8").build_engine(dev)(
+            wave).cpu().numpy()
+    old, new = offline(w_old), offline(w_new)
+    vp = CFG.v_parallel
+    want = np.concatenate([old[:p1 * vp], new[p1 * vp:p2 * vp],
+                           old[p2 * vp:]])
+    got = client.symbols("ctl")
+    require(got.shape == want.shape and np.array_equal(got, want),
+            "[13b] spliced stream != offline per weight epoch")
+    n_spliced = int(want.shape[0])
+    closed = client.close("ctl", pump=gw.step)
+    require(closed["syms_emitted"] == n_spliced and "ctl" not in
+            rt.sessions, f"[13b] close ack {closed}")
+    commands = rt.obs.snapshot()["net"]["ctrl_commands"]
+
+    # a drop on one tenant: datagram 3 is tenant 0's second frame (burst 1,
+    # three tenants round-robin on a FIFO wire)
+    trio = [specs[1], specs[5], specs[8]]
+    rt = ServeRuntime(BatchPolicy(max_batch=4), device=dev)
+    cli_t, srv_t = wire_pair(72, drop_idx=(3,))
+    gw = net.NetGateway(rt, srv_t, reorder_window=2)
+    client = net.NetClient(cli_t)
+    for s in trio:
+        sess = rt.open(s)
+        gw.open_wire(s.tenant_id)
+        client.attach(s.tenant_id, net.WireDtype.INT8 if s.tenant_id
+                      .startswith("ht") else net.WireDtype.FP32,
+                      grid=net.wire_grid(sess.engine))
+    streams = slice_traffic(trio, waves)
+    acct = loadgen.replay_wire(gw, client, streams, burst=1)
+    lossy = trio[0].tenant_id
+    require(set(acct["errors"]) == {lossy}
+            and "stream_gap" in acct["errors"][lossy]
+            and any("stream_gap" in e for e in client.errors(lossy))
+            and rt.obs.snapshot()["net"]["gaps"] == 1,
+            f"[13b] drop: errors {acct['errors']}, NACKs "
+            f"{client.errors(lossy)}")
+    for s in trio[1:]:
+        tid = s.tenant_id
+        want = s.build_engine(dev)(waves[tid]).cpu().numpy()
+        require(not client.errors(tid) and gw.ingress.error(tid) is None
+                and np.array_equal(client.symbols(tid), want),
+                f"[13b] drop: {tid} errors {client.errors(tid)} or != "
+                f"offline")
+    return {"epochs": [list(e) for e in log], "syms": n_spliced,
+            "ctrl_commands": commands, "drop_error": acct["errors"][lossy],
+            "nacks": client.errors(lossy),
+            "intact": [s.tenant_id for s in trio[1:]]}
+
+
+def check_drift(dev, specs) -> dict:
+    """drift_streams on the card for both drifting channels
+    (DRIFT_TENANTS tenants, DRIFT_BURSTS bursts of SYMS symbols,
+    DriftSchedule(8, 8)): at t = 0 each burst == the stationary simulator
+    on the same generator within DRIFT_ATOL, pilots equal; a second draw
+    repeats bitwise and is timed. Then the IM/DD tenant 0's whole drift
+    stream, served by an int8 engine over the int8 wire == offline."""
+    sch = DriftSchedule(8, 8)
+    ids = [f"d{i}" for i in range(DRIFT_TENANTS)]
+    out, streams = {}, {}
+    for name, ch, sim in (("proakis", DriftingProakis(), proakis.simulate),
+                          ("imdd", DriftingIMDD(), imdd.simulate)):
+        streams[name], pilots = loadgen.drift_streams(
+            ch, sch, ids, DRIFT_BURSTS, SYMS, seed=23, device=dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        again, _ = loadgen.drift_streams(ch, sch, ids, DRIFT_BURSTS, SYMS,
+                                         seed=23, device=dev)
+        draw_s = time.perf_counter() - t0
+        worst = 0.0
+        for i, tid in enumerate(ids):
+            for b in range(DRIFT_BURSTS):
+                rx = streams[name][tid][b]
+                require(rx.shape == (SYMS * CFG.n_os,)
+                        and bool(np.isfinite(rx).all())
+                        and np.array_equal(rx, again[tid][b]),
+                        f"[13c] {name} {tid} burst {b}: shape, finiteness "
+                        f"or repeat")
+                if sch.t_at(b) > 0.0:
+                    continue
+                want, syms = sim(loadgen._burst_generator(23, b, i, dev),
+                                 ch.cfg, SYMS, device=dev)
+                err = float(np.max(np.abs(rx - want.cpu().numpy())))
+                worst = max(worst, err)
+                require(err <= DRIFT_ATOL and np.array_equal(
+                    pilots[tid][b], syms.cpu().numpy()),
+                    f"[13c] {name} {tid} burst {b}: t = 0 vs stationary "
+                    f"max |diff| {err:.3e}")
+        out[name] = {"t0_vs_stationary_max_abs": worst,
+                     "draw_ms_per_burst": draw_s / DRIFT_BURSTS * 1e3}
+    spec = dataclasses.replace(specs[0], tenant_id="drift-imdd")
+    wave = np.concatenate(streams["imdd"][ids[0]])
+    run = serve_wire(dev, [spec], {spec.tenant_id: loadgen.chop(
+        wave, 1024 * CFG.n_os, seed=5)}, {spec.tenant_id: net.WireDtype.INT8},
+        "sync", seed=93)
+    want = spec.build_engine(dev)(wave).cpu().numpy()
+    require(not run["acct"]["errors"]
+            and np.array_equal(run["syms"][spec.tenant_id], want),
+            "[13c] the drift stream over the wire != offline")
+    out["served"] = {"tenant": spec.tenant_id, "syms": int(want.shape[0]),
+                     "agg_syms_per_s": run["acct"]["agg_syms_per_s"]}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2666,13 +2970,68 @@ def main() -> int:
     print(f"[12b] the async replay again under torch.profiler (the replay "
           f"only; the tenants were opened before): {json.dumps(atrace)}",
           flush=True)
+    wired = check_wire(dev, specs, waves)
+    lines = {}
+    for name, r in wired["runs"].items():
+        c, lat = r["net"], r["net"]["ingress_to_emit_s"]
+        lines[name] = {
+            "agg_syms_per_s": r["acct"]["agg_syms_per_s"],
+            "elapsed_s": r["acct"]["elapsed_s"],
+            "total_syms": r["acct"]["total_syms"],
+            "rounds": r["acct"]["rounds"],
+            "ingress_to_emit_p50_ms": lat["p50"] * 1e3,
+            "ingress_to_emit_p99_ms": lat["p99"] * 1e3,
+            "p50_latency_ms": r["stats"]["p50_latency_ms"],
+            "p99_latency_ms": r["stats"]["p99_latency_ms"],
+            "launches": r["stats"]["launches"],
+            "mean_batch": r["stats"]["mean_batch"],
+            "kernel_launches": r["launches"],
+            **{k: c[k] for k in ("frames_in", "frames_out", "duplicates",
+                                 "reordered", "frames_parked",
+                                 "credits_granted", "frames_dropped")}}
+    nw = wired["no_wire"]
+    lines["sync_no_wire"] = {
+        "agg_syms_per_s": nw["acct"]["agg_syms_per_s"],
+        "elapsed_s": nw["acct"]["elapsed_s"],
+        "p50_latency_ms": nw["stats"]["p50_latency_ms"],
+        "p99_latency_ms": nw["stats"]["p99_latency_ms"],
+        "launches": nw["stats"]["launches"]}
+    print(f"[13] the wire ({len(wired['wire'])} tenants: [12]'s nine and "
+          f"ht-0 again on an fp32 wire; wires {json.dumps(wired['wire'])}; "
+          f"loadgen.chop ~1024-symbol chunks, NetClient -> loopback "
+          f"(reorder window {WIRE_REORDER}, duplicates {WIRE_DUP}, each "
+          f"way) -> NetGateway -> ServeRuntime / AsyncServeRuntime, "
+          f"loadgen.replay_wire burst 4): egress == offline bitwise, int8 "
+          f"wire == fp32 wire, no wire errors, every launch rb; "
+          f"sync_no_wire: the same chunks by loadgen.replay on a "
+          f"ServeRuntime, no wire, no link telemetry: "
+          f"{json.dumps(lines)}; {card}", flush=True)
+    shapes13 = check_serving_shapes(inputs, wired["runs"]["async"]["stats"],
+                                    tiles_used)
+    print(f"[13a] kernel == plain bitwise at the async wire run's launch "
+          f"shapes: {shapes13}", flush=True)
+    ctl = check_control(dev, specs, waves)
+    print(f"[13b] control plane over the wire (int8 tenant, OPEN -> DATA -> "
+          f"SWAP_WEIGHTS -> DATA -> ROLLBACK -> DATA -> EOS -> CLOSE): "
+          f"spliced == offline per epoch bitwise; a frame dropped on one of "
+          f"three tenants: stream_gap and NACK for it only, the others "
+          f"bitwise: {json.dumps(ctl)}", flush=True)
+    drifted = check_drift(dev, specs)
+    print(f"[13c] drift traffic on the card ({DRIFT_TENANTS} tenants x "
+          f"{DRIFT_BURSTS} bursts of {SYMS} symbols, DriftSchedule(8, 8); "
+          f"t = 0 vs the stationary simulator on the same draws, bound "
+          f"{DRIFT_ATOL}; draw ms per burst of {DRIFT_TENANTS} tenants, "
+          f"host clock, the second draw): {json.dumps(drifted)}; {card}",
+          flush=True)
     path_launches = {
         name: {"[4] serve": run["launches"][name],
                "[11] partitioned N_i=64": part_launches[name],
                "[12] sync": threaded["sync"]["launches"][name],
-               "[12] async": threaded["async"]["launches"][name]}
+               "[12] async": threaded["async"]["launches"][name],
+               "[13] wire sync": wired["runs"]["sync"]["launches"][name],
+               "[13] wire async": wired["runs"]["async"]["launches"][name]}
         for name, _ in KERNELS.values()}
-    del threaded
+    del threaded, wired
 
     trained = train_families(dev)
     summary = {k: {"ber": v["info"]["ber"], "ms_per_step": v["ms_per_step"],

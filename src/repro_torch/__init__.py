@@ -5,9 +5,10 @@ port module sits at the same relative path as its counterpart:
 
   core/      equalizer topology, QAT formats, autotune, EqualizerEngine;
              the FIR and Volterra baselines and their training (train_eq);
-             stream partitioning over N_i instances and the paper's
-             timing model and l_inst framework
-  channels/  simulated IM/DD and Proakis-B links
+             stream partitioning over N_i instances, the paper's
+             timing model and l_inst framework, and design-space
+             exploration (dse)
+  channels/  simulated IM/DD and Proakis-B links, stationary and drifting
   data/      channel frames drawn on the device for training
   optim/     AdamW and learning-rate schedules on tensor trees
   configs/   the paper's operating points (equalizer_ht, equalizer_lp)
@@ -24,6 +25,8 @@ port module sits at the same relative path as its counterpart:
   runtime/   straggler monitor
   serve/     chunker, engine pool, sessions, micro-batcher, ServeRuntime
              and the threaded AsyncServeRuntime; load generation
+  net/       the packetized wire: frame codec, transports, gateway
+             (ingress/egress over a runtime), control plane, client
   examples/  quickstart and stream_equalizer (`python -m
              repro_torch.examples.<name> [--device cpu]`)
 

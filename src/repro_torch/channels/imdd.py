@@ -77,11 +77,18 @@ def _responses(n: int, cfg: IMDDConfig, device: torch.device):
 
 def _propagate(syms: torch.Tensor, ase_re: torch.Tensor,
                ase_im: torch.Tensor, noise: torch.Tensor,
-               cfg: IMDDConfig) -> torch.Tensor:
+               cfg: IMDDConfig, cd: Optional[torch.Tensor] = None,
+               snr_db: Optional[float] = None) -> torch.Tensor:
     """The link on given draws: syms (..., n_syms) int; ase_re, ase_im and
-    noise (..., n_syms·sim_os) standard normals → rx (..., n_syms·N_os)."""
-    taps, cd, pd_lpf = _responses(syms.shape[-1] * cfg.sim_os, cfg,
-                                  syms.device)
+    noise (..., n_syms·sim_os) standard normals → rx (..., n_syms·N_os).
+
+    ``cd`` (the all-pass on the field, complex64) and ``snr_db`` override
+    the configuration's fiber and electrical SNR (the drifting channel,
+    `channels.drift`)."""
+    taps, cd_cfg, pd_lpf = _responses(syms.shape[-1] * cfg.sim_os, cfg,
+                                      syms.device)
+    cd = cd_cfg if cd is None else cd
+    snr_db = cfg.snr_db if snr_db is None else snr_db
     with fp32_exact():
         # transmitter: upsample + RRC shape at the simulation oversampling
         amps = bits_to_pam(syms, cfg.levels)
@@ -107,7 +114,7 @@ def _propagate(syms: torch.Tensor, ase_re: torch.Tensor,
         current = torch.abs(field_out) ** 2
         current = torch.real(torch.fft.ifft(
             torch.fft.fft(current.to(torch.complex64)) * pd_lpf))
-        current = add_awgn(current.float(), noise, cfg.snr_db)
+        current = add_awgn(current.float(), noise, snr_db)
 
     # resample to N_os samples/symbol + normalize
     return normalize(current[..., ::cfg.sim_os // cfg.n_os])

@@ -29,18 +29,33 @@ class ProakisConfig:
 
 
 def _propagate(syms: torch.Tensor, noise: torch.Tensor,
-               cfg: ProakisConfig) -> torch.Tensor:
+               cfg: ProakisConfig, h=PROAKIS_B,
+               snr_db: Optional[float] = None) -> torch.Tensor:
     """syms (..., n_syms) int, noise (..., n_syms·N_os) standard normal →
-    rx (..., n_syms·N_os)."""
+    rx (..., n_syms·N_os). ``h`` (3 symbol-rate taps) and ``snr_db``
+    override Proakis-B and the configuration's SNR (the drifting channel,
+    `channels.drift`)."""
     amps = bits_to_pam(syms, cfg.levels)
     # pulse shaping at N_os
     x = fir_same(upsample(amps, cfg.n_os),
                  rc_taps(cfg.rc_taps, cfg.rc_beta, cfg.n_os))
     # the channel acts at symbol rate; at N_os it is zero-stuffed so the ISI
     # couples neighbouring symbols
-    h = torch.tensor(PROAKIS_B, dtype=torch.float32, device=syms.device)
+    h = torch.as_tensor(h, dtype=torch.float32, device=syms.device)
     y = fir_same(x, upsample(h, cfg.n_os)[: 2 * cfg.n_os + 1])
-    return normalize(add_awgn(y, noise, cfg.snr_db))
+    return normalize(add_awgn(y, noise,
+                              cfg.snr_db if snr_db is None else snr_db))
+
+
+def _draws(generator: torch.Generator, cfg: ProakisConfig, n_syms: int,
+           batch: Optional[int], device: torch.device):
+    """(syms, noise) from ``generator`` on ``device``."""
+    lead = () if batch is None else (batch,)
+    syms = torch.randint(0, cfg.levels, (*lead, n_syms), generator=generator,
+                         device=device)
+    noise = torch.randn((*lead, n_syms * cfg.n_os), generator=generator,
+                        device=device)
+    return syms, noise
 
 
 def simulate(generator: torch.Generator, cfg: ProakisConfig, n_syms: int,
@@ -48,10 +63,6 @@ def simulate(generator: torch.Generator, cfg: ProakisConfig, n_syms: int,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (rx[(batch,) n_syms·n_os], syms[(batch,) n_syms]) like
     `imdd.simulate`; ``generator`` must live on ``device``."""
-    dev = resolve_device(device)
-    lead = () if batch is None else (batch,)
-    syms = torch.randint(0, cfg.levels, (*lead, n_syms), generator=generator,
-                         device=dev)
-    noise = torch.randn((*lead, n_syms * cfg.n_os), generator=generator,
-                        device=dev)
+    syms, noise = _draws(generator, cfg, n_syms, batch,
+                         resolve_device(device))
     return _propagate(syms, noise, cfg), syms

@@ -1,4 +1,4 @@
-from . import (autotune, engine, equalizer, fir, qat, seqlen_opt,
+from . import (autotune, dse, engine, equalizer, fir, qat, seqlen_opt,
                stream_partition, timing_model, train_eq, volterra)
 from .engine import EqualizerEngine
 from .equalizer import CNNEqConfig
@@ -7,6 +7,6 @@ from .qat import QATConfig
 from .volterra import VolterraConfig
 
 __all__ = ["CNNEqConfig", "EqualizerEngine", "FIRConfig", "QATConfig",
-           "VolterraConfig", "autotune", "engine", "equalizer", "fir", "qat",
-           "seqlen_opt", "stream_partition", "timing_model", "train_eq",
-           "volterra"]
+           "VolterraConfig", "autotune", "dse", "engine", "equalizer", "fir",
+           "qat", "seqlen_opt", "stream_partition", "timing_model",
+           "train_eq", "volterra"]

@@ -1,13 +1,14 @@
 """Console summary over an observability snapshot.
 
 Port of `repro.obs.report`, with the sections of the subtrees the port
-writes: `serve`, `link`, `slo` and `trace` (the reference's fleet, adapt
-and net sections come with those slices). `render(snapshot)` turns the
+writes: `serve`, `net`, `link`, `slo` and `trace` (the reference's fleet
+and adapt sections come with those slices). `render(snapshot)` turns the
 nested registry tree (the dict returned by `Observability.snapshot()` /
 `MetricsRegistry.snapshot()`, or the JSON written by
 `Observability.write_snapshot`) into a compact human-readable report:
 launch latency quantiles, throughput, per-tenant session state, recovery
-and degradation, link quality, SLO latches and alerts, and trace-ring
+and degradation, the wire's frame and impairment counters and its
+ingress-to-emit latency, link quality, SLO latches and alerts, and trace-ring
 occupancy.
 
 CLI:
@@ -134,6 +135,27 @@ def _serve_section(serve: Dict[str, Any]) -> List[str]:
     return out
 
 
+def _net_section(net: Dict[str, Any]) -> List[str]:
+    out = ["[net]"]
+    frames = []
+    for k in ("frames_in", "frames_out", "frames_dropped", "frames_parked"):
+        if k in net:
+            frames.append(f"{k.split('_', 1)[1]}={_fmt(net[k])}")
+    if frames:
+        out.append("  frames: " + "  ".join(frames))
+    wire = []
+    for k in ("crc_errors", "duplicates", "reordered", "gaps",
+              "nacks_sent", "credits_granted"):
+        if k in net:
+            wire.append(f"{k}={_fmt(net[k])}")
+    if wire:
+        out.append("  wire:   " + "  ".join(wire))
+    line = _hist_line("ingress_to_emit_s", net.get("ingress_to_emit_s"))
+    if line:
+        out.append(line)
+    return out
+
+
 def _link_section(link: Dict[str, Any]) -> List[str]:
     out = ["[link]"]
     for tid, node in sorted(link.items()):
@@ -209,6 +231,8 @@ def render(snapshot: Dict[str, Any]) -> str:
                      f"{meta.get('callback_names', 0)} callbacks")
     if isinstance(snapshot.get("serve"), dict):
         lines += _serve_section(snapshot["serve"])
+    if isinstance(snapshot.get("net"), dict):
+        lines += _net_section(snapshot["net"])
     if isinstance(snapshot.get("link"), dict):
         lines += _link_section(snapshot["link"])
     if isinstance(snapshot.get("slo"), dict):

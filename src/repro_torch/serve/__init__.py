@@ -14,10 +14,12 @@ not imported here):
                deadline/backoff launch discipline, bounded session
                failover)
   loadgen    — reproducible tenant traffic (chop, random_waveforms,
-               replay)
+               replay; replay_wire through the net layer; drift_streams
+               and replay_adaptive over a drifting channel)
 """
 from .chunker import CarrySnapshot, ChunkPlan, StreamChunker
-from .loadgen import chop, random_waveforms, replay
+from .loadgen import (chop, drift_streams, random_waveforms, replay,
+                      replay_adaptive, replay_wire)
 from .pool import EnginePool
 from .recovery import (CorruptOutput, DegradationController, DeviceLost,
                        Fault, FaultPlan, InjectedFault, LaunchTimeout,
@@ -33,4 +35,5 @@ __all__ = ["AsyncServeRuntime", "BatchPolicy", "CarrySnapshot", "ChunkPlan",
            "LaunchTimeout", "MicroBatcher", "RecoveryPolicy", "RecoveryStats",
            "Request", "ServeRuntime", "Session", "SessionManager",
            "StreamChunker", "TenantShedError", "TenantSpec", "TrafficStats",
-           "chop", "random_waveforms", "replay"]
+           "chop", "drift_streams", "random_waveforms", "replay",
+           "replay_adaptive", "replay_wire"]

@@ -67,8 +67,13 @@ step. The streaming slice: `partitioned_apply` over 8 and 64 instances of
 datapath, through the register-blocked kernel; `AsyncServeRuntime` on the
 card equals `ServeRuntime` and the offline engine bitwise, and every
 execute — on the launcher thread or the deadline watchdog's worker — runs
-on the runtime's own CUDA stream.
+on the runtime's own CUDA stream. The wire slice: streams served over the
+impaired loopback (int8, BF16 and fp32 wires; sync and async runtimes)
+equal the offline engine bitwise through the register-blocked kernel, an
+int8 wire equals an fp32 wire, and `drift_streams` draws on the card,
+repeating bitwise and at t = 0 within 1e-4 of the stationary simulator.
 """
+import dataclasses
 import hashlib
 import threading
 
@@ -107,8 +112,13 @@ from repro_torch.launch import train as lm_train
 from repro_torch.models import attention as lm_attn
 from repro_torch.models import registry as lm_registry
 from repro_torch.core import stream_partition as sp
+from repro_torch import net
+from repro_torch.channels import imdd, proakis
+from repro_torch.channels.drift import (DriftingIMDD, DriftingProakis,
+                                        DriftSchedule)
 from repro_torch.serve import (AsyncServeRuntime, BatchPolicy, MicroBatcher,
-                               ServeRuntime, TenantSpec, chop)
+                               ServeRuntime, TenantSpec, chop, loadgen,
+                               replay_wire)
 
 FMTS = ((2, 5, 3, 4),) * 3
 QAT = {"w_int": 2.0, "w_frac": 5.0, "a_int": 3.0, "a_frac": 4.0}
@@ -328,6 +338,95 @@ def test_async_launches_run_on_the_launchers_stream_on_card(
     for s in specs:
         want = s.build_engine(cuda_device)(waves[s.tenant_id]).cpu().numpy()
         np.testing.assert_array_equal(got[s.tenant_id], want)
+
+
+def _wire_serve(rt, specs, streams, wire_of, seed):
+    """`replay_wire` of the streams through a NetClient, an impaired
+    loopback (reorder window 6, duplicates 0.2, both ways) and a
+    NetGateway over ``rt``; returns the client, the accounting and the
+    runtime's net counters."""
+    cli_t, srv_t = net.loopback_pair(
+        net.WireSchedule(seed, reorder_window=6, dup_prob=0.2),
+        net.WireSchedule(seed + 1, reorder_window=6, dup_prob=0.2))
+    gw, client = net.NetGateway(rt, srv_t), net.NetClient(cli_t)
+    for s in specs:
+        sess = rt.open(s)
+        gw.open_wire(s.tenant_id)
+        client.attach(s.tenant_id, wire_of[s.tenant_id],
+                      grid=net.wire_grid(sess.engine))
+    acct = replay_wire(gw, client, streams, burst=4)
+    return client, acct, rt.obs.snapshot()["net"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runtime", ["sync", "async"])
+def test_wire_serving_bitwise_on_card(cuda_device, runtime):
+    """The packetized wire on the card: int8 tenants on an int8 wire (and
+    one on an fp32 wire: the same symbols, contract #12), a bf16 tenant on
+    a BF16 wire (offline on the decoded waveform), the rest fp32; every
+    stream == its offline engine bitwise under reordering and duplication,
+    through the register-blocked kernel."""
+    specs, waves, _ = _slice_tenants()
+    twin = dataclasses.replace(specs[0], tenant_id="int8-0-fp32wire")
+    specs.append(twin)
+    waves[twin.tenant_id] = waves[specs[0].tenant_id]
+    wire_of = {s.tenant_id: (net.WireDtype.INT8 if s.tenant_id.startswith(
+        "int8") else net.WireDtype.FP32) for s in specs}
+    wire_of["bf16-0"] = net.WireDtype.BF16
+    wire_of[twin.tenant_id] = net.WireDtype.FP32
+    streams = {s.tenant_id: chop(waves[s.tenant_id], 400, seed=i)
+               for i, s in enumerate(specs)}
+    kern.reset_launch_counts()
+    policy = BatchPolicy(max_batch=3)
+    if runtime == "sync":
+        client, acct, counters = _wire_serve(ServeRuntime(policy), specs,
+                                             streams, wire_of, 61)
+    else:
+        with AsyncServeRuntime(policy) as rt:
+            client, acct, counters = _wire_serve(rt, specs, streams,
+                                                 wire_of, 61)
+    assert not acct["errors"]
+    assert counters["duplicates"] > 0 and counters["reordered"] > 0
+    assert kern.INSTANCE_LAUNCHES["generic"] == 0
+    assert kern.INSTANCE_LAUNCHES["rb"] == sum(kern.LAUNCHES.values()) > 0
+    for s in specs:
+        wave = waves[s.tenant_id]
+        if wire_of[s.tenant_id] == net.WireDtype.BF16:
+            wave = net.decode_samples(net.encode_samples(
+                wave, net.WireDtype.BF16), net.WireDtype.BF16)
+        want = s.build_engine(cuda_device)(wave).cpu().numpy()
+        np.testing.assert_array_equal(client.symbols(s.tenant_id), want)
+    np.testing.assert_array_equal(client.symbols("int8-0"),
+                                  client.symbols(twin.tenant_id))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channel", [DriftingProakis(), DriftingIMDD()],
+                         ids=["proakis", "imdd"])
+def test_drift_draw_on_card(cuda_device, channel):
+    """drift_streams draws on the card: the same seed repeats bitwise, and
+    at t = 0 every burst equals the stationary simulator on the same
+    generator within the channels' bound (atol 1e-4)."""
+    sch = DriftSchedule(2, 2)
+    streams, pilots = loadgen.drift_streams(channel, sch, ["a", "b"], 4,
+                                            7320, seed=9)
+    again, _ = loadgen.drift_streams(channel, sch, ["a", "b"], 4, 7320,
+                                     seed=9)
+    sim = (proakis.simulate if isinstance(channel, DriftingProakis)
+           else imdd.simulate)
+    for i, t in enumerate(("a", "b")):
+        for burst in range(4):
+            rx = streams[t][burst]
+            assert rx.shape == (14640,) and np.isfinite(rx).all()
+            np.testing.assert_array_equal(rx, again[t][burst])
+            if sch.t_at(burst) == 0.0:
+                want, syms = sim(loadgen._burst_generator(
+                    9, burst, i, cuda_device), channel.cfg, 7320,
+                    device=cuda_device)
+                np.testing.assert_array_equal(pilots[t][burst],
+                                              syms.cpu().numpy())
+                np.testing.assert_allclose(rx, want.cpu().numpy(), rtol=0,
+                                           atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -29,7 +29,9 @@ from repro_torch.launch import train as lm_train
 from repro_torch.models import transformer as lm_transformer
 from repro_torch.models import xlstm as lm_xlstm
 from repro_torch.examples import quickstart, stream_equalizer
-from repro_torch.serve import AsyncServeRuntime, ServeRuntime
+from repro_torch.channels.drift import (DriftingIMDD, DriftingProakis,
+                                        DriftSchedule)
+from repro_torch.serve import AsyncServeRuntime, ServeRuntime, loadgen
 
 REPO_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 
@@ -153,6 +155,30 @@ def test_streaming_modules_import_without_jax(name):
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+WIRE_DRIFT_MODULES = ("repro_torch.net", "repro_torch.net.frame",
+                      "repro_torch.net.transport", "repro_torch.net.gateway",
+                      "repro_torch.net.control", "repro_torch.net.client",
+                      "repro_torch.channels.drift", "repro_torch.core.dse")
+
+
+@pytest.mark.parametrize("name", WIRE_DRIFT_MODULES)
+def test_wire_and_drift_modules_import_without_jax_or_ml_dtypes(name):
+    """The wire's BF16 codec runs through torch: neither jax nor ml_dtypes
+    (which the reference's codec needs) is loaded."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({name!r})
+        bad = sorted(k for k in sys.modules
+                     if k in ("jax", "ml_dtypes", "repro")
+                     or k.startswith(("jax.", "ml_dtypes.", "repro.")))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO_SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -192,6 +218,10 @@ def _folded():
                           lm_configs.get_config("xlstm-125m", True)),
     lambda: lm_xlstm.init_states(lm_configs.get_config("xlstm-125m", True),
                                  1),
+    lambda: DriftingProakis().at(0.0),
+    lambda: DriftingIMDD().at(1.0),
+    lambda: loadgen.drift_streams(DriftingIMDD(), DriftSchedule(), ["t"], 1,
+                                  8),
 ])
 def test_entry_point_without_device_raises_without_card(monkeypatch, entry):
     _no_card(monkeypatch)
