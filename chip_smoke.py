@@ -101,6 +101,47 @@ result line), in the order they run:
      simulator on the same generator within atol 1e-4, a second draw
      repeats bitwise and is timed (ms per burst); the IM/DD tenant 0's
      whole drift stream served over the int8 wire equals offline bitwise;
+  14. online adaptation at the reference's acceptance sizes
+     (tests/test_adapt.py `test_drift_recovery_acceptance`,
+     benchmarks/bench_adapt.py): a CNN (`CNNEqConfig()`) trained 600
+     steps on the card on `DriftingProakis()` at t = 0; a "frozen" and an
+     "adaptive" fused_fp32 tenant from it on `ServeRuntime`, the adaptive
+     one attached to an `adapt.OnlineAdapter` (AdaptPolicy(3072, 3072,
+     eval_capacity 8192), PromotionPolicy(min_eval_syms 1024,
+     eval_bucket_syms 512), FineTuneConfig(200, 8, 256, 3e-3)); 26 bursts
+     × 2048 symbols under DriftSchedule(4, 6) (`loadgen.drift_streams`,
+     seed 3) through `loadgen.replay_adaptive(step_every=2)`, the counts
+     zeroed before. At least one promotion; the recovery criterion at
+     t = 1 against a freshly trained (600-step) equalizer on 2^14 fresh
+     symbols: frozen ≥ 4 × max(pre-drift, 1e-3), adaptive ≤ 2 × max(fresh,
+     2.5e-3), adaptive ≤ frozen / 4; the adaptive stream over each epoch's
+     positions in `swap_log` equals that epoch's spec's offline engine
+     bitwise; every launch rb. Prints the per-burst BER trajectories, the
+     actions, the fine-tune's ms per step, each cycle's wall seconds.
+     14a. `OnlineAdapter.start()` (its own CUDA stream) against
+     `AsyncServeRuntime` under live traffic (one tenant, 8 bursts × 1024
+     symbols, DriftSchedule(2, 3); the producer waits up to 2 s for the
+     thread's next cycle after each burst, so the fine-tunes and any swap
+     run while the stream is live): the stream complete, `swap_log`
+     monotone, no adapter or runtime error, bitwise per epoch, every
+     launch rb; then [14]'s streams replayed (`loadgen.replay`) through
+     `AsyncServeRuntime` with and without a continuously busy fine-tune
+     thread (bench_adapt's overhead ratio): symbols/s of each, best of 3
+     interleaved after a warm-up. 14b. [14a]'s sync twin run twice: the
+     same history and final weights, bitwise;
+  15. the fleet: [4]'s tenants in [12]'s chunks by `loadgen.replay`
+     through `FleetRuntime(n_workers=2)`, both workers on the card (each
+     with its own CUDA stream), a `FaultPlan` losing worker 1
+     (`device_lost`) after its third execute, the counts zeroed before:
+     every stream == its offline engine bitwise (every chunk once), 0
+     sessions poisoned, ≥ 1 migration in the `fleet.*` snapshot, every
+     datapath launched, every launch rb; prints symbols/s, chunk latency
+     p50/p99 (all workers and each) and launches per worker. 15a. each
+     kernel == plain bitwise at the fleet's most common launch shapes.
+     15b. `device_slow` (0.05 s) on worker 0: it fires, the worker lives,
+     the stream bitwise. 15c. [13]'s impaired loopback over a 2-worker
+     fleet with two tenants (fp32 and int8 wires): egress == offline
+     bitwise. Each of [14]–[15c] prints its wall seconds;
   6. train: `train_equalizer` on the card for the CNN (equalizer_ht widths,
      3-phase QAT), the FIR and the Volterra baselines on the default IM/DD
      link (40 GBd, 31.5 km, N_os = 2), 300 steps each; every loss finite,
@@ -239,14 +280,16 @@ result line), in the order they run:
      device activities.
 The line before the last is the `kernels` JSON (eleven kernels; the
 three cnn_eq rows also carry their launches on each path, `path_launches`:
-[4], [11], [12] and [13]);
+[4], [11], [12], [13], [14] and [15]);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Phases 3–5 and 11–13 use random weights from a seed (numpy), carried in
 through `repro_torch.interop`, and waveforms of PAM-2 through a short ISI
 filter with noise, also from a seed ([13c] draws its traffic from seeded
-card generators through the simulated channels); phases 6–7 train from seeded generators on
+card generators through the simulated channels; [14] trains and draws
+its drift traffic from seeded generators, the reference's seeds 0, 1, 3
+and 77 as numbers); phases 6–7 train from seeded generators on
 the simulated link; phases 8, 9 and 10 draw their weights from seeded card
 generators, phase 9 its tokens from the reference's seeded stream. Without
 a CUDA card the script exits with code 2.
@@ -322,8 +365,12 @@ from repro_torch.obs import (LinkMonitor, Observability,  # noqa: E402
                              SloEngine, SloRule)
 from repro_torch.obs import report as OBS_report  # noqa: E402
 from repro_torch.serve import (AsyncServeRuntime, BatchPolicy,  # noqa: E402
-                               Fault, FaultPlan, ServeRuntime, TenantSpec,
-                               loadgen)
+                               Fault, FaultPlan, FleetRuntime, ServeRuntime,
+                               TenantSpec, loadgen)
+from repro_torch.adapt import (AdaptPolicy, FineTuneConfig,  # noqa: E402
+                               OnlineAdapter, PromotionPolicy, engine_ber,
+                               fine_tune_from_buffer)
+from repro_torch.examples.adaptive_serving import burst_ber  # noqa: E402
 
 CFG = HT.CNN
 ROWS = HT.N_INSTANCES                 # 64 parallel instances
@@ -505,6 +552,30 @@ WIRE_REORDER, WIRE_DUP = 6, 0.2
 # draws (the channels' bound, tests/test_torch_channels.py)
 DRIFT_TENANTS, DRIFT_BURSTS = 4, 16
 DRIFT_ATOL = 1e-4
+# [14] adaptation at the reference's acceptance sizes (tests/test_adapt.py
+# test_drift_recovery_acceptance, benchmarks/bench_adapt.py): the
+# equalizer_lp topology on DriftingProakis(), a 600-step base at t = 0,
+# 26 bursts x 2048 symbols under DriftSchedule(4, 6), and the recovery
+# criterion's factors and floors
+ADAPT_CFG = eq.CNNEqConfig()
+ADAPT_BASE_STEPS, ADAPT_BURSTS, ADAPT_BURST_SYMS = 600, 26, 2048
+ADAPT_POLICY = AdaptPolicy(min_train_syms=3072, adapt_every_syms=3072,
+                           eval_capacity=8192,
+                           promotion=PromotionPolicy(min_eval_syms=1024,
+                                                     eval_bucket_syms=512))
+ADAPT_FT = FineTuneConfig(steps=200, batch=8, seq_syms=256, lr=3e-3)
+FROZEN_FACTOR, FROZEN_FLOOR = 4.0, 1e-3      # frozen >= 4 x max(pre, 1e-3)
+FRESH_FACTOR, FRESH_FLOOR = 2.0, 2.5e-3      # adaptive <= 2 x max(fresh, ..)
+# [14a]/[14b] the background scenario of
+# test_adapter_background_thread_with_live_async_traffic, at its sizes
+BG_POLICY = AdaptPolicy(min_train_syms=1024, adapt_every_syms=512,
+                        eval_capacity=4096,
+                        promotion=PromotionPolicy(min_eval_syms=512,
+                                                  eval_bucket_syms=256))
+BG_FT = FineTuneConfig(steps=10, batch=4, seq_syms=128, lr=1e-3)
+BG_PACE_S = 2.0           # [14a]: the longest wait for a cycle per burst
+# [15] the fleet: worker 1 lost after its FLEET_KILL_AFTER-th execute
+FLEET_KILL_AFTER = 3
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1289,6 +1360,415 @@ def check_drift(dev, specs) -> dict:
     out["served"] = {"tenant": spec.tenant_id, "syms": int(want.shape[0]),
                      "agg_syms_per_s": run["acct"]["agg_syms_per_s"]}
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: online adaptation, closing the drift loop
+# ---------------------------------------------------------------------------
+
+def record_epochs(sess) -> dict:
+    """weight epoch → the spec the session installed for it (epoch 0: the
+    spec it opened with), recorded as swaps and rollbacks install them."""
+    specs = {sess.spec.weight_epoch: sess.spec}
+    install = sess.install_spec
+
+    def recording(new_spec, prebuilt=None):
+        epoch = install(new_spec, prebuilt=prebuilt)
+        specs[epoch] = new_spec
+        return epoch
+    sess.install_spec = recording
+    return specs
+
+
+def check_epochs(dev, sess, specs: dict, wave: np.ndarray,
+                 got: np.ndarray, where: str) -> list:
+    """The stream over each epoch's positions in `swap_log` == that
+    epoch's spec's offline engine on the same samples, bitwise."""
+    vp = sess.v_parallel
+    log = sess.swap_log
+    require(log[0][1] == 0 and [e for e, _ in log] == sorted(
+        e for e, _ in log) and all(a[1] <= b[1] for a, b in
+                                   zip(log, log[1:])),
+            f"{where}: swap log {log}")
+    bounds = [p * vp for _, p in log] + [got.shape[0]]
+    for (epoch, _), a, b in zip(log, bounds, bounds[1:]):
+        want = specs[epoch].build_engine(dev)(wave).cpu().numpy()
+        require(want.shape == got.shape and np.array_equal(got[a:b],
+                                                           want[a:b]),
+                f"{where}: epoch {epoch} positions [{a}, {b}) != its "
+                f"offline engine")
+    return [list(e) for e in log]
+
+
+def timed_steps(adapter) -> list:
+    """Wrap `adapter.step` to record each call's wall seconds and actions."""
+    cycles = []
+    step = adapter.step
+
+    def timed(tenant_id=None):
+        t0 = time.perf_counter()
+        out = step(tenant_id)
+        cycles.append({"s": time.perf_counter() - t0,
+                       "actions": [r.action for r in out]})
+        return out
+    adapter.step = timed
+    return cycles
+
+
+def train_base(dev, ch, t: float, seed: int) -> tuple:
+    """A CNN trained on the drifting channel frozen at ``t`` (the
+    reference's 600-step `trained_base`); returns (params, bn, info,
+    wall seconds)."""
+    t0 = time.perf_counter()
+    params, bn, info = train_eq.train_equalizer(
+        torch.Generator().manual_seed(seed), "cnn", ADAPT_CFG,
+        ch.at(t, device=dev),
+        train_eq.EqTrainConfig(steps=ADAPT_BASE_STEPS, eval_syms=1 << 14),
+        device=dev)
+    return params, bn, info, time.perf_counter() - t0
+
+
+def adapt_spec(tid: str, params, bn) -> TenantSpec:
+    return TenantSpec(tid, ADAPT_CFG, params=params, bn_state=bn,
+                      backend="fused_fp32", tile_m=16)
+
+
+def check_adapt(dev) -> dict:
+    """[14]: a frozen and an adaptive tenant from one base on
+    `ServeRuntime(device=dev)`, replayed through the drift by
+    `replay_adaptive(step_every=2)`; at least one promotion, the
+    recovery criterion at t = 1 against a fresh 600-step equalizer, the
+    adaptive stream bitwise per epoch, every launch rb."""
+    ch = DriftingProakis()
+    params, bn, info, base_s = train_base(dev, ch, 0.0, seed=0)
+    ber0 = info["ber"]
+    rt = ServeRuntime(BatchPolicy(max_batch=2, max_wait_s=1e9), device=dev)
+    adapter = OnlineAdapter(rt, ADAPT_POLICY, ADAPT_FT)
+    rt.open(adapt_spec("frozen", params, bn))
+    sess = adapter.attach(adapt_spec("adaptive", params, bn))
+    epochs = record_epochs(sess)
+    sched = DriftSchedule(hold_bursts=4, ramp_bursts=6)
+    streams, pilots = loadgen.drift_streams(
+        ch, sched, ["frozen", "adaptive"], n_bursts=ADAPT_BURSTS,
+        syms_per_burst=ADAPT_BURST_SYMS, seed=3, device=dev)
+    cycles = timed_steps(adapter)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    acct = loadgen.replay_adaptive(rt, streams, pilots=pilots,
+                                   adapter=adapter, step_every=2)
+    replay_s = time.perf_counter() - t0
+    launches, instances = dict(K.LAUNCHES), dict(K.INSTANCE_LAUNCHES)
+    require_instances(launches, instances, "[14]")
+    require(launches[KERNELS["fp32"][0]] > 0, f"[14] launches {launches}")
+    history = adapter.history
+    promoted = [r for r in history if r.action == "promoted"]
+    require(bool(promoted) and sess.weight_epoch >= 1
+            and len(sess.swap_log) >= 2,
+            f"[14] no promotion: {[r.action for r in history]}")
+    wave = np.concatenate(streams["adaptive"])
+    log = check_epochs(dev, sess, epochs, wave, rt.output("adaptive"),
+                       "[14]")
+
+    rx1, sy1 = ch.at(1.0, device=dev)(
+        torch.Generator(device=dev).manual_seed(77), 1 << 14)
+    rx1, sy1 = rx1.cpu().numpy(), sy1.cpu().numpy()
+    params_f, bn_f, _, fresh_s = train_base(dev, ch, 1.0, seed=1)
+    ber_frozen = engine_ber(rt.sessions.get("frozen").engine, rx1, sy1)
+    ber_adapt = engine_ber(sess.engine, rx1, sy1)
+    ber_fresh = engine_ber(adapt_spec("fresh", params_f, bn_f)
+                           .build_engine(dev), rx1, sy1)
+    crit = {"pre_drift": ber0, "frozen": ber_frozen, "adaptive": ber_adapt,
+            "fresh": ber_fresh,
+            "frozen_degraded": ber_frozen >= FROZEN_FACTOR * max(
+                ber0, FROZEN_FLOOR),
+            "adaptive_recovered": ber_adapt <= FRESH_FACTOR * max(
+                ber_fresh, FRESH_FLOOR),
+            "adaptive_vs_frozen": ber_adapt <= ber_frozen / 4.0}
+    require(crit["frozen_degraded"] and crit["adaptive_recovered"]
+            and crit["adaptive_vs_frozen"],
+            f"[14] recovery criterion failed: {crit}")
+    tuned = [r.train_info for r in history if r.train_info is not None]
+    return {
+        "criterion": crit, "actions": [r.action for r in history],
+        "swap_log": log, "launches": launches,
+        "ber_frozen": [round(b, 4) for b in burst_ber(
+            rt.output("frozen"), pilots["frozen"])],
+        "ber_adaptive": [round(b, 4) for b in burst_ber(
+            rt.output("adaptive"), pilots["adaptive"])],
+        "fine_tune_ms_per_step": [i["wall_s"] / i["steps"] * 1e3
+                                  for i in tuned],
+        "cycle_s": [c["s"] for c in cycles],
+        "cycle_actions": [c["actions"] for c in cycles],
+        "base_train_s": base_s, "fresh_train_s": fresh_s,
+        "replay_s": replay_s, "agg_syms_per_s": acct["agg_syms_per_s"],
+        "state": (params, bn, streams)}
+
+
+def bg_streams(dev):
+    """[14a]'s traffic: one tenant, 8 bursts of 1024 symbols through
+    DriftSchedule(2, 3), seed 11."""
+    return loadgen.drift_streams(DriftingProakis(), DriftSchedule(2, 3),
+                                 ["bg"], n_bursts=8, syms_per_burst=1024,
+                                 seed=11, device=dev)
+
+
+def bg_spec() -> TenantSpec:
+    """The background scenario's tenant: seeded random weights."""
+    params = eq.init(torch.Generator().manual_seed(21), ADAPT_CFG,
+                     device="cpu")
+    return adapt_spec("bg", params, eq.init_bn_state(ADAPT_CFG, "cpu"))
+
+
+def check_adapt_background(dev) -> dict:
+    """[14a]: `OnlineAdapter.start()` against AsyncServeRuntime(device=dev)
+    under live traffic: the stream complete, `swap_log` monotone, no
+    adapter or runtime error, bitwise per epoch, every launch rb. The card
+    serves a burst in about a millisecond, far inside one adapter cycle,
+    so the producer waits (at most BG_PACE_S) for the thread's next cycle
+    after each burst: the fine-tunes, and any swap, then run while the
+    stream is live."""
+    streams, pilots = bg_streams(dev)
+    with AsyncServeRuntime(BatchPolicy(max_batch=1, max_wait_s=1e9),
+                           device=dev) as rt:
+        adapter = OnlineAdapter(rt, BG_POLICY, BG_FT)
+        require(adapter.stream is not None,
+                "[14a] the adapter has no CUDA stream")
+        sess = adapter.attach(bg_spec())
+        epochs = record_epochs(sess)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        adapter.start(interval_s=0.02)
+        try:
+            for chunk, labels in zip(streams["bg"], pilots["bg"]):
+                adapter.feed_pilots("bg", labels)
+                rt.submit("bg", chunk)
+                seen, t_pace = len(adapter.history), time.perf_counter()
+                while (len(adapter.history) == seen and time.perf_counter()
+                       - t_pace < BG_PACE_S):
+                    time.sleep(0.005)
+            rt.finish("bg")
+            rt.drain()
+        finally:
+            adapter.stop()
+        wall = time.perf_counter() - t0
+        launches, instances = dict(K.LAUNCHES), dict(K.INSTANCE_LAUNCHES)
+        errors = (list(adapter.errors), list(rt.errors))
+        out = rt.output("bg")
+    require(bool(adapter.history) and errors == ([], []),
+            f"[14a] history {len(adapter.history)}, errors {errors}")
+    require(out.shape == (8 * 1024,), f"[14a] stream shape {out.shape}")
+    require_instances(launches, instances, "[14a]")
+    log = check_epochs(dev, sess, epochs, np.concatenate(streams["bg"]),
+                       out, "[14a]")
+    return {"cycles": len(adapter.history),
+            "actions": [r.action for r in adapter.history],
+            "swap_log": log, "launches": launches, "wall_s": wall}
+
+
+def adapt_overhead(dev, state) -> dict:
+    """bench_adapt's overhead ratio on one card: [14]'s drift streams
+    replayed (`loadgen.replay`) through AsyncServeRuntime(device=dev)
+    with and without a continuously busy fine-tune thread (back-to-back
+    `fine_tune_from_buffer` rounds of [14]'s config, on its own CUDA
+    stream); a warm-up pass per arm, then the best of 3 interleaved."""
+    import threading
+    params, bn, streams = state
+    rx_buf, sy_buf = DriftingProakis().at(0.0, device=dev)(
+        torch.Generator(device=dev).manual_seed(8), 1 << 14)
+    rx_buf, sy_buf = rx_buf.cpu().numpy(), sy_buf.cpu().numpy()
+    rounds = []
+
+    def one_pass(busy: bool) -> float:
+        stop = threading.Event()
+
+        def trainer_loop():
+            gen = torch.Generator(device=dev).manual_seed(0)
+            with torch.cuda.stream(torch.cuda.Stream(device=dev)):
+                while not stop.is_set():
+                    fine_tune_from_buffer(gen, params, bn, ADAPT_CFG,
+                                          rx_buf, sy_buf, ADAPT_FT,
+                                          device=dev)
+                    rounds.append(1)
+
+        with AsyncServeRuntime(BatchPolicy(max_batch=2, max_wait_s=1e9),
+                               device=dev) as rt:
+            for tid in streams:
+                rt.open(adapt_spec(tid, params, bn))
+            th = threading.Thread(target=trainer_loop, daemon=True)
+            if busy:
+                th.start()
+            try:
+                rep = loadgen.replay(rt, streams)
+            finally:
+                stop.set()
+                if busy:
+                    th.join()
+        return rep["agg_syms_per_s"]
+
+    one_pass(False)
+    one_pass(True)
+    best = {False: 0.0, True: 0.0}
+    for _ in range(3):
+        for busy in (False, True):
+            best[busy] = max(best[busy], one_pass(busy))
+    return {"idle_syms_per_s": best[False], "busy_syms_per_s": best[True],
+            "throughput_ratio": best[True] / best[False],
+            "fine_tune_rounds": len(rounds)}
+
+
+def check_adapt_determinism(dev) -> dict:
+    """[14b]: [14a]'s sync twin (ServeRuntime, `replay_adaptive`) run
+    twice: the same history and the same final weights, bitwise."""
+    def run():
+        streams, pilots = bg_streams(dev)
+        rt = ServeRuntime(BatchPolicy(max_batch=1, max_wait_s=1e9),
+                          device=dev)
+        adapter = OnlineAdapter(rt, BG_POLICY, BG_FT)
+        sess = adapter.attach(bg_spec())
+        loadgen.replay_adaptive(rt, streams, pilots=pilots, adapter=adapter)
+        hist = [(r.action, r.weight_epoch, repr(r.shadow),
+                 None if r.train_info is None else
+                 (r.train_info["loss_first"], r.train_info["loss_last"]))
+                for r in adapter.history]
+        return hist, interop.to_numpy(sess.spec.params), rt.output("bg")
+
+    (h1, p1, o1), (h2, p2, o2) = run(), run()
+    require(h1 == h2, f"[14b] histories differ:\n{h1}\n{h2}")
+    require(any(h[3] is not None for h in h1), "[14b] no fine-tune ran")
+    for a, b in zip(tree_leaves(p1), tree_leaves(p2)):
+        require(np.array_equal(a, b), "[14b] final weights differ")
+    require(np.array_equal(o1, o2), "[14b] outputs differ")
+    return {"cycles": len(h1), "fine_tunes": sum(h[3] is not None
+                                                 for h in h1),
+            "actions": [h[0] for h in h1], "final_epoch": h1[-1][1]}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the fleet under device loss
+# ---------------------------------------------------------------------------
+
+def fleet_traffic(fleet_stats: dict) -> dict:
+    """A stats dict in `check_serving_shapes`' form: per datapath, the
+    traffic of the worker that launched it most."""
+    traffic = {}
+    for w in fleet_stats["workers"]:
+        for key, tr in w["traffic"].items():
+            if tr["launches"] > traffic.get(key, {"launches": -1})[
+                    "launches"]:
+                traffic[key] = tr
+    return {"traffic": traffic}
+
+
+def check_fleet(dev, specs, waves) -> dict:
+    """[15]: [4]'s tenants in [12]'s chunks through FleetRuntime(n_workers
+    = 2, both workers on the card), worker 1 lost mid-stream
+    (`device_lost`): every stream == its offline engine bitwise (every
+    chunk once), 0 sessions poisoned, >= 1 migration in the `fleet.*`
+    snapshot, every launch rb."""
+    streams = slice_traffic(specs, waves)
+    fp = FaultPlan([Fault("device_lost", at=1, after=FLEET_KILL_AFTER)])
+    with FleetRuntime(n_workers=2, policy=BatchPolicy(max_batch=4),
+                      fault_plan=fp) as rt:
+        require([w.device for w in rt.workers] == [dev, dev]
+                and all(w.stream is not None for w in rt.workers),
+                f"[15] workers on {[str(w.device) for w in rt.workers]}")
+        for s in specs:
+            rt.open(s)
+        placed = dict(rt.stats()["placement"])
+        K.reset_launch_counts()
+        acct = loadgen.replay(rt, streams)
+        launches, instances = dict(K.LAUNCHES), dict(K.INSTANCE_LAUNCHES)
+        st = rt.stats()
+        snap = rt.obs.snapshot()["fleet"]
+        lat = {w.idx: w.batcher.latency_stats() for w in rt.workers}
+        lat_all = np.array([r.latency_s for w in rt.workers
+                            for r in w.batcher.completed])
+        per_worker = {w.idx: w.batcher.launches for w in rt.workers}
+        outs = {s.tenant_id: rt.close(s.tenant_id) for s in specs}
+    require(fp.fired == [("device_lost", 1)], f"[15] fired {fp.fired}")
+    n = check_offline(dev, specs, waves, outs, SYMS)
+    require(acct["total_syms"] == n, f"[15] {acct['total_syms']} of {n}")
+    rec = st["recovery"]
+    require(rec["sessions_poisoned"] == 0 and snap["migrations"] >= 1
+            and rec["sessions_migrated_in"] >= 1,
+            f"[15] recovery {rec}, migrations {snap['migrations']}")
+    require_instances(launches, instances, "[15]")
+    require(all(launches[name] > 0 for name, _ in KERNELS.values()),
+            f"[15] launches {launches}")
+    return {"placement_before": placed, "placement_after": st["placement"],
+            "migrations": snap["migrations"], "recovery": {
+                k: v for k, v in rec.items() if v}, "launches": launches,
+            "launches_per_worker": per_worker,
+            "agg_syms_per_s": acct["agg_syms_per_s"],
+            "elapsed_s": acct["elapsed_s"],
+            "p50_latency_ms": float(np.percentile(lat_all, 50) * 1e3),
+            "p99_latency_ms": float(np.percentile(lat_all, 99) * 1e3),
+            "latency_ms": {i: {k: l[k] for k in ("p50_latency_ms",
+                                                  "p99_latency_ms")
+                               if k in l} for i, l in lat.items()},
+            "stats": fleet_traffic(st)}
+
+
+def check_fleet_slow(dev, specs, waves) -> dict:
+    """[15b]: `device_slow` on worker 0 feeds its heartbeat and the
+    worker survives; the stream bitwise."""
+    spec = specs[-1]
+    fp = FaultPlan([Fault("device_slow", at=0, after=1, delay_s=0.05)])
+    with FleetRuntime(n_workers=2, policy=BatchPolicy(max_batch=4),
+                      fault_plan=fp) as rt:
+        rt.open(spec)
+        for c in slice_traffic([spec], waves)[spec.tenant_id]:
+            rt.submit(spec.tenant_id, c)
+        got = rt.close(spec.tenant_id)
+        st = rt.stats()
+    want = spec.build_engine(dev)(waves[spec.tenant_id]).cpu().numpy()
+    w0 = st["workers"][0]
+    require(fp.fired == [("device_slow", 0)] and w0["alive"]
+            and st["recovery"]["device_losses"] == 0
+            and np.array_equal(got, want),
+            f"[15b] fired {fp.fired}, worker 0 {w0['alive']}, recovery "
+            f"{st['recovery']}")
+    return {"fired": fp.fired, "worker0_alive": w0["alive"],
+            "worker0_health": w0["health"]}
+
+
+def check_fleet_wire(dev) -> dict:
+    """[15c]: [13]'s impaired loopback over a 2-worker fleet with
+    test_wire_fleet_runtime_bitwise's two tenants (fp32 and int8, seeded
+    weights): egress == offline bitwise, no wire error."""
+    rng = np.random.default_rng(112)
+    fmts = tuple(tuple(FORMATS["ht"][k] for k in ("w_int", "w_frac",
+                                                  "a_int", "a_frac"))
+                 for _ in range(CFG.layers))
+    specs = [TenantSpec("w0", CFG, weights=host_folded(rng),
+                        backend="fused_fp32"),
+             TenantSpec("w1", CFG, weights=host_folded(rng), formats=fmts,
+                        backend="fused_int8")]
+    waves = {s.tenant_id: waveform(rng, 2048) for s in specs}
+    with FleetRuntime(n_workers=2, policy=BatchPolicy(max_batch=2,
+                                                      max_wait_s=2e-3)) as rt:
+        cli_t, srv_t = wire_pair(95)
+        gw, client = net.NetGateway(rt, srv_t), net.NetClient(cli_t)
+        for s in specs:
+            sess = rt.open(s)
+            gw.open_wire(s.tenant_id)
+            client.attach(s.tenant_id, net.WireDtype.INT8
+                          if s.backend == "fused_int8" else
+                          net.WireDtype.FP32, grid=net.wire_grid(sess.engine))
+        K.reset_launch_counts()
+        acct = loadgen.replay_wire(gw, client, slice_traffic(specs, waves),
+                                   burst=4)
+        launches, instances = dict(K.LAUNCHES), dict(K.INSTANCE_LAUNCHES)
+        counters = rt.obs.snapshot()["net"]
+    require(not acct["errors"], f"[15c] wire errors {acct['errors']}")
+    require_instances(launches, instances, "[15c]")
+    for s in specs:
+        want = s.build_engine(dev)(waves[s.tenant_id]).cpu().numpy()
+        require(np.array_equal(client.symbols(s.tenant_id), want),
+                f"[15c] {s.tenant_id}: egress != offline")
+    return {"agg_syms_per_s": acct["agg_syms_per_s"],
+            "duplicates": counters["duplicates"],
+            "reordered": counters["reordered"], "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -3023,13 +3503,71 @@ def main() -> int:
           f"{DRIFT_ATOL}; draw ms per burst of {DRIFT_TENANTS} tenants, "
           f"host clock, the second draw): {json.dumps(drifted)}; {card}",
           flush=True)
+    t0 = time.perf_counter()
+    adapted = check_adapt(dev)
+    adapt_state = adapted.pop("state")
+    print(f"[14] adaptation ({ADAPT_BURSTS} bursts x {ADAPT_BURST_SYMS} "
+          f"symbols of DriftingProakis under DriftSchedule(4, 6), a "
+          f"{ADAPT_BASE_STEPS}-step base at t = 0, a frozen and an adaptive "
+          f"fused_fp32 tenant on ServeRuntime, replay_adaptive step_every 2, "
+          f"AdaptPolicy(3072, 3072, eval_capacity 8192), "
+          f"PromotionPolicy(min_eval_syms 1024, eval_bucket_syms 512), "
+          f"FineTuneConfig(200, 8, 256, 3e-3)): >= 1 promotion; recovery "
+          f"criterion at t = 1 (frozen >= {FROZEN_FACTOR} x max(pre-drift, "
+          f"{FROZEN_FLOOR}), adaptive <= {FRESH_FACTOR} x max(fresh, "
+          f"{FRESH_FLOOR}), adaptive <= frozen / 4); adaptive stream "
+          f"bitwise per epoch; every launch rb: {json.dumps(adapted)}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    t0 = time.perf_counter()
+    bg = check_adapt_background(dev)
+    overhead = adapt_overhead(dev, adapt_state)
+    print(f"[14a] background adaptation (OnlineAdapter.start on its own "
+          f"CUDA stream) under live AsyncServeRuntime traffic (1 tenant, 8 "
+          f"bursts x 1024 symbols, DriftSchedule(2, 3)): stream complete, "
+          f"swap log monotone, no errors, bitwise per epoch, every launch "
+          f"rb: {json.dumps(bg)}; serving symbols/s of [14]'s drift streams "
+          f"through AsyncServeRuntime with and without a busy fine-tune "
+          f"thread (best of 3, interleaved): {json.dumps(overhead)}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    t0 = time.perf_counter()
+    det = check_adapt_determinism(dev)
+    print(f"[14b] [14a]'s sync twin run twice: history and final weights "
+          f"bitwise equal: {json.dumps(det)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del adapt_state
+    t0 = time.perf_counter()
+    fleet = check_fleet(dev, specs, waves)
+    fleet_stats = fleet.pop("stats")
+    print(f"[15] fleet ({len(specs)} tenants of [4] x {SYMS} symbols in "
+          f"[12]'s ~1024-symbol chunks, loadgen.replay, FleetRuntime("
+          f"n_workers=2) on {dev}, BatchPolicy max_batch 4, worker 1 lost "
+          f"after its execute {FLEET_KILL_AFTER}): every stream == offline "
+          f"bitwise, every chunk once, 0 poisoned, >= 1 migration, every "
+          f"launch rb: {json.dumps(fleet)}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    shapes15 = check_serving_shapes(inputs, fleet_stats, tiles_used)
+    print(f"[15a] kernel == plain bitwise at the fleet's launch shapes: "
+          f"{shapes15}", flush=True)
+    t0 = time.perf_counter()
+    slow = check_fleet_slow(dev, specs, waves)
+    print(f"[15b] device_slow (0.05 s) on worker 0: the heartbeat saw it, "
+          f"the worker lives, the stream bitwise: {json.dumps(slow)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    fwire = check_fleet_wire(dev)
+    print(f"[15c] the wire over the fleet ([13]'s loopback, two tenants, "
+          f"fp32 and int8 wires): egress == offline bitwise: "
+          f"{json.dumps(fwire)}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
     path_launches = {
         name: {"[4] serve": run["launches"][name],
                "[11] partitioned N_i=64": part_launches[name],
                "[12] sync": threaded["sync"]["launches"][name],
                "[12] async": threaded["async"]["launches"][name],
                "[13] wire sync": wired["runs"]["sync"]["launches"][name],
-               "[13] wire async": wired["runs"]["async"]["launches"][name]}
+               "[13] wire async": wired["runs"]["async"]["launches"][name],
+               "[14] adapt": adapted["launches"][name],
+               "[15] fleet": fleet["launches"][name]}
         for name, _ in KERNELS.values()}
     del threaded, wired
 

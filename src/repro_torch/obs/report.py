@@ -1,15 +1,15 @@
 """Console summary over an observability snapshot.
 
-Port of `repro.obs.report`, with the sections of the subtrees the port
-writes: `serve`, `net`, `link`, `slo` and `trace` (the reference's fleet
-and adapt sections come with those slices). `render(snapshot)` turns the
-nested registry tree (the dict returned by `Observability.snapshot()` /
-`MetricsRegistry.snapshot()`, or the JSON written by
-`Observability.write_snapshot`) into a compact human-readable report:
-launch latency quantiles, throughput, per-tenant session state, recovery
-and degradation, the wire's frame and impairment counters and its
-ingress-to-emit latency, link quality, SLO latches and alerts, and trace-ring
-occupancy.
+Port of `repro.obs.report`, with all of its sections: `serve`, `fleet`
+(one per `fleet*` subtree), `adapt`, `net`, `link`, `slo` and `trace`.
+`render(snapshot)` turns the nested registry tree (the dict returned by
+`Observability.snapshot()` / `MetricsRegistry.snapshot()`, or the JSON
+written by `Observability.write_snapshot`) into a compact human-readable
+report: launch latency quantiles, throughput, per-tenant session state,
+recovery and degradation, fleet placement and per-worker health, the
+adaptation loop's actions and shadow BERs, the wire's frame and
+impairment counters and its ingress-to-emit latency, link quality, SLO
+latches and alerts, and trace-ring occupancy.
 
 CLI:
 
@@ -51,8 +51,8 @@ def _hist_line(label: str, h: Optional[Dict[str, Any]]) -> Optional[str]:
 
 
 def _batcher_lines(node: Dict[str, Any]) -> List[str]:
-    """The micro-batcher block of `serve`: request/launch counters plus
-    the launch histograms."""
+    """Shared micro-batcher block (used by `serve` and every fleet
+    worker): request/launch counters plus the launch histograms."""
     out: List[str] = []
     req = node.get("requests_total")
     lau = node.get("launches_total")
@@ -132,6 +132,67 @@ def _serve_section(serve: Dict[str, Any]) -> List[str]:
                        f"  recoveries={s.get('recoveries', 0)}"
                        f"  inflight={s.get('inflight', 0)}"
                        + ("  FAILED" if s.get("failed") else ""))
+    return out
+
+
+def _fleet_section(fleet: Dict[str, Any]) -> List[str]:
+    out = ["[fleet]"]
+    head = []
+    for key in ("tenants", "inflight", "migrations"):
+        if key in fleet and not isinstance(fleet[key], dict):
+            head.append(f"{key}={_fmt(fleet[key])}")
+    if head:
+        out.append("  " + "  ".join(head))
+    line = _errors_line(fleet.get("errors"))
+    if line:
+        out.append(line)
+    line = _recovery_line(fleet.get("recovery"))
+    if line:
+        out.append(line)
+    placement = fleet.get("placement")
+    if isinstance(placement, dict) and placement:
+        out.append("  placement: " + "  ".join(
+            f"{tid}->w{w}" for tid, w in sorted(placement.items())))
+    workers = sorted(k for k in fleet
+                     if k.startswith("worker") and isinstance(fleet[k], dict))
+    for wk in workers:
+        w = fleet[wk]
+        alive = w.get("alive")
+        out.append(f"  [{wk}] alive={alive}")
+        out += ["  " + ln for ln in _batcher_lines(w)]
+        line = _recovery_line(w.get("recovery"))
+        if line:
+            out.append("  " + line)
+    return out
+
+
+def _adapt_section(adapt: Dict[str, Any]) -> List[str]:
+    out = ["[adapt]"]
+    head = []
+    for key in ("tenants", "cycles"):
+        if key in adapt and not isinstance(adapt[key], dict):
+            head.append(f"{key}={_fmt(adapt[key])}")
+    if head:
+        out.append("  " + "  ".join(head))
+    actions = adapt.get("actions")
+    if isinstance(actions, dict) and actions:
+        out.append("  actions: " + "  ".join(
+            f"{k}={_fmt(v)}" for k, v in sorted(actions.items())))
+    line = _errors_line(adapt.get("errors"))
+    if line:
+        out.append(line)
+    for tid, node in sorted(adapt.items()):
+        if tid in ("actions", "errors", "cycles", "tenants"):
+            continue
+        if not isinstance(node, dict):
+            continue
+        sh = node.get("shadow")
+        parts = [f"epoch={_fmt(node.get('weight_epoch', 0))}"]
+        if isinstance(sh, dict):
+            for k in ("ber_active", "ber_candidate", "eval_syms"):
+                if k in sh:
+                    parts.append(f"{k}={_fmt(sh[k])}")
+        out.append(f"    {tid:<12} " + "  ".join(parts))
     return out
 
 
@@ -231,6 +292,12 @@ def render(snapshot: Dict[str, Any]) -> str:
                      f"{meta.get('callback_names', 0)} callbacks")
     if isinstance(snapshot.get("serve"), dict):
         lines += _serve_section(snapshot["serve"])
+    fleets = [k for k in sorted(snapshot)
+              if k.startswith("fleet") and isinstance(snapshot[k], dict)]
+    for k in fleets:
+        lines += _fleet_section(snapshot[k])
+    if isinstance(snapshot.get("adapt"), dict):
+        lines += _adapt_section(snapshot["adapt"])
     if isinstance(snapshot.get("net"), dict):
         lines += _net_section(snapshot["net"])
     if isinstance(snapshot.get("link"), dict):

@@ -1,7 +1,6 @@
 """Multi-tenant streaming equalizer serving runtime, in PyTorch.
 
-Layers (port of `repro.serve`; the fleet comes with a later slice and is
-not imported here):
+Layers (port of `repro.serve`):
   chunker    — stateful overlap-save: arbitrary chunk sizes, offline-exact
   pool       — LRU-bounded engine pool
   session    — TenantSpec / Session / SessionManager
@@ -13,11 +12,15 @@ not imported here):
                the launcher's CUDA stream, per-chunk futures,
                deadline/backoff launch discipline, bounded session
                failover)
+  fleet      — FleetRuntime: N workers (one launcher thread and CUDA
+               stream each) behind shard-by-tenant placement, heartbeat
+               health and bitwise device-loss migration
   loadgen    — reproducible tenant traffic (chop, random_waveforms,
                replay; replay_wire through the net layer; drift_streams
                and replay_adaptive over a drifting channel)
 """
 from .chunker import CarrySnapshot, ChunkPlan, StreamChunker
+from .fleet import FleetRuntime, FleetWorker, worker_devices
 from .loadgen import (chop, drift_streams, random_waveforms, replay,
                       replay_adaptive, replay_wire)
 from .pool import EnginePool
@@ -31,9 +34,10 @@ from .session import Session, SessionManager, TenantSpec
 
 __all__ = ["AsyncServeRuntime", "BatchPolicy", "CarrySnapshot", "ChunkPlan",
            "CorruptOutput", "DegradationController", "DeviceLost",
-           "EnginePool", "Fault", "FaultPlan", "InjectedFault", "LaunchBatch",
-           "LaunchTimeout", "MicroBatcher", "RecoveryPolicy", "RecoveryStats",
-           "Request", "ServeRuntime", "Session", "SessionManager",
-           "StreamChunker", "TenantShedError", "TenantSpec", "TrafficStats",
-           "chop", "drift_streams", "random_waveforms", "replay",
-           "replay_adaptive", "replay_wire"]
+           "EnginePool", "Fault", "FaultPlan", "FleetRuntime", "FleetWorker",
+           "InjectedFault", "LaunchBatch", "LaunchTimeout", "MicroBatcher",
+           "RecoveryPolicy", "RecoveryStats", "Request", "ServeRuntime",
+           "Session", "SessionManager", "StreamChunker", "TenantShedError",
+           "TenantSpec", "TrafficStats", "chop", "drift_streams",
+           "random_waveforms", "replay", "replay_adaptive", "replay_wire",
+           "worker_devices"]

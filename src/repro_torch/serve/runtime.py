@@ -66,7 +66,9 @@ event `assemble` records on that stream, which `execute` makes the
 launcher's stream wait for (`LaunchBatch.ready`). Engine builds (at
 `open`, on a pool miss, in failover and at a swap) end in blocking
 host→device copies, so their weights are on the card before any launch
-can be assembled from them. Tensors the launcher allocates stay on its
+can be assembled from them; a swap's candidate engine is built on the
+swapping thread (an adapter's, say), so `_swap_barrier` also synchronizes
+that thread's stream before it installs the engine. Tensors the launcher allocates stay on its
 stream, and the blocking device→host copy that ends each execute means
 no launch is still reading a batch's tensors when the batch is dropped.
 With ``device="cpu"`` the same threads run with no CUDA stream.
@@ -578,6 +580,11 @@ class AsyncServeRuntime:
             s = self.sessions.get(tenant_id)
             new_spec = make_spec(s)            # cheap: dataclass replace
         candidate = new_spec.build_engine(self.device)   # NO locks held
+        if self.device.type == "cuda":
+            # the build's copies queued on THIS thread's stream; the
+            # launcher reads the weights from its own stream, which does
+            # not wait for this one
+            torch.cuda.current_stream(self.device).synchronize()
         with self._dispatch_mutex:
             with self._lock:
                 self._check_running()

@@ -246,9 +246,12 @@ class Session:
         return self._pool.get(self.spec.tenant_id,
                               lambda: self.spec.build_engine(self.device))
 
-    def rebuild_on(self, pool: EnginePool) -> "Session":
+    def rebuild_on(self, pool: EnginePool,
+                   device: DeviceLike = None) -> "Session":
         """Fleet migration primitive: reincarnate this mid-stream session
-        against ANOTHER engine pool (the fleet's worker migration).
+        against ANOTHER engine pool (the fleet's worker migration), on
+        ``device`` (default: this session's device; a fleet passes the
+        target worker's, which may be another card).
 
         The replacement builds a fresh engine from the (frozen) spec —
         deterministic, so it serves bitwise-identically — then reinstalls
@@ -263,7 +266,7 @@ class Session:
         NOT rebuild deterministically — that is corruption, so it raises
         instead of silently emitting misaligned symbols."""
         s = Session(self.spec, pool, swap_log_max=self.swap_log_max,
-                    device=self.device)
+                    device=self.device if device is None else device)
         old_c, new_c = self.chunker, s.chunker
         if ((new_c.halo, new_c.ts, new_c.tile_m)
                 != (old_c.halo, old_c.ts, old_c.tile_m)):

@@ -72,6 +72,13 @@ impaired loopback (int8, BF16 and fp32 wires; sync and async runtimes)
 equal the offline engine bitwise through the register-blocked kernel, an
 int8 wire equals an fp32 wire, and `drift_streams` draws on the card,
 repeating bitwise and at t = 0 within 1e-4 of the stationary simulator.
+The adaptation and fleet slice: a weight hot-swap mid-stream (sync and
+async, fp32 and int8) equals each epoch's offline engine bitwise through
+the register-blocked kernel; a two-worker `FleetRuntime` on one card
+migrates every stream bitwise when worker 0 is lost, each worker executing
+on its own stream; the `OnlineAdapter`'s thread (on its own stream) runs
+under live async traffic with no error, losing and duplicating nothing;
+one adapter run twice gives the same history and weights bitwise.
 """
 import dataclasses
 import hashlib
@@ -1538,3 +1545,164 @@ def test_reduced_xlstm_serving_launches_slstm_per_block_and_step(
                             model.init_serve_state(2, 36, "cpu"))
     err = float((first.cpu() - want).abs().max())
     assert err <= 1e-4 * float(want.abs().max()), err
+
+
+# ---------------------------------------------------------------------------
+# the adaptation slice and the fleet on the card
+# ---------------------------------------------------------------------------
+
+def _adapt_spec(tid, seed, backend="fused_fp32"):
+    params = teq.init(torch.Generator().manual_seed(seed), HT.CNN,
+                      device="cpu")
+    if backend == "auto":
+        params["qat"] = {f"layer{i}": {k: torch.tensor(v)
+                                       for k, v in QAT.items()}
+                         for i in range(HT.CNN.layers)}
+    return TenantSpec(tid, HT.CNN, params=params,
+                      bn_state=teq.init_bn_state(HT.CNN, device="cpu"),
+                      backend=backend, tile_m=16)
+
+
+def _adapter(rt, seed=0):
+    from repro_torch.adapt import (AdaptPolicy, FineTuneConfig,
+                                   OnlineAdapter, PromotionPolicy)
+    return OnlineAdapter(
+        rt, AdaptPolicy(min_train_syms=1024, adapt_every_syms=512,
+                        eval_capacity=4096,
+                        promotion=PromotionPolicy(min_eval_syms=512,
+                                                  eval_bucket_syms=256)),
+        FineTuneConfig(steps=10, batch=4, seq_syms=128, lr=1e-3), seed=seed)
+
+
+def _per_epoch_offline(sess, spec0, wave, device):
+    """The stream each weight epoch's offline engine gives from its
+    swap_log boundary (contract #8). `prev_spec` holds the spec before the
+    last swap, so a stream with at most one swap is fully determined."""
+    vp = HT.CNN.v_parallel
+    log = sess.swap_log
+    specs = [spec0] + ([sess.spec] if len(log) > 1 else [])
+    assert len(log) <= 2
+    outs = [s.build_engine(device)(wave).cpu().numpy() for s in specs]
+    bounds = [p * vp for _, p in log] + [None]
+    return np.concatenate([o[a:b] for o, a, b in
+                           zip(outs, bounds[:-1], bounds[1:])])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("driver", ["sync", "async"])
+@pytest.mark.parametrize("backend", ["fused_fp32", "auto"])
+def test_hot_swap_bitwise_per_epoch_on_card(cuda_device, driver, backend):
+    """A weight hot-swap mid-stream on the card: each epoch's positions
+    equal that epoch's offline engine bitwise, through the rb kernel."""
+    cls = AsyncServeRuntime if driver == "async" else ServeRuntime
+    rt = cls(BatchPolicy(max_batch=1, max_wait_s=1e9))
+    try:
+        spec0 = _adapt_spec("hs", 1, backend)
+        sess = rt.open(spec0)
+        wave = np.random.default_rng(2).standard_normal(
+            60 * 16 * 16).astype(np.float32)
+        chunks = chop(wave, 300, seed=4)
+        kern.reset_launch_counts()
+        for c in chunks[:len(chunks) // 2]:
+            rt.submit("hs", c)
+        new = _adapt_spec("x", 99, backend).params
+        assert rt.swap_weights("hs", params=new) == 1
+        for c in chunks[len(chunks) // 2:]:
+            rt.submit("hs", c)
+        got = rt.close("hs")
+        assert kern.INSTANCE_LAUNCHES["generic"] == 0
+        assert kern.INSTANCE_LAUNCHES["rb"] > 0
+        np.testing.assert_array_equal(
+            got, _per_epoch_offline(sess, spec0, wave, cuda_device))
+    finally:
+        if driver == "async":
+            rt.shutdown()
+
+
+@pytest.mark.cuda
+def test_fleet_device_loss_migrates_bitwise_on_card(cuda_device):
+    """Two workers on cuda:0, worker 0 killed mid-stream: every stream ==
+    its offline engine bitwise, 0 poisoned, one migration; each worker
+    executed on its own stream."""
+    from repro_torch.serve import Fault, FaultPlan, FleetRuntime
+    specs, waves, streams = _slice_tenants()
+    seen = set()
+    fp = FaultPlan([Fault("device_lost", at=0, after=2)])
+    kern.reset_launch_counts()
+    with FleetRuntime(n_workers=2, policy=BatchPolicy(max_batch=3),
+                      fault_plan=fp) as rt:
+        for w in rt.workers:
+            execute = w.batcher.execute
+
+            def recording(batch, execute=execute):
+                seen.add(torch.cuda.current_stream(
+                    batch.device).cuda_stream)
+                return execute(batch)
+            w.batcher.execute = recording
+        own = {w.stream.cuda_stream for w in rt.workers}
+        got = _serve_streams(rt, specs, streams)
+        st = rt.stats()
+    assert fp.fired == [("device_lost", 0)]
+    assert st["migrations"] == 1
+    assert st["recovery"]["sessions_poisoned"] == 0
+    assert seen <= own and len(own) == 2
+    assert kern.INSTANCE_LAUNCHES["generic"] == 0
+    for s in specs:
+        want = s.build_engine(cuda_device)(waves[s.tenant_id]).cpu().numpy()
+        np.testing.assert_array_equal(got[s.tenant_id], want)
+
+
+@pytest.mark.cuda
+def test_adapter_background_thread_under_async_traffic_on_card(cuda_device):
+    """The adapter's thread (on its own CUDA stream) fine-tunes and may
+    hot-swap while AsyncServeRuntime serves: no adapter or runtime error,
+    nothing lost or duplicated, the swap log monotone."""
+    with AsyncServeRuntime(BatchPolicy(max_batch=1, max_wait_s=1e9)) as rt:
+        adapter = _adapter(rt)
+        assert adapter.stream is not None
+        adapter.attach(_adapt_spec("bg", 21))
+        streams, pilots = loadgen.drift_streams(
+            DriftingProakis(), DriftSchedule(2, 3), ["bg"], n_bursts=8,
+            syms_per_burst=1024, seed=11)
+        adapter.start(interval_s=0.02)
+        try:
+            for chunk, labels in zip(streams["bg"], pilots["bg"]):
+                adapter.feed_pilots("bg", labels)
+                rt.submit("bg", chunk)
+            rt.finish("bg")
+            rt.drain()
+        finally:
+            adapter.stop()
+        assert adapter.history and not adapter.errors and not rt.errors
+        assert rt.output("bg").shape == (8 * 1024,)
+        log = rt.sessions.get("bg").swap_log
+        assert [e for e, _ in log] == list(range(len(log)))
+        assert all(p1 <= p2 for (_, p1), (_, p2) in zip(log, log[1:]))
+
+
+@pytest.mark.cuda
+def test_adapter_cycle_repeats_bitwise_on_card(cuda_device):
+    """One adapter run twice on the card: the same history and the same
+    active weights, bitwise (fine-tuning under `fp32_exact`)."""
+    def run():
+        rt = ServeRuntime(BatchPolicy(max_batch=1, max_wait_s=1e9))
+        adapter = _adapter(rt, seed=5)
+        adapter.attach(_adapt_spec("d", 8))
+        streams, pilots = loadgen.drift_streams(
+            DriftingProakis(), DriftSchedule(1, 2), ["d"], n_bursts=4,
+            syms_per_burst=1024, seed=2)
+        loadgen.replay_adaptive(rt, streams, pilots=pilots, adapter=adapter)
+        hist = [(r.action, r.weight_epoch, repr(r.shadow),
+                 None if r.train_info is None
+                 else (r.train_info["loss_first"], r.train_info["loss_last"]))
+                for r in adapter.history]
+        sess = rt.sessions.get("d")
+        return hist, sess.engine.weights, rt.output("d")
+
+    h1, w1, o1 = run()
+    h2, w2, o2 = run()
+    assert h1 == h2
+    assert any(h[3] is not None for h in h1)     # a fine-tune ran
+    for (a, b), (c, d) in zip(w1, w2):
+        assert torch.equal(a, c) and torch.equal(b, d)
+    np.testing.assert_array_equal(o1, o2)

@@ -28,10 +28,14 @@ from repro_torch.launch import serve as lm_serve
 from repro_torch.launch import train as lm_train
 from repro_torch.models import transformer as lm_transformer
 from repro_torch.models import xlstm as lm_xlstm
-from repro_torch.examples import quickstart, stream_equalizer
+from repro_torch.adapt import fine_tune_from_buffer
+from repro_torch.examples import (adaptive_serving, quickstart,
+                                  serve_equalizer, serve_lm,
+                                  stream_equalizer, train_equalizer_imdd)
 from repro_torch.channels.drift import (DriftingIMDD, DriftingProakis,
                                         DriftSchedule)
-from repro_torch.serve import AsyncServeRuntime, ServeRuntime, loadgen
+from repro_torch.serve import (AsyncServeRuntime, FleetRuntime, ServeRuntime,
+                               loadgen, worker_devices)
 
 REPO_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 
@@ -146,8 +150,6 @@ def test_streaming_modules_import_without_jax(name):
                      if k == "jax" or k.startswith("jax.")
                      or k == "repro" or k.startswith("repro."))
         assert not bad, bad
-        assert not any(k.startswith("repro_torch.serve.fleet")
-                       for k in sys.modules)
     """)
     env = dict(os.environ, PYTHONPATH=REPO_SRC)
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -177,6 +179,51 @@ def test_wire_and_drift_modules_import_without_jax_or_ml_dtypes(name):
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+ADAPT_FLEET_MODULES = ("repro_torch.adapt", "repro_torch.adapt.collector",
+                       "repro_torch.adapt.trainer", "repro_torch.adapt.shadow",
+                       "repro_torch.adapt.runtime", "repro_torch.serve.fleet",
+                       "repro_torch.examples.adaptive_serving",
+                       "repro_torch.examples.serve_equalizer",
+                       "repro_torch.examples.train_equalizer_imdd",
+                       "repro_torch.examples.serve_lm")
+
+
+@pytest.mark.parametrize("name", ADAPT_FLEET_MODULES)
+def test_adapt_and_fleet_modules_import_without_jax(name):
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({name!r})
+        bad = sorted(k for k in sys.modules
+                     if k == "jax" or k.startswith("jax.")
+                     or k == "repro" or k.startswith("repro."))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO_SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("path", [
+    os.path.join(os.path.dirname(REPO_SRC), "chip_smoke.py"),
+    *(os.path.join(REPO_SRC, "repro_torch", *m.split(".")[1:]) + ".py"
+      for m in ADAPT_FLEET_MODULES if m.count(".") > 1)])
+def test_source_names_no_jax_or_reference_import(path):
+    """Statically: neither chip_smoke.py nor the new modules import `jax`
+    or `repro` (the subprocess checks above see only what one import
+    loads; this sees every import statement, lazy ones too)."""
+    import ast
+    tree = ast.parse(open(path).read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    roots = {n.split(".")[0] for n in names}
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
 
 
 def _no_card(monkeypatch):
@@ -222,6 +269,15 @@ def _folded():
     lambda: DriftingIMDD().at(1.0),
     lambda: loadgen.drift_streams(DriftingIMDD(), DriftSchedule(), ["t"], 1,
                                   8),
+    lambda: worker_devices(2),
+    lambda: FleetRuntime(n_workers=2),
+    lambda: fine_tune_from_buffer(
+        torch.Generator(), teq.init(torch.Generator(), HT.CNN, device="cpu"),
+        None, HT.CNN, np.zeros(2048, np.float32), np.zeros(1024, np.int32)),
+    lambda: adaptive_serving.main([]),
+    lambda: serve_equalizer.main([]),
+    lambda: train_equalizer_imdd.main(["--steps", "1"]),
+    lambda: serve_lm.main([]),
 ])
 def test_entry_point_without_device_raises_without_card(monkeypatch, entry):
     _no_card(monkeypatch)

@@ -1,12 +1,12 @@
 """Port vs reference: the packetized wire (repro_torch.net) and
 `serve.loadgen.replay_wire`, on the CPU.
 
-Mirrors tests/test_net.py (every test but the fleet runtime's, which waits
-for the port's fleet) against the port with ``device="cpu"``: the codec's
+Mirrors tests/test_net.py against the port with ``device="cpu"`` (the
+fleet runtime's with ``devices=["cpu"]``): the codec's
 totality (every truncation and single-bit flip a typed `FrameError`), the
 reassembler and the seeded impaired loopback, wire-served streams bitwise
 equal to the port's offline engine under reordering and duplication (fp32,
-int8 and bf16 wires; sync and async runtimes), loud gaps, credit
+int8 and bf16 wires; sync, async and fleet runtimes), loud gaps, credit
 isolation, and the control plane (open, swap splice, rollback, malformed
 commands, policy, stats, refused close). Against the JAX package: frames
 encoded by either package decode in the other with equal fields and
@@ -49,8 +49,8 @@ from repro_torch.net import (BadCRC, BadLength, BadMagic, BadVersion,
                              loopback_pair, wire_grid)
 from repro_torch.net.control import ControlPlane, _jsonable
 from repro_torch.obs import report as treport
-from repro_torch.serve import (AsyncServeRuntime, BatchPolicy, ServeRuntime,
-                               TenantSpec, chop, replay_wire)
+from repro_torch.serve import (AsyncServeRuntime, BatchPolicy, FleetRuntime,
+                               ServeRuntime, TenantSpec, chop, replay_wire)
 
 try:
     from hypothesis import given, settings, strategies as st
@@ -642,6 +642,21 @@ def test_wire_async_runtime_bitwise(loopback_wire):
     waves = {s.tenant_id: _wave(360 + i) for i, s in enumerate(specs)}
     with AsyncServeRuntime(BatchPolicy(max_batch=2, max_wait_s=2e-3),
                            device="cpu") as rt:
+        gw, client, acct = _run_wire(rt, cli_t, srv_t, specs, waves)
+        assert not acct["errors"]
+        for s in specs:
+            np.testing.assert_array_equal(
+                client.symbols(s.tenant_id),
+                _offline(s, waves[s.tenant_id]))
+
+
+def test_wire_fleet_runtime_bitwise(loopback_wire):
+    cli_t, srv_t = loopback_wire(seed=32, reorder_window=4, dup_prob=0.2)
+    specs = [_spec("w0", 112), _spec("w1", 113, "fused_int8")]
+    waves = {s.tenant_id: _wave(370 + i) for i, s in enumerate(specs)}
+    with FleetRuntime(n_workers=2,
+                      policy=BatchPolicy(max_batch=2, max_wait_s=2e-3),
+                      devices=["cpu"]) as rt:
         gw, client, acct = _run_wire(rt, cli_t, srv_t, specs, waves)
         assert not acct["errors"]
         for s in specs:
