@@ -142,6 +142,28 @@ result line), in the order they run:
      the stream bitwise. 15c. [13]'s impaired loopback over a 2-worker
      fleet with two tenants (fp32 and int8 wires): egress == offline
      bitwise. Each of [14]–[15c] prints its wall seconds;
+  16. the parallel layer: [11]'s engines and 468 480-symbol stream over 4
+     ranks spawned by `launch.mesh.run_ranks` (gloo: NCCL refuses two
+     ranks on one GPU; each rank on cuda:0, its CUDA edges staged through
+     the host), each rank's shard (`parallel.halo.local_shard`) through
+     `halo.halo_apply` on a ("data",) `DeviceMesh`, the counts zeroed
+     before the checked call: per datapath the gathered symbols equal the
+     unsplit engine bitwise and `partitioned_apply(n_inst=4)` on the
+     interior, one rb launch a rank; prints per rank the call and
+     exchange ms (host clock, after a barrier), the bytes each way (int8
+     edges a quarter of fp32's), the backend, whether edges were staged,
+     and the exchange of host tensors for comparison. 16a. each kernel ==
+     plain at the per-rank launch shape (an interior shard with its
+     halos). 16b. `optim.grad_comp.compressed_psum` over the same 4 ranks
+     on seeded f32 gradients shaped like smollm-135m's full-width tree (tp
+     1, 162 826 560 a rank): the mean within one quantization step of the
+     exact mean and 0 < |residual| < scale, leaf by leaf; ms a call and
+     the bytes gathered (int8 against f32). 16c. a seeded smollm-135m tree
+     saved by `CheckpointManager` and restored by `runtime.ElasticRestore`
+     onto `best_mesh()` of a one-rank world on cuda:0: every leaf a
+     DTensor on the card, bitwise; then the (2, 2) → (1, 2) reshard on a
+     "cuda" mesh over 4 gloo ranks is tried, saved from DTensors and from
+     plain tensors, and whether each ran is printed;
   6. train: `train_equalizer` on the card for the CNN (equalizer_ht widths,
      3-phase QAT), the FIR and the Volterra baselines on the default IM/DD
      link (40 GBd, 31.5 km, N_os = 2), 300 steps each; every loss finite,
@@ -280,7 +302,7 @@ result line), in the order they run:
      device activities.
 The line before the last is the `kernels` JSON (eleven kernels; the
 three cnn_eq rows also carry their launches on each path, `path_launches`:
-[4], [11], [12], [13], [14] and [15]);
+[4], [11], [12], [13], [14], [15] and [16], the last summed over ranks);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -301,6 +323,7 @@ import ctypes
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import shutil
 import subprocess
@@ -314,6 +337,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import configs as LM_configs  # noqa: E402
@@ -371,6 +395,14 @@ from repro_torch.adapt import (AdaptPolicy, FineTuneConfig,  # noqa: E402
                                OnlineAdapter, PromotionPolicy, engine_ber,
                                fine_tune_from_buffer)
 from repro_torch.examples.adaptive_serving import burst_ber  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.core.engine import EqualizerEngine  # noqa: E402
+from repro_torch.launch.mesh import (make_mesh, run_ranks,  # noqa: E402
+                                     stages_through_host)
+from repro_torch.optim import grad_comp as GC  # noqa: E402
+from repro_torch.parallel import halo as HALO  # noqa: E402
+from repro_torch.parallel import sharding as SHARD  # noqa: E402
+from repro_torch.runtime import ElasticRestore, best_mesh  # noqa: E402
 
 CFG = HT.CNN
 ROWS = HT.N_INSTANCES                 # 64 parallel instances
@@ -576,6 +608,14 @@ BG_FT = FineTuneConfig(steps=10, batch=4, seq_syms=128, lr=1e-3)
 BG_PACE_S = 2.0           # [14a]: the longest wait for a cycle per burst
 # [15] the fleet: worker 1 lost after its FLEET_KILL_AFTER-th execute
 FLEET_KILL_AFTER = 3
+# [16] the halo: [11]'s stream sharded over HALO_RANKS gloo ranks on the one
+# card (NCCL refuses two ranks on one GPU), timed over HALO_ITERS calls
+HALO_RANKS, HALO_ITERS = 4, 20
+# [16b] compressed all-reduce of gradients shaped like this model's
+# full-width parameter tree (tp = 1: the tree one card holds), timed over
+# COMP_ITERS calls after one warm-up; [16c] saves and restores the same tree
+COMP_ARCH, COMP_ITERS = "smollm-135m", 3
+RANK_TIMEOUT_S = 600
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1773,6 +1813,288 @@ def check_fleet_wire(dev) -> dict:
 
 # ---------------------------------------------------------------------------
 # phase 5: times
+# ---------------------------------------------------------------------------
+# phase 16: the parallel layer over ranks on the card
+# ---------------------------------------------------------------------------
+
+def engine_recipe(e) -> tuple:
+    """What a rank needs to rebuild engine ``e`` bit for bit: (backend,
+    host folded weights, int8 formats, tile_m)."""
+    return (e.backend, tuple((w.cpu().numpy(), b.cpu().numpy())
+                             for w, b in e.weights),
+            e.formats if e.backend == "fused_int8" else None,
+            e.resolved_tile_m())
+
+
+def comp_shapes(dev) -> list:
+    """(name, shape) of COMP_ARCH's full-width parameter tree at tp = 1."""
+    cfg = LM_configs.get_config(COMP_ARCH, tp=1)
+    tree = LM_registry.build(cfg).init(torch.Generator(dev).manual_seed(0),
+                                       dev)
+    return [(n, tuple(t.shape)) for n, t in tree_named_leaves(tree)]
+
+
+def rank_grads(rank: int, shapes: list, dev) -> dict:
+    """Rank ``rank``'s seeded f32 gradients, one per parameter."""
+    gen = torch.Generator(dev).manual_seed(1000 + rank)
+    return {n: torch.randn(shp, generator=gen, device=dev)
+            for n, shp in shapes}
+
+
+def _wall_ms(fn, iters: int, group=None) -> float:
+    """Mean host ms of ``iters`` calls, the ranks aligned at a barrier
+    first and each call synchronised with the card."""
+    dist.barrier(group)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def halo_rank(rank: int, world: int, recipes: dict, x_np: np.ndarray,
+              shapes: list) -> dict:
+    """One rank of [16] and [16b] on cuda:0: its shard of the stream
+    through each datapath's halo_apply (counts zeroed before the checked
+    call), the exchange alone, then compressed_psum on its gradients."""
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh((world,), ("data",), "cuda")
+    group = mesh.get_group("data")
+    x = HALO.local_shard(torch.from_numpy(x_np), CFG, mesh).to(dev)
+    o_samp = HALO.halo_samples(CFG, world)
+    neighbours = (rank > 0) + (rank < world - 1)
+    x_host = x.cpu()
+    out = {"backend": dist.get_backend(group),
+           "staged_through_host": stages_through_host(group, dev),
+           "shard_samples": int(x.shape[0]), "halo_samples": o_samp,
+           "exchange_host_tensor_ms": _wall_ms(lambda: HALO.halo_exchange(
+               x_host[None], o_samp, group), HALO_ITERS, group),
+           "datapaths": {}}
+    for dp, (backend, weights, fmts, tile) in recipes.items():
+        e = EqualizerEngine(cfg=CFG, weights=weights, backend=backend,
+                            formats=fmts, tile_m=tile, device=dev)
+        quant = HALO._engine_halo_quant(e)
+        HALO.halo_apply(e, x, CFG, mesh)               # warm-up
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        y = HALO.halo_apply(e, x, CFG, mesh)
+        torch.cuda.synchronize()
+        launches, instances = dict(K.LAUNCHES), dict(K.INSTANCE_LAUNCHES)
+        call_ms = _wall_ms(lambda: HALO.halo_apply(e, x, CFG, mesh),
+                           HALO_ITERS, group)
+        xch_ms = _wall_ms(lambda: HALO.halo_exchange(
+            x[None], o_samp, group, quant), HALO_ITERS, group)
+        edge_bytes = o_samp * (1 if quant else 4)
+        out["datapaths"][dp] = {
+            "y": y.cpu().numpy(), "launches": launches,
+            "instances": instances, "call_ms": call_ms,
+            "exchange_ms": xch_ms, "wire": "int8" if quant else "fp32",
+            "bytes_sent": neighbours * edge_bytes,
+            "bytes_received": neighbours * edge_bytes}
+    out["comp"] = comp_rank(rank, world, shapes, dev)
+    return out
+
+
+def comp_rank(rank: int, world: int, shapes: list, dev) -> dict:
+    """[16b] on one rank: compressed_psum of its gradients (error zero),
+    timed, then held to the exact mean of every rank's gradients (each
+    rank's are regenerated from their seeds): within one quantization
+    step (the largest rank's scale) of it, and each residual 0 < |e| <
+    this rank's scale, leaf by leaf."""
+    grads = rank_grads(rank, shapes, dev)
+    error = GC.init_error(grads)
+    GC.compressed_psum(grads, error)                   # warm-up
+    ms = _wall_ms(lambda: GC.compressed_psum(grads, error), COMP_ITERS)
+    mean, new_error = GC.compressed_psum(grads, error)
+    torch.cuda.synchronize()
+    scales = {n: [] for n, _ in shapes}
+    exact = {n: torch.zeros(shp, device=dev) for n, shp in shapes}
+    for r in range(world):
+        for n, g in rank_grads(r, shapes, dev).items():
+            exact[n] += g
+            scales[n].append(float(g.abs().max()) / 127)
+    worst_step, resid = 0.0, []
+    for n, _ in shapes:
+        err = float((mean[n] - exact[n] / world).abs().max())
+        step = max(scales[n])
+        require(err < step, f"[16b] rank {rank} {n}: mean off the exact "
+                f"mean by {err:.3e}, one step {step:.3e}")
+        worst_step = max(worst_step, err / step)
+        e = float(new_error[n].abs().max())
+        require(0 < e < scales[n][rank], f"[16b] rank {rank} {n}: residual "
+                f"{e:.3e}, scale {scales[n][rank]:.3e}")
+        resid.append(e / scales[n][rank])
+    numel = sum(int(np.prod(shp)) for _, shp in shapes)
+    return {"ms": ms, "leaves": len(shapes), "params": numel,
+            "int8_bytes_gathered": (world - 1) * (numel + 4 * len(shapes)),
+            "f32_bytes_same_gather": (world - 1) * 4 * numel,
+            "max_err_over_step": worst_step,
+            "max_residual_over_scale": max(resid)}
+
+
+def check_halo(dev) -> dict:
+    """[16]/[16a]/[16b]: [11]'s engines and stream over HALO_RANKS ranks;
+    every datapath's gathered output == the unsplit engine bitwise and ==
+    partitioned_apply(n_inst=HALO_RANKS) on the interior, one rb launch
+    a rank; the kernel == plain at the per-rank launch shape."""
+    engines = partition_engines(dev)
+    x_np = waveform(np.random.default_rng(12), PART_SYMS)
+    x = torch.from_numpy(x_np).to(dev)
+    shapes = comp_shapes(dev)
+    ranks = run_ranks(halo_rank, HALO_RANKS, (
+        {dp: engine_recipe(e) for dp, e in engines.items()}, x_np, shapes),
+        timeout_s=RANK_TIMEOUT_S)
+    o_sym = SP.overlap_symbols(CFG)
+    checks, per_rank, launches = {}, {}, {}
+    for dp, e in engines.items():
+        name = KERNELS[dp][0]
+        whole = e(x)
+        got = torch.from_numpy(np.concatenate(
+            [r["datapaths"][dp]["y"] for r in ranks])).to(dev)
+        part = SP.partitioned_apply(e, x, HALO_RANKS, CFG)
+        require(torch.equal(got, whole),
+                f"[16] {dp}: halo over {HALO_RANKS} ranks != unsplit "
+                f"(max |diff| {float((got - whole).abs().max()):.3e})")
+        require(torch.equal(got[o_sym:-o_sym], part[o_sym:-o_sym]),
+                f"[16] {dp}: halo interior != partitioned_apply")
+        for r, out in enumerate(ranks):
+            n = out["datapaths"][dp]["launches"]
+            require(n[name] == 1 and sum(n.values()) == 1,
+                    f"[16] {dp} rank {r}: launches {n}")
+            require_instances(n, out["datapaths"][dp]["instances"],
+                              f"[16] {dp} rank {r}")
+        launches[name] = sum(out["datapaths"][dp]["launches"][name]
+                             for out in ranks)
+        checks[dp] = {"vs_unsplit": "bitwise",
+                      "vs_partitioned_interior": "bitwise"}
+        per_rank[dp] = [{k: out["datapaths"][dp][k] for k in (
+            "call_ms", "exchange_ms", "wire", "bytes_sent",
+            "bytes_received")} | {"rb_launches": out["datapaths"][dp][
+                "instances"]["rb"]} for out in ranks]
+    # [16a] each kernel == plain at the per-rank launch shape (an interior
+    # rank's shard with its neighbours' halos)
+    w = ranks[0]["shard_samples"]
+    o_samp = ranks[0]["halo_samples"]
+    ext = x[w - o_samp:2 * w + o_samp][None]
+    shape16a = {}
+    for dp, e in engines.items():
+        got, want = e(ext), engine_plain(e)(ext)
+        require(torch.equal(got, want),
+                f"[16a] {dp}: kernel != plain at {tuple(ext.shape)}")
+        shape16a[dp] = list(ext.shape)
+    return {"checks": checks, "per_rank": per_rank, "launches": launches,
+            "backend": ranks[0]["backend"],
+            "staged_through_host": ranks[0]["staged_through_host"],
+            "exchange_host_tensor_ms": [r["exchange_host_tensor_ms"]
+                                        for r in ranks],
+            "shard_samples": w, "halo_samples": o_samp, "kernel_vs_plain":
+            {"shape": shape16a, "result": "bitwise"},
+            "comp": [r["comp"] for r in ranks]}
+
+
+RESHARD_STEPS = ("mesh", "distribute", "save", "restore", "checked")
+
+
+def cuda_reshard_rank(rank: int, world: int, tmp: str,
+                      gather: bool) -> dict:
+    """The (2, 2) → (1, 2) reshard on a "cuda" mesh over gloo: a tree
+    sharded on (2, 2) (each rank cuts its shard, no collective), saved
+    (with ``gather`` its DTensor gathered by `full_tensor`; without, the
+    same tree as plain tensors), restored onto best_mesh(2, 2), each
+    rank's local shard held to its slice (no collective). Each step
+    reached is written to ``tmp``/progress<rank>, so a rank that dies
+    shows where."""
+    from torch.distributed.tensor import distribute_tensor
+    progress = pathlib.Path(tmp, f"progress{rank}")
+
+    def reached(step: str) -> None:
+        with progress.open("a") as f:
+            f.write(step + "\n")
+
+    torch.cuda.set_device(0)
+    w = torch.arange(64, dtype=torch.float32, device="cuda").reshape(8, 8)
+    tree = {"layers": {"w_gate": w}}
+    mesh4 = make_mesh((2, 2), ("data", "model"), "cuda")
+    reached("mesh")
+    specs = SHARD.param_specs(tree, mesh4, "train")
+    place = SHARD.placements(specs["layers"]["w_gate"], mesh4)
+    sharded = distribute_tensor(w, mesh4, place, src_data_rank=None)
+    reached("distribute")
+    ckpt = CheckpointManager(os.path.join(tmp, "ckpt"))
+    ckpt.save(1, {"layers": {"w_gate": sharded if gather else w}})
+    reached("save")
+    mesh2 = best_mesh(n_devices=2, model_parallel=2)
+    got, _ = ElasticRestore(ckpt).restore(tree, mesh2)
+    reached("restore")
+    local = got["layers"]["w_gate"].to_local()
+    if rank < 2:
+        require(local.is_cuda and torch.equal(
+            local, w[:, 4 * rank:4 * rank + 4]),
+            f"[16c] rank {rank}: local shard {tuple(local.shape)}")
+    reached("checked")
+    return {"local": list(local.shape), "device": str(local.device)}
+
+
+def check_elastic(dev) -> dict:
+    """[16c]: a seeded COMP_ARCH tree saved by the port's CheckpointManager
+    and restored by ElasticRestore onto best_mesh() of a one-rank world on
+    the card: every leaf a DTensor on cuda:0 equal to the saved tensor
+    bitwise. Then the multi-rank reshard on a "cuda" mesh over gloo is
+    tried, and whether it ran is recorded."""
+    cfg = LM_configs.get_config(COMP_ARCH, tp=1)
+    tree = LM_registry.build(cfg).init(torch.Generator(dev).manual_seed(3),
+                                       dev)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_") as tmp:
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            ckpt = CheckpointManager(os.path.join(tmp, "ckpt"))
+            t0 = time.perf_counter()
+            ckpt.save(7, tree)
+            out["save_s"] = time.perf_counter() - t0
+            mesh = best_mesh()
+            t0 = time.perf_counter()
+            restored, step = ElasticRestore(ckpt).restore(tree, mesh)
+            torch.cuda.synchronize()
+            out["restore_s"] = time.perf_counter() - t0
+            require(step == 7, f"[16c] step {step}")
+            names = dict(tree_named_leaves(tree))
+            for n, leaf in tree_named_leaves(restored):
+                local = leaf.to_local()
+                require(local.device == dev and torch.equal(local, names[n]),
+                        f"[16c] {n}: on {local.device}, or != saved")
+            out.update(mesh=str(mesh), leaves=len(names), bytes=sum(
+                t.numel() * t.element_size() for t in names.values()),
+                restored="bitwise, every leaf on cuda:0")
+        finally:
+            dist.destroy_process_group()
+        for gather in (True, False):
+            out[f"cuda_mesh_reshard_2x2_to_1x2_gather_{gather}"] = \
+                try_cuda_reshard(os.path.join(tmp, f"reshard_{gather}"),
+                                 gather)
+    return out
+
+
+def try_cuda_reshard(tmp: str, gather: bool) -> dict:
+    """Whether `cuda_reshard_rank` ran on 4 ranks; where each rank stopped
+    if not (a rank that segfaults in a collective raises nothing)."""
+    os.makedirs(tmp)
+    try:
+        ranks = run_ranks(cuda_reshard_rank, 4, (tmp, gather), timeout_s=180)
+        return {"ran": True, "locals": [r["local"] for r in ranks]}
+    except (RuntimeError, TimeoutError) as e:
+        last = []
+        for r in range(4):
+            f = pathlib.Path(tmp, f"progress{r}")
+            done = f.read_text().split() if f.exists() else []
+            last.append(done[-1] if done else "none")
+        return {"ran": False, "error": str(e).strip().splitlines()[-1],
+                "last_step_per_rank": last, "steps": list(RESHARD_STEPS)}
+
+
 # ---------------------------------------------------------------------------
 
 def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
@@ -3559,6 +3881,38 @@ def main() -> int:
           f"fp32 and int8 wires): egress == offline bitwise: "
           f"{json.dumps(fwire)}; {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    halo = check_halo(dev)
+    print(f"[16] halo: one stream of {PART_SYMS} symbols ({2 * PART_SYMS} "
+          f"samples) over {HALO_RANKS} {halo['backend']} ranks on {dev} "
+          f"(edges staged through the host: "
+          f"{halo['staged_through_host']}; the fp32 exchange of host "
+          f"tensors, no staging, host ms a rank "
+          f"{json.dumps(halo['exchange_host_tensor_ms'])}), "
+          f"{halo['shard_samples']} "
+          f"samples a shard, halo {halo['halo_samples']} samples each side; "
+          f"gathered == unsplit engine bitwise and == partitioned_apply("
+          f"n_inst={HALO_RANKS}) on the interior, one rb launch a rank a "
+          f"call: {json.dumps(halo['checks'])}; launches (all ranks) "
+          f"{json.dumps(halo['launches'])}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    for dp, rows in halo["per_rank"].items():
+        print(f"[16] {dp} per rank (host ms a call, mean of {HALO_ITERS} "
+              f"after a barrier; exchange alone; bytes each way): "
+              f"{json.dumps(rows)}", flush=True)
+    print(f"[16a] kernel == plain at the per-rank launch shape: "
+          f"{json.dumps(halo['kernel_vs_plain'])}", flush=True)
+    print(f"[16b] compressed_psum over {HALO_RANKS} ranks ({COMP_ARCH} "
+          f"full-width tree at tp 1, seeded f32 gradients a rank; host ms a "
+          f"call, mean of {COMP_ITERS} after a warm-up; mean within one "
+          f"quantization step of the exact mean, 0 < |residual| < scale): "
+          f"{json.dumps(halo['comp'])}; {card}", flush=True)
+    t0 = time.perf_counter()
+    elastic = check_elastic(dev)
+    print(f"[16c] elastic restore ({COMP_ARCH} at tp 1, CheckpointManager "
+          f"-> ElasticRestore onto best_mesh() of a one-rank world): "
+          f"{json.dumps(elastic)}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
     path_launches = {
         name: {"[4] serve": run["launches"][name],
                "[11] partitioned N_i=64": part_launches[name],
@@ -3567,7 +3921,8 @@ def main() -> int:
                "[13] wire sync": wired["runs"]["sync"]["launches"][name],
                "[13] wire async": wired["runs"]["async"]["launches"][name],
                "[14] adapt": adapted["launches"][name],
-               "[15] fleet": fleet["launches"][name]}
+               "[15] fleet": fleet["launches"][name],
+               f"[16] halo ({HALO_RANKS} ranks)": halo["launches"][name]}
         for name, _ in KERNELS.values()}
     del threaded, wired
 

@@ -16,6 +16,16 @@ host lacks, so a bf16 leaf is stored as its uint16 bit pattern, with
 (also from a ``.npy`` that holds them as 2-byte void records). Every other
 leaf is stored as numpy stores its type, so a float32 checkpoint written by
 the reference restores here leaf for leaf, and the reverse.
+
+Mesh-agnostic, as the reference: a leaf is saved as its LOGICAL (whole)
+tensor, so a `DTensor` leaf is gathered first (`full_tensor`, a collective
+every rank of its mesh joins; on a CUDA mesh only over NCCL). In an
+initialized `torch.distributed` world every rank calls `save` and rank 0
+alone writes; the others wait for the publish at a barrier.
+``restore(..., mesh=, specs=)`` hands every leaf to `distribute_tensor`
+with the placements of its spec on the NEW mesh, each rank cutting its
+shard from the file it read (no collective): an elastic restart (4 ranks
+→ 2, or one pod → two) is a restore, not a migration tool.
 """
 from __future__ import annotations
 
@@ -27,14 +37,26 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import DeviceLike, resolve_device
 from ..interop import tree_named_leaves, tree_unflatten
+from ..parallel.sharding import placements, spec_leaves
 
 
 def _to_numpy(leaf: Any) -> Tuple[np.ndarray, str]:
+    from torch.distributed.tensor import DTensor
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach()
+        if isinstance(t, DTensor):
+            if t.device.type == "cuda" and dist.get_backend() != "nccl":
+                raise RuntimeError(
+                    "gathering a DTensor on a CUDA mesh needs NCCL: gloo's "
+                    "all-gather of CUDA tensors crashes the process (seen "
+                    "with torch 2.11); save from a CPU mesh, or plain "
+                    "tensors")
+            t = t.full_tensor()
+        t = t.cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         arr = t.numpy()
@@ -43,11 +65,24 @@ def _to_numpy(leaf: Any) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _writer() -> bool:
+    """Whether this process writes: the only one, or rank 0 of a world."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     if dtype_name == "bfloat16":
         bits = np.ascontiguousarray(arr).view(np.int16)
         return torch.from_numpy(bits).view(torch.bfloat16)
     return torch.from_numpy(np.array(arr))
+
+
+def _mesh_device(mesh) -> torch.device:
+    """This rank's device on ``mesh``: its current card, or the host."""
+    dev = resolve_device(mesh.device_type)
+    if dev.type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 @dataclasses.dataclass
@@ -65,23 +100,30 @@ class CheckpointManager:
              ) -> pathlib.Path:
         final = self.dir / f"step_{step:08d}"
         tmp = self.dir / f"step_{step:08d}.tmp"
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        tmp.mkdir(parents=True)
+        write = _writer()
+        if write:
+            if tmp.exists():
+                shutil.rmtree(tmp)
+            tmp.mkdir(parents=True)
 
         manifest: Dict[str, Any] = {"step": step, "arrays": {},
                                     "extra": extra or {}}
         for name, leaf in tree_named_leaves(tree):
-            arr, dtype_name = _to_numpy(leaf)
+            arr, dtype_name = _to_numpy(leaf)  # every rank: DTensors gather
             fname = name.replace("/", "__") + ".npy"
-            np.save(tmp / fname, arr)
+            if write:
+                np.save(tmp / fname, arr)
             manifest["arrays"][name] = {
                 "file": fname, "shape": list(arr.shape), "dtype": dtype_name}
-        (tmp / "manifest.json").write_text(json.dumps(manifest, indent=2))
-        if final.exists():
-            shutil.rmtree(final)
-        tmp.rename(final)                      # atomic publish
-        self._gc()
+        if write:
+            (tmp / "manifest.json").write_text(json.dumps(manifest,
+                                                          indent=2))
+            if final.exists():
+                shutil.rmtree(final)
+            tmp.rename(final)                  # atomic publish
+            self._gc()
+        if dist.is_initialized():
+            dist.barrier()                     # published before any reads
         return final
 
     # -- restore ------------------------------------------------------------
@@ -95,18 +137,30 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(self, tree_like: Any, step: Optional[int] = None,
-                device: Optional[DeviceLike] = None) -> Any:
+                device: Optional[DeviceLike] = None, mesh=None,
+                specs: Any = None) -> Any:
         """Restore into the structure of ``tree_like``: each leaf takes its
         template's type, and lands on ``device`` (default: the template
-        leaf's device)."""
+        leaf's device).
+
+        With ``mesh`` (a `DeviceMesh`; every rank of the world calls this)
+        each leaf becomes a `DTensor` on the mesh's device type, placed by
+        its spec in ``specs`` (a `parallel.sharding.param_specs` tree;
+        without it, replicated): the elastic reshard-on-restore path.
+        """
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         src = self.dir / f"step_{step:08d}"
         manifest = json.loads((src / "manifest.json").read_text())
-        dev = resolve_device(device) if device is not None else None
+        if mesh is not None:
+            from torch.distributed.tensor import distribute_tensor
+            dev = _mesh_device(mesh)
+            spec_flat = spec_leaves(specs) if specs is not None else None
+        else:
+            dev = resolve_device(device) if device is not None else None
         out = []
-        for name, leaf in tree_named_leaves(tree_like):
+        for i, (name, leaf) in enumerate(tree_named_leaves(tree_like)):
             meta = manifest["arrays"][name]
             t = _to_tensor(np.load(src / meta["file"]), meta["dtype"])
             if tuple(t.shape) != tuple(meta["shape"]):
@@ -116,6 +170,10 @@ class CheckpointManager:
                 t = t.to(dev or leaf.device, leaf.dtype)
             elif dev is not None:
                 t = t.to(dev)
+            if mesh is not None:
+                place = (placements(spec_flat[i], mesh) if spec_flat
+                         else None)
+                t = distribute_tensor(t, mesh, place, src_data_rank=None)
             out.append(t)
         return tree_unflatten(tree_like, out)
 

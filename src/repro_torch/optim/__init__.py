@@ -1,6 +1,6 @@
-"""Optimizers (port of `repro.optim`: AdamW and the schedules).
-`grad_comp` comes with the sharded-training slice."""
-from . import schedule
+"""Optimizers (port of `repro.optim`): AdamW, the schedules, and
+error-feedback int8 gradient compression (`grad_comp`)."""
+from . import grad_comp, schedule
 from .adam import AdamState, AdamW, global_norm
 
-__all__ = ["AdamState", "AdamW", "global_norm", "schedule"]
+__all__ = ["AdamState", "AdamW", "global_norm", "grad_comp", "schedule"]

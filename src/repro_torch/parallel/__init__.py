@@ -1,3 +1,7 @@
-"""Parallelism helpers of the port. So far only the head-count resolution
-of `repro.parallel.sharding` (pure Python); the mesh rules and the halo
-exchange come with later slices."""
+"""Parallelism of the port (`repro.parallel` counterparts), SPMD over
+`torch.distributed`: `sharding` (the mesh context, the path-based
+parameter rules, DTensor placements and the TP head resolution) and
+`halo` (the paper's stream partitioning over ranks, by halo exchange)."""
+from . import halo, sharding
+
+__all__ = ["halo", "sharding"]

@@ -1,14 +1,263 @@
-"""TP divisibility resolution (head padding / KV replication).
+"""Logical-axis sharding rules for the production mesh, and TP divisibility
+resolution (head padding / KV replication).
 
-Port of `repro.parallel.sharding.resolve_heads` and `kv_head_map`, which
-are pure Python. The rest of that module (meshes, logical axis rules,
-param specs) has no counterpart yet: on one card ``tp = 1`` and its
-`logical` annotations are no-ops, so the port's models drop them.
+Port of `repro.parallel.sharding`. Mesh dims: ("data", "model")
+single-pod, ("pod", "data", "model") multi-pod. "pod" composes with "data"
+for batch/FSDP sharding, so the same rules work on both meshes (missing
+dims are dropped).
+
+Parameter sharding is PATH-BASED: every weight name maps to a
+`PartitionSpec` through `_PARAM_RULES` (Megatron 2-D layout: TP over
+`model`, FSDP over `data`). The port's `PartitionSpec` is a tuple whose
+entries are None, a mesh dim name or a tuple of names, equal entry by
+entry to the reference's `jax.sharding.PartitionSpec` (a one-name tuple is
+the name). `placements` turns a spec into DTensor placements, one per mesh
+dim: `Shard(d)` where tensor dim d names that mesh dim, else `Replicate()`
+(a tensor dim over ("pod", "data") is `Shard(d)` on both).
+
+The rules read a mesh only through `mesh_axes`, which takes a torch
+`DeviceMesh` or anything with `axis_names` and a `shape` mapping
+(`launch.mesh.AbstractMesh`, or the reference tests' fake mesh), so the
+specs of a 256-chip mesh are computed without its ranks.
+
+`logical` is a no-op without a mesh, as in the reference; with one it
+redistributes only a `DTensor`. The port's models run at tp = 1 and call
+it nowhere.
+
+TP divisibility policy: head counts are padded and KV heads replicated at
+config-resolution time so every sharded dim divides the mesh axis.
 """
 from __future__ import annotations
 
+import re
+from typing import Any, Dict, List, Optional, Sequence
+
 import numpy as np
 
+from ..interop import tree_named_leaves, tree_unflatten
+
+
+class PartitionSpec(tuple):
+    """Per tensor dim: None (replicated), a mesh dim name, or a tuple of
+    names (major to minor). A one-name tuple is stored as the name."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+# ---------------------------------------------------------------------------
+# Mesh context
+# ---------------------------------------------------------------------------
+
+_CURRENT: dict = {"mesh": None, "mode": "train"}
+
+
+def set_mesh(mesh, mode: str = "train") -> None:
+    _CURRENT["mesh"] = mesh
+    _CURRENT["mode"] = mode
+
+
+def get_mesh():
+    return _CURRENT["mesh"]
+
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """{dim name: size} in mesh order, of a `DeviceMesh` (`mesh_dim_names`,
+    `shape`) or of any object with `axis_names` and a `shape` mapping."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, (int(s) for s in mesh.shape)))
+    return {a: int(mesh.shape[a]) for a in mesh.axis_names}
+
+
+def batch_axes(mesh) -> tuple:
+    """Mesh dims that carry the batch: ("pod","data") when present."""
+    return tuple(a for a in mesh_axes(mesh) if a in ("pod", "data"))
+
+
+def fsdp_axis(mesh):
+    """FSDP shards parameters over the data dim (not pod: keep parameter
+    all-gathers intra-pod; the pod dim only reduces gradients)."""
+    return "data" if "data" in mesh_axes(mesh) else None
+
+
+def _entry_axes(entry) -> tuple:
+    return (entry,) if isinstance(entry, str) else (entry or ())
+
+
+def _fit(shape: Sequence[int], spec: PartitionSpec, mesh) -> PartitionSpec:
+    """Divisibility safety: a dim that does not divide its mesh dims is
+    replicated instead (an unpadded odd vocab, a batch of 1)."""
+    axes = mesh_axes(mesh)
+    fixed = []
+    for dim, entry in zip(shape, spec):
+        size = 1
+        for a in _entry_axes(entry):
+            size *= axes[a]
+        fixed.append(entry if size and dim % size == 0 else None)
+    return P(*fixed)
+
+
+# ---------------------------------------------------------------------------
+# Logical activation axes
+# ---------------------------------------------------------------------------
+
+def _logical_to_spec(axes: Sequence[Optional[str]], mesh,
+                     mode: str) -> PartitionSpec:
+    names = mesh_axes(mesh)
+    out = []
+    for ax in axes:
+        if ax in ("batch", "seq_shard"):   # seq_shard: long-context SP
+            out.append(batch_axes(mesh) or None)
+        elif ax in ("heads", "kv_heads", "mlp", "vocab", "experts",
+                    "ssm_inner", "model"):
+            out.append("model" if "model" in names else None)
+        elif ax == "fsdp":
+            # train / serve_fsdp: params 2-D sharded (FSDP over data).
+            # serve: params shard over `model` only (weight all-gathers per
+            # decode step would dominate the token latency).
+            out.append(None if mode == "serve" else fsdp_axis(mesh))
+        else:                            # None / "embed" / "seq" / "head_dim"
+            out.append(None)
+    return P(*out)
+
+
+def logical(x, axes: Sequence[Optional[str]]):
+    """Apply a logical-axis layout (no-op without a mesh, or when ``x`` is
+    not a `DTensor`): a DTensor is redistributed onto the current mesh with
+    the placements of the logical axes, dims that do not divide their mesh
+    dims replicated."""
+    from torch.distributed.tensor import DTensor
+    mesh = _CURRENT["mesh"]
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    spec = _fit(x.shape, _logical_to_spec(axes, mesh, _CURRENT["mode"]),
+                mesh)
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+# ---------------------------------------------------------------------------
+# Parameter sharding (path-based)
+# ---------------------------------------------------------------------------
+# rule: regex on the param path → logical axes of the (unstacked) weight.
+# Stacked (scan-over-layers) weights get a leading None automatically — the
+# walker inserts it when the array rank exceeds the rule length.
+
+_PARAM_RULES = [
+    # embeddings / heads
+    (r"embed",            ("vocab", "fsdp")),
+    (r"lm_head",          ("fsdp", "vocab")),
+    (r"pos_embed",        (None, "fsdp")),
+    # attention (column-parallel qkv, row-parallel o)
+    (r"\bwq\b|\bwk\b|\bwv\b", ("fsdp", "heads", None)),
+    (r"\bwo\b",           ("heads", None, "fsdp")),
+    (r"q_norm|k_norm",    (None,)),
+    # dense MLP (column-parallel in, row-parallel out)
+    (r"w_gate|w_up|w_in", ("fsdp", "mlp")),
+    (r"w_down|w_out",     ("mlp", "fsdp")),
+    # MoE: experts-parallel over `model`
+    (r"router",           ("fsdp", None)),
+    (r"moe_gate|moe_up",  ("experts", "fsdp", None)),
+    (r"moe_down",         ("experts", None, "fsdp")),
+    # Mamba2 / xLSTM inner projections
+    (r"in_proj|ssm_in",   ("fsdp", "ssm_inner")),
+    (r"out_proj|ssm_out", ("ssm_inner", "fsdp")),
+    (r"conv_w",           (None, "ssm_inner")),
+    (r"conv_b|dt_bias|A_log|\bD\b", ("ssm_inner",)),
+    (r"mlstm_|slstm_",    ("fsdp", "ssm_inner")),
+    # norms, biases, scalars
+    (r"norm|scale|bias",  (None,)),
+]
+
+
+def experts_shardable(n_experts: int, mesh=None) -> bool:
+    """True when the expert count divides the model dim (moonshot 64e →
+    EP16); otherwise experts replicate over `model` and d_ff is TP-sharded
+    instead (mixtral 8e)."""
+    if mesh is None:
+        mesh = _CURRENT["mesh"]
+    if mesh is None:
+        return False
+    axes = mesh_axes(mesh)
+    return "model" in axes and n_experts % axes["model"] == 0
+
+
+def _spec_for_path(path: str, shape: tuple, mesh, mode: str) -> PartitionSpec:
+    ndim = len(shape)
+    rules = list(_PARAM_RULES)
+    # MoE fallback: experts that don't divide the model dim shard d_ff.
+    if re.search(r"moe_gate|moe_up|moe_down", path) and ndim >= 3:
+        if not experts_shardable(shape[-3], mesh):
+            rules = [(r"moe_gate|moe_up", (None, "fsdp", "mlp")),
+                     (r"moe_down", (None, "mlp", "fsdp"))] + rules
+    for pat, axes in rules:
+        if re.search(pat, path):
+            axes = tuple(axes)
+            if len(axes) < ndim:           # stacked layers / extra leading dims
+                axes = (None,) * (ndim - len(axes)) + axes
+            elif len(axes) > ndim:
+                axes = axes[-ndim:] if ndim > 0 else ()
+            return _fit(shape, _logical_to_spec(axes, mesh, mode), mesh)
+    return P()                              # replicate by default
+
+
+def _path_str(path: Sequence[Any]) -> str:
+    """A tree path (dict keys, field names, sequence indices) as the
+    reference names it: the keys joined with "/", indices as digits."""
+    return "/".join(str(k) for k in path)
+
+
+def param_specs(params: Any, mesh, mode: str = "train") -> Any:
+    """`PartitionSpec` tree for a parameter tree (leaves with a ``shape``),
+    named as the reference names its paths (`interop.tree_named_leaves`)."""
+    return tree_unflatten(params, [
+        _spec_for_path(name, tuple(leaf.shape), mesh, mode)
+        for name, leaf in tree_named_leaves(params)])
+
+
+def spec_leaves(specs: Any) -> List[PartitionSpec]:
+    """The specs of a `param_specs` tree in leaf order (a spec is a tuple,
+    so `interop.tree_leaves` would walk into it)."""
+    if isinstance(specs, PartitionSpec):
+        return [specs]
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    if isinstance(specs, (list, tuple)):
+        return [s for v in specs for s in spec_leaves(v)]
+    return []
+
+
+def placements(spec: PartitionSpec, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``, one per mesh dim in mesh
+    order: `Shard(d)` where tensor dim d names the mesh dim, else
+    `Replicate()`."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh_axes(mesh))
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        for a in _entry_axes(entry):
+            out[names.index(a)] = Shard(d)
+    return tuple(out)
+
+
+def param_shardings(params: Any, mesh, mode: str = "train") -> Any:
+    """Each leaf's DTensor placements on ``mesh`` (the reference returns
+    `NamedSharding`s)."""
+    specs = param_specs(params, mesh, mode)
+    return tree_unflatten(params, [placements(s, mesh)
+                                   for s in spec_leaves(specs)])
+
+
+# ---------------------------------------------------------------------------
+# TP divisibility resolution (head padding / KV replication)
+# ---------------------------------------------------------------------------
 
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m

@@ -14,13 +14,15 @@ Layers (port of `repro.serve`):
                failover)
   fleet      — FleetRuntime: N workers (one launcher thread and CUDA
                stream each) behind shard-by-tenant placement, heartbeat
-               health and bitwise device-loss migration
+               health and bitwise device-loss migration; also the single
+               source of device-set truth (worker_devices / best_mesh)
   loadgen    — reproducible tenant traffic (chop, random_waveforms,
                replay; replay_wire through the net layer; drift_streams
                and replay_adaptive over a drifting channel)
 """
 from .chunker import CarrySnapshot, ChunkPlan, StreamChunker
-from .fleet import FleetRuntime, FleetWorker, worker_devices
+from .fleet import (FleetRuntime, FleetWorker, best_mesh, mesh_shape,
+                    worker_devices)
 from .loadgen import (chop, drift_streams, random_waveforms, replay,
                       replay_adaptive, replay_wire)
 from .pool import EnginePool
@@ -38,6 +40,7 @@ __all__ = ["AsyncServeRuntime", "BatchPolicy", "CarrySnapshot", "ChunkPlan",
            "InjectedFault", "LaunchBatch", "LaunchTimeout", "MicroBatcher",
            "RecoveryPolicy", "RecoveryStats", "Request", "ServeRuntime",
            "Session", "SessionManager", "StreamChunker", "TenantShedError",
-           "TenantSpec", "TrafficStats", "chop", "drift_streams",
-           "random_waveforms", "replay", "replay_adaptive", "replay_wire",
+           "TenantSpec", "TrafficStats", "best_mesh", "chop",
+           "drift_streams", "mesh_shape", "random_waveforms", "replay",
+           "replay_adaptive", "replay_wire",
            "worker_devices"]

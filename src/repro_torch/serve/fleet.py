@@ -70,12 +70,14 @@ just before the sweep and appended just after it was never migrated, and
 `drain()` waited for it forever. The port's sweep sees every un-landed
 batch: the failing one in `stranded`, the rest in the queue.)
 
-Port of `repro.serve.fleet` (without `best_mesh`, whose mesh type the
-port's parallel layer will choose). On a card each worker's launcher
-thread owns a `torch.cuda.Stream` on the worker's device and enters it
-for its whole loop; the per-launch watchdog's thread enters the same
-stream (streams are per thread), and the device→host copy that ends each
-execute waits on it before descatter. Batches are assembled on the
+Port of `repro.serve.fleet`. `best_mesh` returns torch's own
+`DeviceMesh` ("data", "model") over the ranks of an initialized
+`torch.distributed` world (the port's parallel layer is SPMD, one process
+a rank); its sizes come from the pure `mesh_shape`. On a card each
+worker's launcher thread owns a `torch.cuda.Stream` on the worker's
+device and enters it for its whole loop; the per-launch watchdog's
+thread enters the same stream (streams are per thread), and the
+device→host copy that ends each execute waits on it before descatter. Batches are assembled on the
 controller's (or a producer's) thread, so every worker's batcher records
 the assembly event that the launch waits for (`MicroBatcher.cross_stream`).
 A migrated session is rebuilt on the TARGET worker's device
@@ -94,6 +96,7 @@ from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import DeviceLike, resolve_device
 from ..obs import Observability
@@ -137,6 +140,49 @@ def worker_devices(n_workers: Optional[int] = None,
     if n_workers < 1:
         raise ValueError("n_workers must be ≥ 1")
     return [devs[i % len(devs)] for i in range(n_workers)]
+
+
+def mesh_shape(n: int, model_parallel: int = 0) -> Tuple[int, int]:
+    """(data, model) sizes of the largest mesh on ``n`` ranks: model
+    parallelism is pinned by the checkpointed config (weights must still
+    divide) and halves until it divides ``n``; the data dim absorbs the
+    elasticity."""
+    mp = model_parallel or 1
+    while mp > 1 and n % mp:
+        mp //= 2
+    return n // mp, mp
+
+
+def best_mesh(n_devices: Optional[int] = None, model_parallel: int = 0,
+              ranks: Optional[List[int]] = None,
+              device_type: Optional[str] = None):
+    """Largest ("data", "model") `DeviceMesh` over the surviving ranks.
+
+    Shared by elastic training restores (`repro_torch.runtime.elastic`,
+    which re-exports it) and kept with the fleet's other device-set logic
+    so there is ONE notion of "which devices do we have". ranks: the
+    surviving ranks (default: the initialized world); the mesh takes the
+    first dp·mp of them, (dp, mp) = `mesh_shape(n_devices, model_parallel)`.
+    Every rank of the world calls it (the mesh's groups are made
+    collectively); a rank outside the mesh gets its handle with no
+    coordinate. The device type is "cuda" unless the caller asks for
+    "cpu". Raises RuntimeError when there are no ranks and ValueError
+    when n_devices lies outside [1, len(ranks)]."""
+    from torch.distributed.device_mesh import DeviceMesh
+    dev_type = resolve_device(device_type or "cuda").type
+    if ranks is None:
+        ranks = (list(range(dist.get_world_size()))
+                 if dist.is_initialized() else [])
+    ranks = list(ranks)
+    if not ranks:
+        raise RuntimeError("no ranks available (torch.distributed is not "
+                           "initialized, or the rank list is empty)")
+    n = n_devices or len(ranks)
+    if not 1 <= n <= len(ranks):
+        raise ValueError(f"n_devices={n} outside [1, {len(ranks)}]")
+    dp, mp = mesh_shape(n, model_parallel)
+    return DeviceMesh(dev_type, torch.tensor(ranks[:dp * mp]).reshape(dp, mp),
+                      mesh_dim_names=("data", "model"))
 
 
 # ---------------------------------------------------------------------------

@@ -79,6 +79,9 @@ migrates every stream bitwise when worker 0 is lost, each worker executing
 on its own stream; the `OnlineAdapter`'s thread (on its own stream) runs
 under live async traffic with no error, losing and duplicating nothing;
 one adapter run twice gives the same history and weights bitwise.
+The parallel slice: two gloo ranks on one card shard a stream through the
+int8 halo exchange and give the unsplit engine's symbols bitwise, one
+kernel launch a rank; `grad_comp.compress` on the card equals the host's.
 """
 import dataclasses
 import hashlib
@@ -1706,3 +1709,51 @@ def test_adapter_cycle_repeats_bitwise_on_card(cuda_device):
     for (a, b), (c, d) in zip(w1, w2):
         assert torch.equal(a, c) and torch.equal(b, d)
     np.testing.assert_array_equal(o1, o2)
+
+
+def _halo_rank_on_card(rank: int, world: int, weights, x: np.ndarray):
+    """One rank of a gloo world on cuda:0: its int8 engine on its shard."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import halo
+    torch.cuda.set_device(0)
+    mesh = make_mesh((world,), ("data",), "cuda")
+    engine = EqualizerEngine(cfg=HT.CNN, weights=weights,
+                             backend="fused_int8", formats=FMTS, tile_m=64,
+                             device="cuda")
+    shard = halo.local_shard(torch.from_numpy(x), HT.CNN, mesh)
+    kern.reset_launch_counts()
+    y = halo.halo_apply(engine, shard, HT.CNN, mesh)
+    torch.cuda.synchronize()
+    return y.cpu().numpy(), dict(kern.LAUNCHES)
+
+
+@pytest.mark.cuda
+def test_halo_two_gloo_ranks_on_card_int8_bitwise(cuda_device):
+    """Two ranks over gloo on one card (NCCL refuses two ranks on one GPU):
+    the int8 halo (edges staged through the host as int8) gives the
+    unsplit engine's symbols bitwise, one kernel launch a rank."""
+    from repro_torch.launch.mesh import run_ranks
+    weights = tuple((w.numpy(), b.numpy()) for w, b in _folded(3))
+    x = np.random.default_rng(4).standard_normal(
+        2 * 2 * 1024).astype(np.float32)
+    outs = run_ranks(_halo_rank_on_card, 2, (weights, x), timeout_s=300)
+    whole = EqualizerEngine(cfg=HT.CNN, weights=weights,
+                            backend="fused_int8", formats=FMTS, tile_m=64,
+                            device=cuda_device)(x).cpu().numpy()
+    np.testing.assert_array_equal(np.concatenate([y for y, _ in outs]),
+                                  whole)
+    assert all(n["cnn_eq_fused_int8"] == 1 for _, n in outs), outs
+
+
+@pytest.mark.cuda
+def test_grad_compress_on_card_equals_host(cuda_device):
+    from repro_torch.optim import grad_comp
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (64, 1000)).astype(np.float32))
+    g[0, :4] = torch.tensor([127.0 * 0.03, 0.015, 0.045, -0.015])
+    p, s = grad_comp.compress(g)
+    pc, sc = grad_comp.compress(g.to(cuda_device))
+    assert pc.is_cuda and pc.dtype == torch.int8
+    assert torch.equal(pc.cpu(), p) and torch.equal(sc.cpu(), s)
+    assert torch.equal(grad_comp.decompress(pc, sc).cpu(),
+                       grad_comp.decompress(p, s))

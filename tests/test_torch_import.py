@@ -34,8 +34,9 @@ from repro_torch.examples import (adaptive_serving, quickstart,
                                   stream_equalizer, train_equalizer_imdd)
 from repro_torch.channels.drift import (DriftingIMDD, DriftingProakis,
                                         DriftSchedule)
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.serve import (AsyncServeRuntime, FleetRuntime, ServeRuntime,
-                               loadgen, worker_devices)
+                               best_mesh, loadgen, worker_devices)
 
 REPO_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 
@@ -206,10 +207,37 @@ def test_adapt_and_fleet_modules_import_without_jax(name):
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+PARALLEL_MODULES = ("repro_torch.parallel", "repro_torch.parallel.halo",
+                    "repro_torch.parallel.sharding",
+                    "repro_torch.optim.grad_comp",
+                    "repro_torch.runtime.elastic", "repro_torch.runtime",
+                    "repro_torch.launch.mesh",
+                    "repro_torch.checkpoint.manager",
+                    "repro_torch.serve.fleet",
+                    "repro_torch.examples.stream_equalizer")
+
+
+@pytest.mark.parametrize("name", PARALLEL_MODULES)
+def test_parallel_modules_import_without_jax(name):
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({name!r})
+        bad = sorted(k for k in sys.modules
+                     if k == "jax" or k.startswith("jax.")
+                     or k == "repro" or k.startswith("repro."))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO_SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.mark.parametrize("path", [
     os.path.join(os.path.dirname(REPO_SRC), "chip_smoke.py"),
     *(os.path.join(REPO_SRC, "repro_torch", *m.split(".")[1:]) + ".py"
-      for m in ADAPT_FLEET_MODULES if m.count(".") > 1)])
+      for m in ADAPT_FLEET_MODULES + PARALLEL_MODULES
+      if m.count(".") > 1)])
 def test_source_names_no_jax_or_reference_import(path):
     """Statically: neither chip_smoke.py nor the new modules import `jax`
     or `repro` (the subprocess checks above see only what one import
@@ -278,6 +306,9 @@ def _folded():
     lambda: serve_equalizer.main([]),
     lambda: train_equalizer_imdd.main(["--steps", "1"]),
     lambda: serve_lm.main([]),
+    lambda: best_mesh(),
+    lambda: best_mesh(ranks=[0]),
+    lambda: make_mesh((1,), ("data",)),
 ])
 def test_entry_point_without_device_raises_without_card(monkeypatch, entry):
     _no_card(monkeypatch)
