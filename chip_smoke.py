@@ -6,11 +6,12 @@
 Phases (each prints a line; any failure raises and exits non-zero with no
 result line), in the order they run:
   1. card: `nvidia-smi` name and power limit, torch and CUDA versions;
-  2. build: one nvcc per source, all started together, builds the seven
+  2. build: one nvcc per source, all started together, builds the eight
      CUDA sources (cnn_eq, volterra, quant, conv1d, flash_attn,
-     flash_attn_bwd, slstm) for sm_90a; prints the -Xptxas -v register /
-     shared-memory / spill lines of every kernel instance (the sLSTM
-     source's: the cluster kernel's twelve, the stream kernel's four), and
+     flash_attn_bwd, slstm, slstm_bwd) for sm_90a; prints the -Xptxas -v
+     register / shared-memory / spill lines of every kernel instance (the
+     sLSTM source's: the cluster kernel's twelve, the stream kernel's
+     four; the sLSTM backward's two), and
      the registers and spills of the three register-blocked cnn_eq
      instances (`cnn_eq_kernel_rb`, fp32, bf16 and int8 at the plan's P),
      the three register-blocked conv1d instances (`conv1d_kernel_rb`, the
@@ -162,8 +163,10 @@ result line), in the order they run:
      saved by `CheckpointManager` and restored by `runtime.ElasticRestore`
      onto `best_mesh()` of a one-rank world on cuda:0: every leaf a
      DTensor on the card, bitwise; then the (2, 2) → (1, 2) reshard on a
-     "cuda" mesh over 4 gloo ranks is tried, saved from DTensors and from
-     plain tensors, and whether each ran is printed;
+     "cuda" mesh over 4 gloo ranks, saved from DTensor leaves (gathered
+     through the host: gloo cannot all-gather CUDA tensors) and from plain
+     tensors: both must run, each rank's restored shard must be its slice,
+     and the two saves must write the same files byte for byte;
   6. train: `train_equalizer` on the card for the CNN (equalizer_ht widths,
      3-phase QAT), the FIR and the Volterra baselines on the default IM/DD
      link (40 GBd, 31.5 km, N_os = 2), 300 steps each; every loss finite,
@@ -229,7 +232,19 @@ result line), in the order they run:
      yardstick, the achieved TFLOP/s, the share of the bound, the factor
      against SDPA and the f32 instance's device time at the same shape,
      then one prefill and 4 decode steps under torch.profiler (device idle
-     share, top kernels);
+     share, top kernels); 8m: MoE serving: `serve_session` builds
+     moonshot-v1-16b-a3b at full width (d_model 2048, 16 heads of 128, 64
+     experts top-6, expert d_ff 1408, vocab 163 840, bf16,
+     fused_attention, tp = 1) with its depth cut to 4 of 48 layers and
+     serves 4 × 2048-token prompts, then 32 greedy decode steps: 4 flash
+     launches in the prefill, 0 in the decode, finite logits; prints
+     prefill ms, decode ms per step, tokens/s and the peak memory; then f32
+     at the same width and 2 layers over 1 × 256 tokens, the card's logits
+     at every position against the same weights on the host, within 2e-3
+     or, where f32 cannot resolve that, 4 × the host's own f32 distance
+     from a float64 run (both host runs routed as the card routed: a
+     token's dispatch slot depends on every token's choices in its group;
+     the top-6 choices the host would have made differently counted);
   9. LM training: `repro_torch.launch.train.build` at qwen3-0.6b's full
      width (fused_attention, remat, tp = 1, AdamW lr 3e-4 with
      grad_clip_norm 1.0) and its train step on 2 × (4 × 2048) tokens a
@@ -297,10 +312,27 @@ result line), in the order they run:
      16.44 ms at the same shape (PERF.md §6 row 10), then
      one prefill and 4 decode steps under torch.profiler (idle share, top
      kernels, the kernel's share of the prefill);
+  9x. xlstm training: `launch.train.build` at xlstm-125m's full width
+     (bf16, remat, tp = 1, AdamW lr 3e-4, grad_clip_norm 1.0) and its
+     train step on 2 × (4 × 2048) tokens: one warm-up step, then 4 timed
+     steps; every loss finite and the last no higher than the first; per
+     step exactly 8 slstm_fused launches (the cluster kernel, twice per
+     sLSTM block and micro-batch under remat) and 4 slstm_fused_bwd
+     launches (`INSTANCE_LAUNCHES` "bwd_stream"); prints ms per step,
+     tokens/s, peak memory, the losses and one profiled step's idle
+     share. Then on block 3's trained inputs (a fresh micro-batch; bf16 xg
+     and r) the backward kernel against `ref.slstm_fused_bwd` (f32, TF32
+     off) and its float64 run: each output within max(1e-4 · max(1,
+     |x|), 4 × the plain version's own float64 distance), two launches
+     bitwise; the block's slstm_r and slstm_w gradients in f32 through the
+     kernel path (`models.xlstm.slstm_scan`) against autograd through the
+     plain loop, nonzero and within 1e-3 · max|leaf|; and the backward's
+     call and device time, the plain loop's time and the bound from
+     `slstm_bwd_costs`;
   9d (last): one full-width LM train step under torch.profiler, after a
      warm-up step inside the profiler's schedule: idle share and the top
      device activities.
-The line before the last is the `kernels` JSON (eleven kernels; the
+The line before the last is the `kernels` JSON (twelve kernels; the
 three cnn_eq rows also carry their launches on each path, `path_launches`:
 [4], [11], [12], [13], [14], [15] and [16], the last summed over ranks);
 the last line is
@@ -436,7 +468,8 @@ BACKEND_OF = {"fp32": "fused_fp32", "bf16": "fused_bf16",
               "int8": "fused_int8"}
 # the train-then-deploy slice: its kernels, sources and the TPU kernels
 # they replace
-SOURCES = (K.CSRC, V.CSRC, Q.CSRC, C1.CSRC, FA.CSRC, FA.CSRC_BWD, SL.CSRC)
+SOURCES = (K.CSRC, V.CSRC, Q.CSRC, C1.CSRC, FA.CSRC, FA.CSRC_BWD, SL.CSRC,
+           SL.CSRC_BWD)
 DEPLOY_KERNELS = {
     "volterra": ("src/repro_torch/kernels/volterra/csrc/volterra.cu",
                  "src/repro/kernels/volterra/volterra.py:61", V.LAUNCHES),
@@ -566,6 +599,40 @@ SLSTM_SPLIT = 700
 # within SLSTM_RESOLVED x max(1, |x|) (a chaotic case measures f32, not
 # the kernel).
 SLSTM_ATOL, SLSTM_ENVELOPE, SLSTM_RESOLVED = 1e-4, 4.0, 1e-3
+# [9x] xlstm training: xlstm-125m at full width through launch.train.build,
+# LM_TRAIN_ACCUM x (LM_TRAIN_MB x LM_TRAIN_SEQ) tokens a step, 1 warm-up
+# step and XL_TRAIN_STEPS timed ones; the backward kernel is held on block
+# 3's trained inputs to the row-10 rule, stated before the first run:
+# max |kernel - plain| <= max(SLSTM_ATOL · max(1, max |float64|),
+# SLSTM_ENVELOPE · max |plain - float64|) for dxg, dr and each dstate0;
+# slstm_r's and slstm_w's gradients through the block, kernel path (the
+# autograd Function) against autograd through the plain loop, f32, nonzero
+# and within XL_GRAD_TOL · max|leaf| (see XL_GRAD_PREFIX)
+SLSTM_BWD = ("slstm_fused_bwd", "src/repro_torch/kernels/slstm/csrc/"
+             "slstm_bwd.cu", "none: the reference differentiates its "
+             "lax.scan (src/repro/models/xlstm.py:257); its Pallas kernel "
+             "(src/repro/kernels/slstm/slstm.py:104) has no backward")
+XL_TRAIN_STEPS, XL_GRAD_TOL = 4, 1e-3
+# [9x] the gradient check over the whole sequence is held to the row-10
+# rule (max(XL_GRAD_TOL · max|leaf|, SLSTM_ENVELOPE x the plain f32
+# path's distance from float64)): the model's slstm_r ~ 0.3·N makes the
+# recurrence expand, and over 2048 steps its gradient reached 3e6 with
+# the f32 paths 42 % apart (my chip call 4, PR 26). Over the first
+# XL_GRAD_PREFIX steps f32 resolves it, and there the bound is
+# XL_GRAD_TOL · max|leaf| alone
+XL_GRAD_PREFIX = 256
+# [8m] MoE serving: moonshot-v1-16b-a3b at full width, its depth cut to
+# MOE_LAYERS of 48, LM_BATCH x LM_PROMPT tokens + LM_GEN decode steps; then
+# f32 at MOE_F32_LAYERS layers over MOE_F32_TOKENS tokens, card vs host
+MOE_ARCH, MOE_LAYERS = "moonshot-v1-16b-a3b", 4
+MOE_F32_LAYERS, MOE_F32_TOKENS = 2, 256
+# [8m] card vs host in f32 is held to LM_LOGIT_TOL where f32 resolves it;
+# where it cannot, to MOE_F32_ENVELOPE x the host's own f32 distance from
+# a float64 run of the same function (the row-10 rule). The reference's
+# init draws wq and wk with fan_in = the head count (16), so |q|, |k| reach
+# ~11 an entry and the attention scores ~100: a near one-hot softmax that
+# carries f32 rounding far (PERF.md, PR 26)
+MOE_F32_ENVELOPE = 4.0
 # [10c]: f32 at full width, card vs host over this many tokens, and decode
 # vs prefill at LM_PROMPT; both within LM_LOGIT_TOL, stated before the
 # first run
@@ -2000,8 +2067,9 @@ def cuda_reshard_rank(rank: int, world: int, tmp: str,
                       gather: bool) -> dict:
     """The (2, 2) → (1, 2) reshard on a "cuda" mesh over gloo: a tree
     sharded on (2, 2) (each rank cuts its shard, no collective), saved
-    (with ``gather`` its DTensor gathered by `full_tensor`; without, the
-    same tree as plain tensors), restored onto best_mesh(2, 2), each
+    (with ``gather`` as DTensor leaves, which `CheckpointManager.save`
+    gathers through the host off NCCL; without, the same tree as plain
+    tensors), restored onto best_mesh(2, 2), each
     rank's local shard held to its slice (no collective). Each step
     reached is written to ``tmp``/progress<rank>, so a rank that dies
     shows where."""
@@ -2040,8 +2108,9 @@ def check_elastic(dev) -> dict:
     """[16c]: a seeded COMP_ARCH tree saved by the port's CheckpointManager
     and restored by ElasticRestore onto best_mesh() of a one-rank world on
     the card: every leaf a DTensor on cuda:0 equal to the saved tensor
-    bitwise. Then the multi-rank reshard on a "cuda" mesh over gloo is
-    tried, and whether it ran is recorded."""
+    bitwise. Then the multi-rank reshard on a "cuda" mesh over gloo, from
+    DTensor leaves and from plain tensors: both must run, and the two
+    saves must write the same files byte for byte."""
     cfg = LM_configs.get_config(COMP_ARCH, tp=1)
     tree = LM_registry.build(cfg).init(torch.Generator(dev).manual_seed(3),
                                        dev)
@@ -2071,28 +2140,41 @@ def check_elastic(dev) -> dict:
                 restored="bitwise, every leaf on cuda:0")
         finally:
             dist.destroy_process_group()
+        arms = {}
         for gather in (True, False):
-            out[f"cuda_mesh_reshard_2x2_to_1x2_gather_{gather}"] = \
-                try_cuda_reshard(os.path.join(tmp, f"reshard_{gather}"),
-                                 gather)
+            t0 = time.perf_counter()
+            arms[gather] = cuda_reshard(
+                os.path.join(tmp, f"reshard_{gather}"), gather)
+            arms[gather]["s"] = time.perf_counter() - t0
+        require(arms[True]["files"] == arms[False]["files"],
+                "[16c] the DTensor save's files differ from the plain "
+                "save's")
+        for gather, arm in arms.items():
+            arm.pop("files")
+            out[f"cuda_mesh_reshard_2x2_to_1x2_gather_{gather}"] = arm
+        out["dtensor_save_equals_plain_save"] = "file for file"
     return out
 
 
-def try_cuda_reshard(tmp: str, gather: bool) -> dict:
-    """Whether `cuda_reshard_rank` ran on 4 ranks; where each rank stopped
-    if not (a rank that segfaults in a collective raises nothing)."""
+def cuda_reshard(tmp: str, gather: bool) -> dict:
+    """`cuda_reshard_rank` on 4 ranks; a failure raises, naming the step
+    each rank reached (a rank that segfaults in a collective raises
+    nothing itself)."""
     os.makedirs(tmp)
     try:
         ranks = run_ranks(cuda_reshard_rank, 4, (tmp, gather), timeout_s=180)
-        return {"ran": True, "locals": [r["local"] for r in ranks]}
     except (RuntimeError, TimeoutError) as e:
         last = []
         for r in range(4):
             f = pathlib.Path(tmp, f"progress{r}")
             done = f.read_text().split() if f.exists() else []
             last.append(done[-1] if done else "none")
-        return {"ran": False, "error": str(e).strip().splitlines()[-1],
-                "last_step_per_rank": last, "steps": list(RESHARD_STEPS)}
+        raise RuntimeError(f"[16c] the (2, 2) -> (1, 2) reshard on a cuda "
+                           f"mesh (gather={gather}) failed; last step per "
+                           f"rank {last} of {list(RESHARD_STEPS)}") from e
+    saved = pathlib.Path(tmp, "ckpt", "step_00000001")
+    return {"ran": True, "locals": [r["local"] for r in ranks],
+            "files": {p.name: p.read_bytes() for p in saved.iterdir()}}
 
 
 # ---------------------------------------------------------------------------
@@ -2115,7 +2197,7 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
 KERNEL_NAMES = ("cnn_eq_kernel", "volterra_kernel", "quant_kernel",
                 "quant_many_kernel",
                 "conv1d_kernel", "flash_attn_kernel", "flash_bwd_dkv_kernel",
-                "flash_bwd_dq_kernel", "slstm_kernel")
+                "flash_bwd_dq_kernel", "slstm_kernel", "slstm_bwd_kernel")
 
 
 def device_trace(fn, warmup=None) -> dict:
@@ -3302,7 +3384,8 @@ def serve_xlstm(dev) -> dict:
     require(prefill_launches == n_slstm,
             f"prefill launched slstm_fused {prefill_launches} times, "
             f"expected {n_slstm} (one per sLSTM block)")
-    require(SL.INSTANCE_LAUNCHES == {"cluster": n_slstm, "stream": 0},
+    require(SL.INSTANCE_LAUNCHES == {"cluster": n_slstm, "stream": 0,
+                                     "bwd_stream": 0},
             f"prefill ran {SL.INSTANCE_LAUNCHES}, expected only the "
             f"cluster kernel")
     require(all(n == 0 for n in FA.LAUNCHES.values()),
@@ -3323,7 +3406,7 @@ def serve_xlstm(dev) -> dict:
             f"decode launched slstm_fused {decode_launches} times, expected "
             f"{n_slstm * LM_GEN} ({n_slstm} per step)")
     require(SL.INSTANCE_LAUNCHES == {"cluster": n_slstm * LM_GEN,
-                                     "stream": 0},
+                                     "stream": 0, "bwd_stream": 0},
             f"decode ran {SL.INSTANCE_LAUNCHES}, expected only the cluster "
             f"kernel")
     require(all(n == 0 for n in FA.LAUNCHES.values()),
@@ -3614,6 +3697,376 @@ def trace_xlstm(run: dict, steps: int = 4) -> dict:
                                   if pre["device_busy_ms"] else None)
     return {"prefill": pre,
             f"decode_{steps}_steps": device_trace(decode, warmup=decode)}
+
+
+# ---------------------------------------------------------------------------
+# phase 9x: xlstm training through the sLSTM forward and backward kernels
+# ---------------------------------------------------------------------------
+
+def train_xlstm(dev) -> dict:
+    """The main path of this part: `launch.train.build` on xlstm-125m at
+    full width and its train step, one warm-up step, then XL_TRAIN_STEPS
+    timed steps of LM_TRAIN_ACCUM × (LM_TRAIN_MB × LM_TRAIN_SEQ) tokens from
+    the reference's token stream. The counts are zeroed after the warm-up;
+    each step must launch the forward kernel twice per sLSTM block and
+    micro-batch (remat) and the backward kernel once."""
+    cfg = LM_configs.get_config(XL_ARCH, tp=1)
+    require((cfg.n_layers, cfg.d_model, cfg.n_heads, tuple(cfg.slstm_at),
+             cfg.vocab, cfg.dtype, cfg.remat, cfg.train_accum) ==
+            (12, 768, 4, (3, 9), 50304, "bfloat16", True, LM_TRAIN_ACCUM),
+            f"{XL_ARCH} is not at full width: {cfg}")
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    init_state, step = LM_train.build(cfg, LM_TRAIN_LR, LM_TRAIN_ACCUM, dev)
+    params, opt = init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    batches = lm_batches(PipelineConfig(
+        seq_len=LM_TRAIN_SEQ, global_batch=LM_TRAIN_MB * LM_TRAIN_ACCUM,
+        accum=LM_TRAIN_ACCUM), cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, next(batches))
+    losses = [float(m["loss"])]
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    n = len(cfg.slstm_at)
+    want = {"slstm_fused": 2 * n * LM_TRAIN_ACCUM,
+            "slstm_fused_bwd": n * LM_TRAIN_ACCUM}
+    want_inst = {"cluster": want["slstm_fused"], "stream": 0,
+                 "bwd_stream": want["slstm_fused_bwd"]}
+    SL.reset_launch_counts()
+    step_ms = []
+    for i in range(XL_TRAIN_STEPS):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        before, before_inst = dict(SL.LAUNCHES), dict(SL.INSTANCE_LAUNCHES)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        got = {k: v - before[k] for k, v in SL.LAUNCHES.items()}
+        got_inst = {k: v - before_inst[k]
+                    for k, v in SL.INSTANCE_LAUNCHES.items()}
+        require(got == want and got_inst == want_inst,
+                f"xlstm train step {i} launched {got} {got_inst}, "
+                f"expected {want} {want_inst}")
+    launches = dict(SL.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(bool(np.isfinite(losses).all()) and losses[-1] <= losses[0],
+            f"xlstm training loss not finite or rising: {losses}")
+    require(int(opt.step) == XL_TRAIN_STEPS + 1, "optimizer step count")
+    tokens = LM_TRAIN_ACCUM * LM_TRAIN_MB * LM_TRAIN_SEQ
+    # one micro-batch a profiled step (the mLSTM chunk loop makes ~90 000
+    # device events of a micro-batch); warm-up inside the schedule
+    batch = interop.tree_map(lambda t: t[:1], next(batches))
+    box = {"p": params, "o": opt}
+
+    def one():
+        box["p"], box["o"], _ = step(box["p"], box["o"], batch)
+    trace = device_trace(one, warmup=one)
+    return {"cfg": cfg, "params": params, "batches": batches,
+            "setup_s": setup_s, "warmup_ms": warm_ms, "losses": losses,
+            "step_ms": step_ms, "mean_step_ms": float(np.mean(step_ms)),
+            "median_step_ms": float(np.median(step_ms)),
+            "tokens_per_step": tokens,
+            "tokens_per_s": tokens / (np.mean(step_ms) / 1e3),
+            "peak_mem_gib": peak,
+            "peak_added_gib": peak - base / 2 ** 30, "launches": launches,
+            "launches_per_step": want, "trace": trace}
+
+
+def train_block3(run: dict, seed: int = 23):
+    """Block 3's (the first sLSTM block's) params in f32, its input h on a
+    fresh micro-batch of the run's stream (the trained blocks before it,
+    training form), and the xg the block hands its recurrence."""
+    cfg, params = run["cfg"], run["params"]
+    tokens = next(run["batches"])["tokens"][0]
+    i3 = cfg.slstm_at[0]
+    with torch.no_grad():
+        h = params["embed"][tokens].to(cfg.param_dtype())
+        for i in range(i3):
+            h, _ = XL.mlstm_block_apply(params["blocks"][i]["mlstm"], h,
+                                        cfg)
+        p = params["blocks"][i3]["slstm"]
+        hc, _ = XL._conv_causal(rms_norm(h, p["norm"]), p["conv_w"],
+                                p["conv_b"])
+        xg = hc @ p["slstm_w"] + p["slstm_b"][None, None, :].to(hc.dtype)
+    cell0 = tuple(XL.slstm_block_state(cfg, tokens.shape[0],
+                                       tokens.device)["cell"])
+    return xg, p, h, cell0
+
+
+def check_slstm_bwd(dev, xg, p, h, cell0, nh: int) -> dict:
+    """[9x]: the backward kernel against `ref.slstm_fused_bwd` (f32, TF32
+    off) and a float64 run of it, on block 3's trained xg (bf16) and r
+    (bf16) with a seeded cotangent; two launches bitwise; then slstm_r's
+    and slstm_w's gradients through the block in f32, the kernel path
+    (`models.xlstm.slstm_scan`) against autograd through the plain loop."""
+    gen = torch.Generator(device=dev).manual_seed(29)
+    r = p["slstm_r"]
+    b, s, d4 = xg.shape
+    dhs = torch.randn((b, s, d4 // 4), generator=gen, device=dev)
+    zero = tuple(torch.zeros_like(t) for t in cell0)
+    with torch.no_grad(), fp32_exact():
+        hs, _ = SL.slstm_fused(xg, r, cell0, nh)
+        got = SL.slstm_fused_bwd(xg, r, cell0, nh, hs, dhs, zero)
+        again = SL.slstm_fused_bwd(xg, r, cell0, nh, hs, dhs, zero)
+        want = SL_ref.slstm_fused_bwd(xg, r, cell0, nh, hs, dhs, zero)
+        truth = SL_ref.slstm_fused_bwd(xg, r, cell0, nh, hs, dhs, zero,
+                                       dtype=torch.float64)
+    torch.cuda.synchronize()
+    require(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+            and all(torch.equal(a, c) for a, c in zip(got[2], again[2])),
+            "slstm_fused_bwd: two launches differ")
+    out = {"repeat": "bitwise"}
+    names = ("dxg", "dr", "dc0", "dn0", "dh0", "dm0")
+    for name, g, w, t in zip(names, (got[0], got[1], *got[2]),
+                             (want[0].to(xg.dtype), want[1].to(r.dtype),
+                              *want[2]), (truth[0], truth[1], *truth[2])):
+        g, w = g.double(), w.double()
+        require(bool(torch.isfinite(g).all()),
+                f"slstm_fused_bwd: {name} not finite")
+        kp = float((g - w).abs().max())
+        p64 = float((w - t).abs().max())
+        mag = float(t.abs().max())
+        bound = max(SLSTM_ATOL * max(1.0, mag), SLSTM_ENVELOPE * p64)
+        require(kp <= bound, f"slstm_fused_bwd block 3: {name} kernel vs "
+                f"plain {kp:.3e} > {bound:.3e} (plain vs float64 "
+                f"{p64:.3e}, max |x| {mag:.3e})")
+        out[name] = {"kernel_vs_plain": kp, "plain_vs_f64": p64,
+                     "kernel_vs_f64": float((g - t).abs().max()),
+                     "max_abs": mag, "bound": bound}
+    # the block's slstm_r / slstm_w gradients: the kernel path (f32)
+    # against autograd through the plain loop, in f32 and in float64, over
+    # the whole sequence and over its first XL_GRAD_PREFIX steps
+    with torch.no_grad():    # the block's conv output, f32 (exact in f64)
+        hc32, _ = XL._conv_causal(rms_norm(h.float(), p["norm"].float()),
+                                  p["conv_w"].float(), p["conv_b"].float())
+
+    def block_grads(steps: int, use_kernel: bool, dtype=torch.float32):
+        leaves = {k: p[k].to(dtype).detach().requires_grad_(True)
+                  for k in ("slstm_r", "slstm_w")}
+        xg_ = (hc32[:, :steps].to(dtype) @ leaves["slstm_w"]
+               + p["slstm_b"].to(dtype)[None, None, :])
+        if use_kernel:
+            hs_, _ = XL.slstm_scan({"slstm_r": leaves["slstm_r"]}, xg_, nh,
+                                   cell0)
+        else:
+            hs_, _ = SL_ref.slstm_fused(xg_, leaves["slstm_r"], cell0, nh,
+                                        dtype=dtype)
+        loss = (hs_ * dhs[:, :steps].to(dtype)).sum()
+        return [g_.detach() for g_ in torch.autograd.grad(
+            loss, [leaves["slstm_r"], leaves["slstm_w"]])]
+
+    for steps, tag in ((s, "grad"), (XL_GRAD_PREFIX, "grad_prefix")):
+        with fp32_exact():
+            before = SL.LAUNCHES["slstm_fused_bwd"]
+            kern = block_grads(steps, True)
+            require(SL.LAUNCHES["slstm_fused_bwd"] == before + 1,
+                    "the block's backward did not launch the kernel")
+            plain = block_grads(steps, False)
+            truth = block_grads(steps, False, torch.float64)
+        torch.cuda.synchronize()
+        for name, g, w, t in zip(("slstm_r", "slstm_w"), kern, plain, truth):
+            scale = float(t.abs().max())
+            err = float((g - w).abs().max())
+            p64 = float((w.double() - t).abs().max())
+            bound = (XL_GRAD_TOL * scale if tag == "grad_prefix"
+                     else max(XL_GRAD_TOL * scale, SLSTM_ENVELOPE * p64))
+            require(scale > 0 and float(g.abs().max()) > 0,
+                    f"{name}: zero gradient")
+            require(err <= bound, f"{name} over {steps} steps: kernel path "
+                    f"vs plain {err:.3e} > {bound:.3e} (plain vs float64 "
+                    f"{p64:.3e}, max |leaf| {scale:.3e})")
+            out[f"{tag}_{name}"] = {
+                "steps": steps, "kernel_vs_plain": err, "plain_vs_f64": p64,
+                "kernel_vs_f64": float((g.double() - t).abs().max()),
+                "max_abs": scale, "bound": bound}
+    return out
+
+
+def time_slstm_bwd(xg, r, cell0, nh: int, iters: int) -> dict:
+    """[9x]: the backward's call time (CUDA events: the pre recompute, the
+    kernel, dr's einsum) and device time (profiler) on block 3's trained
+    inputs, the plain reverse loop's time, and the bound from
+    `slstm_bwd_costs`. No single PyTorch call computes it."""
+    b, s, d4 = xg.shape
+    dh = d4 // (4 * nh)
+    gen = torch.Generator(device=xg.device).manual_seed(31)
+    dhs = torch.randn((b, s, d4 // 4), generator=gen, device=xg.device)
+    zero = tuple(torch.zeros_like(t) for t in cell0)
+    with torch.no_grad():
+        hs, _ = SL.slstm_fused(xg, r, cell0, nh)
+    costs = SL.slstm_bwd_costs(b, s, nh, dh, r.dtype)
+    t_ops = costs["flops"] / PEAK_OPS_S["fp32"]
+    t_bytes = costs["bytes"] / HBM_BYTES_S
+
+    def kern():
+        return SL.slstm_fused_bwd(xg, r, cell0, nh, hs, dhs, zero)
+    with torch.no_grad(), fp32_exact():
+        t_k = cuda_ms(kern, iters, warmup=2)
+        t_p = cuda_ms(lambda: SL_ref.slstm_fused_bwd(
+            xg, r, cell0, nh, hs, dhs, zero), 1, warmup=1)
+    dev_ms = _device_ms(kern, "slstm_bwd_kernel", calls=3, warm=True)
+    return {"ms": t_k, "plain_ms": t_p, "device_ms": dev_ms,
+            "us_per_step": None if dev_ms is None else dev_ms * 1e3 / s,
+            "library_ms": None, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": costs["flops"], "bytes": costs["bytes"],
+            "library": "none: no single PyTorch call computes the sLSTM's "
+                       "backward",
+            "shape": f"xg {tuple(xg.shape)} "
+                     f"{str(xg.dtype).replace('torch.', '')}, r "
+                     f"{tuple(r.shape)} "
+                     f"{str(r.dtype).replace('torch.', '')} ({XL_ARCH} "
+                     f"train micro-batch, block 3)"}
+
+
+# ---------------------------------------------------------------------------
+# phase 8m: MoE serving (moonshot-v1-16b-a3b) at full width, cut in depth
+# ---------------------------------------------------------------------------
+
+def serve_moe(dev) -> dict:
+    """`serve_session` on moonshot-v1-16b-a3b at full width with its depth
+    cut to MOE_LAYERS: one prefill of LM_BATCH × LM_PROMPT tokens and
+    LM_GEN greedy decode steps (a warm-up pass first), the flash counts
+    zeroed before each and read after."""
+    cfg = LM_configs.get_config(MOE_ARCH, tp=1, fused_attention=True,
+                                n_layers=MOE_LAYERS)
+    full = LM_configs.get_config(MOE_ARCH)
+    require((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.n_experts,
+             cfg.top_k, cfg.d_ff, cfg.vocab, cfg.dtype, full.n_layers) ==
+            (2048, 16, 16, 64, 6, 1408, 163840, "bfloat16", 48),
+            f"{MOE_ARCH} is not at full width: {cfg}")
+    max_len = LM_PROMPT + LM_GEN
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params, state, prefill, decode = LM_serve.serve_session(
+        cfg, LM_BATCH, LM_PROMPT, max_len, device=dev, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=dev)
+    warm = model.init_serve_state(LM_BATCH, max_len, dev)
+    logits, warm = prefill(params, {"tokens": tokens}, warm)
+    decode(params, logits.argmax(-1).to(torch.int32)[:, None], LM_PROMPT,
+           warm)
+    del warm
+    torch.cuda.synchronize()
+    FA.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, {"tokens": tokens}, state)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = FA.LAUNCHES["flash_attention"]
+    require(prefill_launches == cfg.n_layers,
+            f"MoE prefill launched flash_attention {prefill_launches} "
+            f"times, expected {cfg.n_layers}")
+    first = logits.clone()
+    FA.reset_launch_counts()
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    generated = [tok]
+    t0 = time.perf_counter()
+    for i in range(LM_GEN):
+        tok, logits, state = decode(params, tok, LM_PROMPT + i, state)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    require(FA.LAUNCHES["flash_attention"] == 0,
+            "MoE decode launched flash_attention")
+    out = torch.cat(generated, dim=1)
+    require(bool(torch.isfinite(first.float()).all()
+                 and torch.isfinite(logits.float()).all()),
+            "MoE logits not finite")
+    require(bool(((out >= 0) & (out < cfg.vocab)).all()),
+            "MoE tokens out of range")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, state, model
+    return {"cfg": cfg, "tokens": tokens, "setup_s": setup_s,
+            "prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_step": decode_s * 1e3 / LM_GEN,
+            "decode_tokens_per_s": LM_BATCH * LM_GEN / decode_s,
+            "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+            "peak_mem_gib": peak, "prefill_launches": prefill_launches,
+            "generated": out}
+
+
+def check_moe_f32(dev, tokens: torch.Tensor) -> dict:
+    """[8m]: f32 at full width and MOE_F32_LAYERS layers, 1 × MOE_F32_TOKENS
+    tokens (TF32 off): the card's logits at every position against the
+    same weights on the host in f32 and in float64 (the chunked plain
+    attention; the flash kernels take f32 and bf16), each host run routed
+    as the card routed. A token's dispatch slot depends on every other
+    token's choices in its group (the rank-0 choices of all tokens fill
+    the experts before any rank-1 choice), so one near-tie resolved the
+    other way would move tokens between slots; the host therefore takes
+    the card's top-k indices (with its own probabilities at them), and the
+    choices its own top-k would have made differently are counted. Held:
+    card vs host f32 <= max(LM_LOGIT_TOL, MOE_F32_ENVELOPE × host f32 vs
+    float64)."""
+    from repro_torch.models import mlp as LM_mlp
+    cfg = LM_configs.get_config(MOE_ARCH, tp=1, fused_attention=True,
+                                n_layers=MOE_F32_LAYERS, dtype="float32")
+    cfg64 = dataclasses.replace(cfg, dtype="float64",
+                                fused_attention=False)
+    model = LM_registry.build(cfg)
+    toks = tokens[:1, :MOE_F32_TOKENS]
+    cpu = torch.device("cpu")
+    top_k = LM_mlp._top_k
+    card_idx: list = []
+    differ = {"float32": 0, "float64": 0}
+
+    def recording(probs, k):
+        vals, idx = top_k(probs, k)
+        card_idx.append(idx.cpu())
+        return vals, idx
+
+    def replaying(probs, k):
+        idx = card_idx[replaying.calls % len(card_idx)]
+        replaying.calls += 1
+        differ[str(probs.dtype).replace("torch.", "")] += int(
+            (top_k(probs, k)[1] != idx).sum())
+        return probs.gather(-1, idx), idx
+    replaying.calls = 0
+    try:
+        with torch.no_grad(), fp32_exact():
+            params = model.init(torch.Generator(device=dev).manual_seed(1),
+                                dev)
+            FA.reset_launch_counts()
+            LM_mlp._top_k = recording
+            lc, _ = LM_tr.forward(params, toks, cfg)
+            torch.cuda.synchronize()
+            require(FA.LAUNCHES["flash_attention"] == cfg.n_layers,
+                    "f32 MoE forward did not launch flash per layer")
+            host = interop.tree_map(lambda t: t.to(cpu), params)
+            del params
+            LM_mlp._top_k = replaying
+            t0 = time.perf_counter()
+            lh, _ = LM_tr.forward(host, toks.to(cpu), cfg)
+            host_s = time.perf_counter() - t0
+            host = interop.tree_map(lambda t: t.double(), host)
+            l64, _ = LM_tr.forward(host, toks.to(cpu), cfg64)
+            del host
+    finally:
+        LM_mlp._top_k = top_k
+    require(len(card_idx) == cfg.n_layers
+            and replaying.calls == 2 * cfg.n_layers,
+            "MoE routing not recorded and replayed per layer")
+    lc = lc.cpu()
+    host_f64 = float((lh.double() - l64).abs().max())
+    bound = max(LM_LOGIT_TOL, MOE_F32_ENVELOPE * host_f64)
+    out = {"max_abs_logit": float(l64.abs().max()),
+           "card_vs_host_max_abs": float((lc - lh).abs().max()),
+           "host_f32_vs_f64_max_abs": host_f64,
+           "card_vs_f64_max_abs": float((lc.double() - l64).abs().max()),
+           "bound": bound,
+           "choices": int(sum(t.numel() for t in card_idx)),
+           "host_choices_that_differ": differ, "host_forward_s": host_s}
+    require(out["card_vs_host_max_abs"] <= bound,
+            f"f32 {MOE_ARCH}: card vs host {json.dumps(out)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3999,6 +4452,30 @@ def main() -> int:
     del lm, q0, k0, v0
     torch.cuda.empty_cache()
 
+    moe = serve_moe(dev)
+    print(f"[8m] MoE serving: {moe['cfg'].name} at full width (d_model "
+          f"2048, 16 heads, 64 experts top-6, expert d_ff 1408, vocab "
+          f"163840, bf16, fused_attention, tp=1; depth cut to "
+          f"{MOE_LAYERS} of 48 layers; seeded weights, set-up "
+          f"{moe['setup_s']:.2f} s) on {LM_BATCH} x {LM_PROMPT}-token "
+          f"prompts + {LM_GEN} greedy decode steps: prefill "
+          f"{moe['prefill_ms']:.3f} ms ({moe['prefill_tokens_per_s']:.1f} "
+          f"tokens/s), decode {moe['decode_ms_per_step']:.3f} ms/step, "
+          f"{moe['decode_tokens_per_s']:.1f} tokens/s; "
+          f"max_memory_allocated {moe['peak_mem_gib']:.2f} GiB; "
+          f"flash_attention launches: prefill {moe['prefill_launches']}, "
+          f"decode 0; row 0 tokens {moe['generated'][0, :8].tolist()}; "
+          f"{card}", flush=True)
+    torch.cuda.empty_cache()
+    moe_f32 = check_moe_f32(dev, moe["tokens"])
+    print(f"[8m] {MOE_ARCH} f32 at full width, {MOE_F32_LAYERS} layers, 1 x "
+          f"{MOE_F32_TOKENS} tokens (TF32 off), card vs host, the host "
+          f"routed as the card, bound max({LM_LOGIT_TOL}, "
+          f"{MOE_F32_ENVELOPE} x host f32 vs float64): "
+          f"{json.dumps(moe_f32)}", flush=True)
+    del moe
+    torch.cuda.empty_cache()
+
     tr = train_lm(dev)
     print(f"[9] LM training: {tr['cfg'].name} (28 layers, bf16, "
           f"fused_attention, remat, tp=1; AdamW lr {LM_TRAIN_LR}, "
@@ -4086,6 +4563,44 @@ def main() -> int:
     slstm_launches = xl["launches"]
     del xl, xg3, r3, c3
     torch.cuda.empty_cache()
+
+    xt = train_xlstm(dev)
+    xtrace = xt.pop("trace")
+    print(f"[9x] xlstm training: {xt['cfg'].name} at full width (12 "
+          f"blocks, sLSTM at {list(xt['cfg'].slstm_at)}, d_model 768, 4 "
+          f"heads, bf16, remat, tp=1; AdamW lr {LM_TRAIN_LR}, "
+          f"grad_clip_norm 1.0; seeded weights, set-up "
+          f"{xt['setup_s']:.2f} s) on {LM_TRAIN_ACCUM} x ({LM_TRAIN_MB} x "
+          f"{LM_TRAIN_SEQ}) = {xt['tokens_per_step']} tokens per step: "
+          f"warm-up {xt['warmup_ms']:.1f} ms, then {XL_TRAIN_STEPS} steps "
+          f"of {json.dumps(xt['step_ms'])} ms (mean "
+          f"{xt['mean_step_ms']:.1f} ms, median {xt['median_step_ms']:.1f} "
+          f"ms, {xt['tokens_per_s']:.1f} tokens/s at the mean); losses "
+          f"{json.dumps(xt['losses'])}; max_memory_allocated "
+          f"{xt['peak_mem_gib']:.2f} GiB, {xt['peak_added_gib']:.2f} GiB "
+          f"above what was allocated before; sLSTM launches per step "
+          f"{json.dumps(xt['launches_per_step'])}, over the timed steps "
+          f"{json.dumps(xt['launches'])}; one step under torch.profiler: "
+          f"idle share {xtrace['idle_share']}, device busy "
+          f"{xtrace['device_busy_ms']:.1f} of {xtrace['wall_ms']:.1f} ms, "
+          f"by kind {json.dumps(xtrace['by_kind_ms'])}, top "
+          f"{json.dumps(xtrace['top_ms'])}; {card}", flush=True)
+    xgb, pb, hb, cb = train_block3(xt)
+    bchecks = check_slstm_bwd(dev, xgb, pb, hb, cb, xt["cfg"].n_heads)
+    print(f"[9x] slstm_fused_bwd kernel vs plain on block 3's trained "
+          f"inputs (bound max({SLSTM_ATOL} x max(1, |x|), "
+          f"{SLSTM_ENVELOPE} x the plain version's distance from float64); "
+          f"slstm_r / slstm_w gradients kernel path vs plain within "
+          f"{XL_GRAD_TOL} x max|leaf|): {json.dumps(bchecks)}", flush=True)
+    btimes = time_slstm_bwd(xgb, pb["slstm_r"], cb, xt["cfg"].n_heads,
+                            iters=10)
+    print(f"[9x] slstm_fused_bwd times (ms; CUDA events, mean of 10 calls, "
+          f"the recompute and dr's einsum included; device_ms from "
+          f"torch.profiler over 3 calls): {json.dumps(btimes)}; {card}",
+          flush=True)
+    xt_launches = xt["launches"]
+    del xt, xgb, pb, hb, cb
+    torch.cuda.empty_cache()
     print(f"[9d] one full-width LM train step under torch.profiler (after "
           f"a warm-up step in the profiler's schedule): "
           f"{json.dumps(trace_train_step(tr))}", flush=True)
@@ -4155,6 +4670,17 @@ def main() -> int:
         "instance": stimes["instance"], "q": stimes["q"],
         "rb": stimes["rb"], "us_per_step": stimes["us_per_step"],
         "shape": stimes["shape"], "card": card})
+    kernels.append({
+        "name": SLSTM_BWD[0], "route": "cuda", "source": SLSTM_BWD[1],
+        "replaces": SLSTM_BWD[2],
+        "launches": xt_launches["slstm_fused_bwd"],
+        "max_abs_err": bchecks["dxg"]["kernel_vs_plain"],
+        "ms": btimes["ms"], "plain_ms": btimes["plain_ms"],
+        "bound_ms": btimes["bound_ms"], "bound_by": btimes["bound_by"],
+        "library_ms": btimes["library_ms"],
+        "device_ms": btimes["device_ms"], "library": btimes["library"],
+        "us_per_step": btimes["us_per_step"], "shape": btimes["shape"],
+        "card": card})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,10 +18,23 @@ leaf is stored as numpy stores its type, so a float32 checkpoint written by
 the reference restores here leaf for leaf, and the reverse.
 
 Mesh-agnostic, as the reference: a leaf is saved as its LOGICAL (whole)
-tensor, so a `DTensor` leaf is gathered first (`full_tensor`, a collective
-every rank of its mesh joins; on a CUDA mesh only over NCCL). In an
-initialized `torch.distributed` world every rank calls `save` and rank 0
-alone writes; the others wait for the publish at a barrier.
+tensor, so a `DTensor` leaf is gathered first, in a collective every rank
+of the world joins. How it gathers depends on the backend and the leaf's
+device (`launch.mesh.stages_through_host`), never on a caught error:
+- NCCL, or a CPU mesh on any backend: `full_tensor()`, DTensor's own
+  all-gather on the leaf's device;
+- a CUDA mesh on any other backend (gloo, which cannot all-gather CUDA
+  tensors: torch 2.11's crashed every rank) through the host
+  (`gather_through_host`): each rank's `to_local()` shard is copied to
+  the host, the CPU shards and their global offsets are gathered with
+  `all_gather_object`, and the writer pastes each shard at its offset
+  (for each mesh dimension, `Shard(d)` cuts as `torch.chunk` does, so
+  the last shards may be short or empty; `Replicate` takes any one
+  copy). The bytes are those `full_tensor()` gives.
+A `Partial` placement raises ValueError naming the leaf: parameters and
+optimizer state are never partial sums. In an initialized
+`torch.distributed` world every rank calls `save` and rank 0 alone
+writes; the others wait for the publish at a barrier.
 ``restore(..., mesh=, specs=)`` hands every leaf to `distribute_tensor`
 with the placements of its spec on the NEW mesh, each rank cutting its
 shard from the file it read (no collective): an elastic restart (4 ranks
@@ -33,7 +46,7 @@ import dataclasses
 import json
 import pathlib
 import shutil
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,21 +54,84 @@ import torch.distributed as dist
 
 from ..device import DeviceLike, resolve_device
 from ..interop import tree_named_leaves, tree_unflatten
+from ..launch.mesh import stages_through_host
 from ..parallel.sharding import placements, spec_leaves
 
 
-def _to_numpy(leaf: Any) -> Tuple[np.ndarray, str]:
+def _shard_box(shape, mesh, places, coord
+               ) -> Tuple[List[int], List[int]]:
+    """(global offset, local shape) of the shard at mesh coordinate
+    ``coord``: for each mesh dimension in order, `Shard(d)` cuts what is
+    left of dim d as `torch.chunk` does (chunks of ceil(n / k); the last
+    ones short or empty), `Replicate` leaves it whole."""
+    offset, size = [0] * len(shape), list(shape)
+    for i, place in enumerate(places):
+        if place.is_shard():
+            d = place.dim % len(shape)
+            k = mesh.size(i)
+            chunk = -(-size[d] // k)
+            start = min(coord[i] * chunk, size[d])
+            offset[d] += start
+            size[d] = min(start + chunk, size[d]) - start
+    return offset, size
+
+
+def _check_placements(t, name: str) -> None:
+    for place in t.placements:
+        if place.is_partial():
+            raise ValueError(
+                f"{name}: a DTensor with a Partial placement "
+                f"({tuple(t.placements)}) holds partial sums, not a "
+                f"checkpointable tensor; reduce it first")
+
+
+def gather_through_host(t, name: str = "leaf") -> torch.Tensor:
+    """The logical tensor of DTensor ``t`` as a CPU tensor, gathered
+    through host memory: every rank of the world calls this (each sends
+    its CPU shard and global offset with `all_gather_object`, a rank
+    outside ``t``'s mesh sends nothing) and every rank gets the whole
+    tensor, equal bitwise to ``t.full_tensor()``."""
+    _check_placements(t, name)
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    piece = None
+    if coord is not None:
+        local = t.to_local().detach().cpu()
+        offset, size = _shard_box(tuple(t.shape), mesh, t.placements, coord)
+        if list(local.shape) != size:
+            raise ValueError(f"{name}: local shard {tuple(local.shape)} at "
+                             f"{coord} is not the {tuple(size)} that "
+                             f"{tuple(t.placements)} cut from "
+                             f"{tuple(t.shape)}")
+        piece = (offset, local)
+    pieces = [None] * dist.get_world_size()
+    dist.all_gather_object(pieces, piece)
+    out = torch.empty(tuple(t.shape), dtype=t.dtype)
+    for got in pieces:
+        if got is not None:
+            offset, local = got
+            out[tuple(slice(o, o + n) for o, n
+                      in zip(offset, local.shape))] = local
+    return out
+
+
+def _gathers_through_host(t) -> bool:
+    """Whether DTensor ``t`` is gathered through the host: a CUDA leaf
+    in a world whose backend is not NCCL
+    (`launch.mesh.stages_through_host`)."""
+    return stages_through_host(None, t.device)
+
+
+def _to_numpy(leaf: Any, name: str = "leaf") -> Tuple[np.ndarray, str]:
     from torch.distributed.tensor import DTensor
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if isinstance(t, DTensor):
-            if t.device.type == "cuda" and dist.get_backend() != "nccl":
-                raise RuntimeError(
-                    "gathering a DTensor on a CUDA mesh needs NCCL: gloo's "
-                    "all-gather of CUDA tensors crashes the process (seen "
-                    "with torch 2.11); save from a CPU mesh, or plain "
-                    "tensors")
-            t = t.full_tensor()
+            if _gathers_through_host(t):
+                t = gather_through_host(t, name)
+            else:
+                _check_placements(t, name)
+                t = t.full_tensor()
         t = t.cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -109,7 +185,7 @@ class CheckpointManager:
         manifest: Dict[str, Any] = {"step": step, "arrays": {},
                                     "extra": extra or {}}
         for name, leaf in tree_named_leaves(tree):
-            arr, dtype_name = _to_numpy(leaf)  # every rank: DTensors gather
+            arr, dtype_name = _to_numpy(leaf, name)  # every rank joins
             fname = name.replace("/", "__") + ".npy"
             if write:
                 np.save(tmp / fname, arr)

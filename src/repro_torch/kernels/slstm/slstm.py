@@ -18,21 +18,33 @@ allocates the outputs and launches.
 Where the work runs. On a CUDA tensor `slstm_fused` launches a kernel, or
 raises (a failed build, a refused launch): there is no fallback, neither
 to the plain version nor from one kernel to the other. On a CPU tensor it
-runs the plain version (`ref.slstm_fused`). The kernels have no backward
-(neither has the TPU kernel), so on a CUDA tensor under autograd (grad
-mode on and an input that requires grad) it raises NotImplementedError
-instead of returning a result that no gradient would reach: xlstm
-training is ROADMAP Queue 1 item 10.
+runs the plain version (`ref.slstm_fused`). The bare wrapper has no
+backward (neither has the TPU kernel), so on a CUDA tensor under autograd
+(grad mode on and an input that requires grad) it raises
+NotImplementedError instead of returning a result that no gradient would
+reach: training goes through `models.xlstm.slstm_scan`, a
+`torch.autograd.Function` whose backward is `slstm_fused_bwd`.
+
+The backward. `slstm_fused_bwd` recomputes the gate pre-activations from
+hs by one batched product (`ref.recompute`) and hands them, with R
+transposed, to a second source (csrc/slstm_bwd.cu, `slstm_bwd_kernel`:
+one block per (head, batch row), the whole reverse sequence in one
+launch), which also recomputes c, n, m into a scratch buffer; dr is one
+einsum over h_{t−1} and the kernel's dpre. On a CPU tensor it runs
+`ref.slstm_fused_bwd`. It takes f32 or bf16 xg and r, returns dxg in xg's
+type and dr in r's (the rounding autograd gives a cast), and refuses what
+`slstm_fused` refuses.
 
 What it takes: xg (B, S, 4·d) f32 or bf16 with unit stride along 4·d; r
 (4, nh, dh, dh) f32 or bf16, contiguous, with d = nh·dh; the state (c, n,
 h, m), each a contiguous (B, d) f32 tensor; S ≥ 1, B ≤ 65535, dh ≤ 1024.
 Anything else raises, on either device.
 
-`LAUNCHES` counts kernel launches and `INSTANCE_LAUNCHES` the launches of
-each kernel (both bumped only where a kernel is launched);
-`reset_launch_counts` zeroes both. `slstm_costs` gives the bytes and
-operations of one call for the bound.
+`LAUNCHES` counts kernel launches ("slstm_fused", "slstm_fused_bwd") and
+`INSTANCE_LAUNCHES` the launches of each kernel ("cluster", "stream",
+"bwd_stream"; all bumped only where a kernel is launched);
+`reset_launch_counts` zeroes both. `slstm_costs` and `slstm_bwd_costs`
+give the bytes and operations of one call for the bound.
 """
 from __future__ import annotations
 
@@ -45,10 +57,12 @@ import torch
 from .. import _build
 from . import ref
 
-__all__ = ["INSTANCE_LAUNCHES", "LAUNCHES", "build", "reset_launch_counts",
-           "slstm_costs", "slstm_fused"]
+__all__ = ["INSTANCE_LAUNCHES", "LAUNCHES", "build", "build_bwd",
+           "reset_launch_counts", "slstm_bwd_costs", "slstm_costs",
+           "slstm_fused", "slstm_fused_bwd"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc" / "slstm.cu"
+CSRC_BWD = CSRC.with_name("slstm_bwd.cu")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DH = 1024
 _MAX_ROWS = 65535                 # gridDim.y = B
@@ -58,12 +72,14 @@ _CL_MAX_THREADS = 512
 _CL_MAX_KP = 32                   # k a lane, R in registers: dh <= 256
 _CL_GPCS, _CL_GPC_SMS = 8, 14     # H100 SXM: GPCs, and the fewest SMs of one
 
-LAUNCHES: Dict[str, int] = {"slstm_fused": 0}
-INSTANCE_LAUNCHES: Dict[str, int] = {"cluster": 0, "stream": 0}
+LAUNCHES: Dict[str, int] = {"slstm_fused": 0, "slstm_fused_bwd": 0}
+INSTANCE_LAUNCHES: Dict[str, int] = {"cluster": 0, "stream": 0,
+                                     "bwd_stream": 0}
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["slstm_fused"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
     for name in INSTANCE_LAUNCHES:
         INSTANCE_LAUNCHES[name] = 0
 
@@ -123,6 +139,11 @@ def build() -> Tuple[pathlib.Path, str]:
     return _build.build(CSRC)
 
 
+def build_bwd() -> Tuple[pathlib.Path, str]:
+    """Compile csrc/slstm_bwd.cu for sm_90a (`kernels._build.build`)."""
+    return _build.build(CSRC_BWD)
+
+
 # slstm_launch's argument types (`_args` marshals them)
 LAUNCH_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_longlong,
                                          ctypes.c_longlong]
@@ -141,9 +162,21 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.POINTER(ctypes.c_int)]
 
 
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    lib.slstm_bwd_launch.restype = ctypes.c_int
+    lib.slstm_bwd_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17
+                                     + [ctypes.c_int] * 4
+                                     + [ctypes.c_void_p])
+
+
 def _lib() -> ctypes.CDLL:
     """The built library, opened once per process (`kernels._build.load`)."""
     return _build.load(CSRC, _bind)
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    """The backward's built library, opened once per process."""
+    return _build.load(CSRC_BWD, _bind_bwd)
 
 
 def _lib_plan(lib: ctypes.CDLL, b: int, nh: int, dh: int) -> Plan:
@@ -231,8 +264,8 @@ def slstm_fused(xg: torch.Tensor, r: torch.Tensor, state, nh: int):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xg, r, *state)):
         raise NotImplementedError(
-            "slstm_fused has no backward on the card: xlstm training is "
-            "not ported yet (ROADMAP Queue 1 item 10)")
+            "slstm_fused has no backward of its own: differentiate through "
+            "models.xlstm.slstm_scan, whose backward is slstm_fused_bwd")
     b, s, d4 = xg.shape
     plan = _plan(b, nh, d4 // (4 * nh))
     hs = torch.empty((b, s, d4 // 4), dtype=torch.float32, device=xg.device)
@@ -247,6 +280,90 @@ def slstm_fused(xg: torch.Tensor, r: torch.Tensor, state, nh: int):
     LAUNCHES["slstm_fused"] += 1
     INSTANCE_LAUNCHES[plan.instance] += 1
     return hs, out
+
+
+def _launch_bwd(lib: ctypes.CDLL, pre: torch.Tensor, r_t: torch.Tensor,
+                hs: torch.Tensor, dhs: torch.Tensor, state, dstate,
+                cnm: torch.Tensor, dpre: torch.Tensor, dstate0,
+                nh: int, stream: int) -> int:
+    """Marshal one call of `slstm_bwd_launch` (every tensor contiguous; r_t
+    is R transposed, (4, nh, dh, dh) with [g, hd, e, k] = r[g, hd, k, e]);
+    returns its code."""
+    b, s, d4 = pre.shape
+    dh = d4 // (4 * nh)
+    c0, n0, _, m0 = state
+    return lib.slstm_bwd_launch(
+        _DTYPES[r_t.dtype], pre.data_ptr(), r_t.data_ptr(), hs.data_ptr(),
+        dhs.data_ptr(), c0.data_ptr(), n0.data_ptr(), m0.data_ptr(),
+        *(t.data_ptr() for t in dstate), cnm.data_ptr(), dpre.data_ptr(),
+        *(t.data_ptr() for t in dstate0), b, s, nh, dh, stream)
+
+
+def _f32c(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32).contiguous()
+
+
+def slstm_fused_bwd(xg: torch.Tensor, r: torch.Tensor, state, nh: int,
+                    hs: torch.Tensor, dhs: torch.Tensor, dstate):
+    """The backward of `slstm_fused` at its inputs (xg, r, state) and its
+    hs (B, S, d) f32: given dhs (B, S, d) and the final state's
+    cotangents (dc, dn, dh, dm), each (B, d), returns (dxg in xg's type,
+    dr in r's type, (dc0, dn0, dh0, dm0) f32). One launch of the backward
+    kernel on a CUDA tensor (or a raise); `ref.slstm_fused_bwd` on a CPU
+    tensor."""
+    _check(xg, r, state, nh)
+    b, s, d4 = xg.shape
+    for name, t, shape in (("hs", hs, (b, s, d4 // 4)),
+                           ("dhs", dhs, (b, s, d4 // 4)),
+                           *((f"dstate {k}", t, (b, d4 // 4))
+                             for k, t in zip("cnhm", dstate))):
+        if tuple(t.shape) != shape or t.device != xg.device:
+            raise ValueError(f"{name} must be {shape} on {xg.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    if not xg.is_cuda:
+        dxg, dr, dst = ref.slstm_fused_bwd(xg, r, state, nh, hs, dhs,
+                                           dstate)
+        return dxg.to(xg.dtype), dr.to(r.dtype), dst
+    with torch.no_grad():
+        pre, h_prev = ref.recompute(xg, r, state, nh, hs)
+        r_t = r.transpose(2, 3).contiguous()
+        hs_, dhs_ = _f32c(hs), _f32c(dhs)
+        dst_in = tuple(_f32c(t) for t in dstate)
+        cnm = torch.empty((3, b, s, d4 // 4), dtype=torch.float32,
+                          device=xg.device)
+        dpre = torch.empty_like(pre)
+        dst0 = tuple(torch.empty_like(t) for t in dst_in)
+        lib = _lib_bwd()
+        with torch.cuda.device(xg.device):
+            stream = torch.cuda.current_stream(xg.device).cuda_stream
+            rc = _launch_bwd(lib, pre, r_t, hs_, dhs_, state, dst_in, cnm,
+                             dpre, dst0, nh, stream)
+        if rc != 0:
+            raise RuntimeError(f"slstm_fused_bwd: kernel launch failed with "
+                               f"code {rc}")
+        LAUNCHES["slstm_fused_bwd"] += 1
+        INSTANCE_LAUNCHES["bwd_stream"] += 1
+        del cnm, pre
+        dh = d4 // (4 * nh)
+        dr = torch.einsum("bshk,bsghe->ghke",
+                          h_prev.reshape(b, s, nh, dh),
+                          dpre.reshape(b, s, 4, nh, dh))
+        return dpre.to(xg.dtype), dr.to(r.dtype), dst0
+
+
+def slstm_bwd_costs(b: int, s: int, nh: int, dh: int,
+                    r_dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Bytes and operations of one backward launch, for the bound: the
+    saved values it needs read once (pre (B, S, 4d), c, n, m, hs and dhs
+    (B, S, d) each, f32), dpre (f32) written once, R read once (as if it
+    stayed on chip), four (B, d) f32 states read and four written; the
+    transpose product's 2·B·S·4d·dh operations (the gates' few dozen a
+    column and step are left out)."""
+    d = nh * dh
+    rb = torch.tensor([], dtype=r_dtype).element_size()
+    n_bytes = (b * s * (4 * d + 5 * d) * 4 + b * s * 4 * d * 4
+               + 4 * nh * dh * dh * rb + 8 * b * d * 4)
+    return {"bytes": float(n_bytes), "flops": 2.0 * b * s * 4 * d * dh}
 
 
 def slstm_costs(b: int, s: int, nh: int, dh: int,

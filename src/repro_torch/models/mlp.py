@@ -1,11 +1,28 @@
-"""Dense MLPs (SwiGLU / GELU).
+"""Dense MLPs (SwiGLU / GELU) and the GShard-style MoE layer.
 
-Port of the dense half of `repro.models.mlp`; the MoE layer comes with the
-MoE family (ROADMAP Queue 1 item 10).
+Port of `repro.models.mlp`. The MoE layer dispatches tokens in groups of
+at most ``cfg.moe_group`` (one group of S where that does not divide S),
+with a capacity of C = cf·g·k/E tokens per expert and group; overflow
+tokens are dropped, and the router's auxiliary loss, mean(density ·
+density_proxy)·E², keeps the experts' use balanced. Plain PyTorch: the
+one-hot dispatch and combine einsums and the expert products, as the
+reference leaves them to XLA. Where the two frameworks differ, the port
+follows the reference:
+  * `jax.nn.one_hot` of an index < 0 or >= n is a zero row (a dispatch
+    position is −1 for an expert not chosen and >= C for a dropped
+    token); `_one_hot` compares with `arange(n)`, so the same holds;
+    `F.one_hot` would raise, and clamping would dispatch into a slot;
+  * `jax.lax.top_k` puts the lower index first among equal values;
+    `torch.topk` promises no order, so `_top_k` takes a stable descending
+    sort;
+  * the dispatch positions are an int32 cumsum of one-hots
+    (`torch.cumsum` of int32 would give int64 without its ``dtype``).
+The reference's `sharding.logical` annotations (experts over the model
+axis) have no counterpart on one card and are dropped.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,3 +50,92 @@ def apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         return h @ params["w_down"]
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x @ params["w_in"], approximate="tanh") @ params["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (GShard-style capacity dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_init(generator: torch.Generator, cfg: ModelConfig,
+             device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """The reference's MoE leaves: router (d, E) f32, moe_gate / moe_up
+    (E, d, f) and moe_down (E, f, d) in the model's type."""
+    dev = resolve_device(device)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dt = cfg.param_dtype()
+    return {
+        "router": dense_init(generator, (d, e), torch.float32, device=dev),
+        "moe_gate": dense_init(generator, (e, d, f), dt, device=dev),
+        "moe_up": dense_init(generator, (e, d, f), dt, device=dev),
+        "moe_down": dense_init(generator, (e, f, d), dt, device=dev),
+    }
+
+
+def capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
+    c = int(cfg.capacity_factor * tokens_per_group * cfg.top_k
+            / cfg.n_experts)
+    return max(4, (c + 3) // 4 * 4)
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """`jax.nn.one_hot`: (..., n), a zero row where idx is outside
+    [0, n)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _top_k(probs: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`jax.lax.top_k` along the last axis: the k largest values in
+    descending order, the lower index first among equal values."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_apply(params, x: torch.Tensor, cfg: ModelConfig):
+    """x: (B, S, d) → (y (B, S, d), aux_loss scalar in the router's type).
+
+    Tokens are dispatched in groups of ≤ cfg.moe_group: the dispatch and
+    combine tensors are (B·G, g, E, C) with C = cf·g·k/E, so their
+    footprint is linear in S for a fixed group size."""
+    bb, ss, d = x.shape
+    g = min(cfg.moe_group, ss)
+    n_groups = ss // g if ss % g == 0 else 1
+    if ss % g != 0:
+        g = ss
+    x = x.reshape(bb * n_groups, g, d)
+    b, s, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    c = capacity(cfg, s)
+    # routing in the router's type: f32, as the reference (float64 in a
+    # run that measures f32's own rounding)
+    ft = params["router"].dtype
+
+    logits = x.to(ft) @ params["router"]                        # (B,S,E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = _top_k(probs, k)                               # (B,S,k)
+    gates = gates / gates.sum(dim=-1, keepdim=True)
+
+    # load-balancing auxiliary loss (Switch/GShard)
+    density = _one_hot(idx[..., 0], e, ft).mean(dim=1)         # (B,E)
+    density_proxy = probs.mean(dim=1)
+    aux = (density * density_proxy).mean() * e * e
+
+    dispatch = torch.zeros((b, s, e, c), dtype=x.dtype, device=x.device)
+    combine = torch.zeros((b, s, e, c), dtype=ft, device=x.device)
+    counts = torch.zeros((b, 1, e), dtype=torch.int32, device=x.device)
+    for r in range(k):                       # unrolled over choice rank
+        mask_r = _one_hot(idx[..., r], e, torch.int32)           # (B,S,E)
+        pos_r = torch.cumsum(mask_r, dim=1, dtype=torch.int32) - 1 + counts
+        keep = (pos_r < c) & (mask_r > 0)
+        pos_oh = _one_hot(pos_r, c, x.dtype) \
+            * keep[..., None].to(x.dtype)                        # (B,S,E,C)
+        dispatch = dispatch + pos_oh
+        combine = combine + pos_oh.to(ft) * gates[..., r][..., None, None]
+        counts = counts + mask_r.sum(dim=1, keepdim=True, dtype=torch.int32)
+
+    xin = torch.einsum("bsec,bsd->ebcd", dispatch, x)
+    h = F.silu(torch.einsum("ebcd,edf->ebcf", xin, params["moe_gate"])) \
+        * torch.einsum("ebcd,edf->ebcf", xin, params["moe_up"])
+    yout = torch.einsum("ebcf,efd->ebcd", h, params["moe_down"])
+    y = torch.einsum("bsec,ebcd->bsd", combine.to(x.dtype), yout)
+    return y.reshape(bb, ss, d), aux

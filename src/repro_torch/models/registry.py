@@ -2,9 +2,9 @@
 
 Port of `repro.models.registry`. `build(cfg)` returns a `Model` whose
 methods are what the launchers call: `loss_fn` for training, prefill and
-decode for serving. The dense family (`transformer`) and the ssm family
-(`xlstm`) are ported; the others raise NotImplementedError naming their
-ROADMAP item.
+decode for serving. The dense and moe families (`transformer`) and the ssm
+family (`xlstm`) are ported; the others raise NotImplementedError naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -15,11 +15,11 @@ from ..device import DeviceLike
 from . import transformer, xlstm
 from .common import ModelConfig
 
+# family → (what it is, its ROADMAP Queue 1 item)
 _NOT_PORTED = {
-    "moe": "MoE transformer (mixtral, moonshot)",
-    "vlm": "VLM prefix-LM (llava)",
-    "hybrid": "zamba2 hybrid",
-    "encdec": "whisper encoder-decoder",
+    "vlm": ("VLM prefix-LM (llava)", 1),
+    "hybrid": ("zamba2 hybrid", 2),
+    "encdec": ("whisper encoder-decoder", 3),
 }
 
 
@@ -78,14 +78,16 @@ def _xlstm_model(cfg: ModelConfig) -> Model:
                  prefill=prefill, decode=decode)
 
 
-_FAMILIES = {"dense": _transformer_model, "ssm": _xlstm_model}
+_FAMILIES = {"dense": _transformer_model, "moe": _transformer_model,
+             "ssm": _xlstm_model}
 
 
 def build(cfg: ModelConfig) -> Model:
     if cfg.family in _FAMILIES:
         return _FAMILIES[cfg.family](cfg)
     if cfg.family in _NOT_PORTED:
+        what, item = _NOT_PORTED[cfg.family]
         raise NotImplementedError(
-            f"family {cfg.family!r} ({_NOT_PORTED[cfg.family]}) is not "
-            f"ported yet (ROADMAP Queue 1 item 10)")
+            f"family {cfg.family!r} ({what}) is not ported yet (ROADMAP "
+            f"Queue 1 item {item})")
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,10 +1,12 @@
-"""Decoder-only transformer stack, dense GQA family.
+"""Decoder-only transformer stack: the dense GQA and MoE families.
 
-Port of `repro.models.transformer` for the dense family: pre-RMSNorm
-blocks, RoPE, GQA attention (`models.attention`), SwiGLU or GELU MLP
-(`models.mlp`), the training forward and loss, and the ring-buffer KV
-cache of capacity min(max_len, window). Covers internlm2, deepseek, smollm
-and qwen3.
+Port of `repro.models.transformer` for the dense and MoE families:
+pre-RMSNorm blocks, RoPE, GQA attention (`models.attention`), a SwiGLU or
+GELU MLP or, where ``cfg.n_experts`` > 0, the MoE layer (`models.mlp`;
+its aux loss is summed over the layers and `loss_fn` adds 1e-2 of it),
+the training forward and loss, and the ring-buffer KV cache of capacity
+min(max_len, window). Covers internlm2, deepseek, smollm, qwen3, mixtral
+and moonshot.
 
 Where the reference scans over the stacked layer params, the port loops
 over them in Python (eager PyTorch: one layer's ops at a time), and where
@@ -21,8 +23,8 @@ reference wraps it in `jax.checkpoint`: its activations are dropped after
 the forward and recomputed in the backward, so a fused-attention layer
 launches the forward kernel twice per backward pass. The stacked layer
 params are split with one `unbind` per leaf, so each leaf's gradient is
-stacked once, not scattered into a zero (L, ...) tensor per layer. The MoE
-and VLM variants come with their families (ROADMAP Queue 1 item 10).
+stacked once, not scattered into a zero (L, ...) tensor per layer. The
+VLM variant comes with its family (ROADMAP Queue 1 item 1).
 """
 from __future__ import annotations
 
@@ -40,11 +42,16 @@ from .common import ModelConfig, dense_init, rms_norm, stack_layers
 Pos = Union[int, torch.Tensor]
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1 "
-            f"item 10)")
+def _is_moe(cfg: ModelConfig) -> bool:
+    return cfg.n_experts > 0
+
+
+def _mlp(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig):
+    """The block's MLP on the normed stream: (y, aux), aux 0 unless MoE."""
+    if _is_moe(cfg):
+        return mlp.moe_apply(lp["mlp"], x, cfg)
+    return mlp.apply(lp["mlp"], x, cfg), torch.zeros(
+        (), dtype=torch.float32, device=x.device)
 
 
 def _layer(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -59,14 +66,14 @@ def _layer(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 def init_layer(generator: torch.Generator, cfg: ModelConfig,
                device: DeviceLike = "cuda") -> Dict[str, Any]:
-    _dense_only(cfg)
     dev = resolve_device(device)
     dt = cfg.param_dtype()
+    init_mlp = mlp.moe_init if _is_moe(cfg) else mlp.init
     return {
         "attn_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
         "attn": attention.init(generator, cfg, device=dev),
         "mlp_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-        "mlp": mlp.init(generator, cfg, device=dev),
+        "mlp": init_mlp(generator, cfg, device=dev),
     }
 
 
@@ -96,14 +103,12 @@ def layer_apply(lp: Dict[str, Any], h: torch.Tensor, cfg: ModelConfig,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 cache_pos: Optional[int] = None):
     """One transformer block. Returns (h, cache, aux_loss)."""
-    _dense_only(cfg)
     a, new_cache = attention.self_attention(
         lp["attn"], rms_norm(h, lp["attn_norm"]), cfg, positions,
         cache=cache, cache_pos=cache_pos, q_chunk=cfg.q_chunk)
     h = h + a
-    m = mlp.apply(lp["mlp"], rms_norm(h, lp["mlp_norm"]), cfg)
-    return h + m, new_cache, torch.zeros((), dtype=torch.float32,
-                                         device=h.device)
+    m, aux = _mlp(lp, rms_norm(h, lp["mlp_norm"]), cfg)
+    return h + m, new_cache, aux
 
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -140,7 +145,6 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     """tokens: (B, S_txt) [+ prefix (B, P, d)] → (logits (B, S, V_pad),
     aux). Layers are rematerialized in the backward when ``cfg.remat``
     (the body draws no random numbers, so no RNG state is kept)."""
-    _dense_only(cfg)
     h = embed_tokens(params, tokens, cfg, embed_prefix)
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -242,7 +246,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
         o = attention.attend_causal(q, k, v, 0, cfg.window, cfg.q_chunk,
                                     fused=cfg.fused_attention)
         h = h + attention.out_proj(lp["attn"], o)
-        h = h + mlp.apply(lp["mlp"], rms_norm(h, lp["mlp_norm"]), cfg)
+        h = h + _mlp(lp, rms_norm(h, lp["mlp_norm"]), cfg)[0]
         _ring_write(ck[i], k, 0)
         _ring_write(cv[i], v, 0)
     h = rms_norm(h[:, -1:, :], params["final_norm"])
@@ -279,7 +283,7 @@ def decode_step(params, token: torch.Tensor, pos: Pos,
             vv = vv.repeat_interleave(rep, dim=2)
         o = attention._attend_dense(q, kk, vv, valid[None, None], scale)
         h = h + attention.out_proj(lp["attn"], o)
-        h = h + mlp.apply(lp["mlp"], rms_norm(h, lp["mlp_norm"]), cfg)
+        h = h + _mlp(lp, rms_norm(h, lp["mlp_norm"]), cfg)[0]
     h = rms_norm(h, params["final_norm"])
     logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])
     return logits[:, 0], cache

@@ -16,13 +16,23 @@ gated). Stabilized exponential gating (log-space max-shift) throughout;
 the stabilizer m starts at NEG = -1e30, finite, so f + m − m' never
 becomes inf − inf.
 
+Training. `slstm_scan` is a `torch.autograd.Function` (`_SlstmScan`):
+its forward is the fused kernel (its plain version on a CPU tensor), its
+backward `kernels.slstm.slstm_fused_bwd`, the hand-written reverse-time
+kernel on a CUDA tensor and the plain reverse loop on a CPU tensor; it
+saves only its inputs and hs (the backward recomputes the gates). With
+``cfg.remat`` and grad enabled, `forward` runs each block under
+`torch.utils.checkpoint` (non-reentrant), where the reference wraps it in
+`jax.checkpoint`: a block's activations are dropped after the forward and
+recomputed in the backward, so each sLSTM block launches the forward
+kernel twice per micro-batch and the backward kernel once. The
+reference's inner `jax.checkpoint` on the mLSTM chunk step only trades
+memory inside a block that is already rematerialized, and is not ported.
+
 The reference's `sharding.logical` annotations have no counterpart on one
-card (tp = 1) and are dropped. The forward takes no `jax.checkpoint`
-counterpart either: on the card the sLSTM kernel has no backward and
-refuses autograd, and `launch.train` refuses this family (ROADMAP Queue 1
-item 10); `loss_fn` runs, for the loss value. Scalars that the reference
-divides a stream by (1/sqrt(D)) are cast to the stream's type first, as
-JAX's weak typing does.
+card (tp = 1) and are dropped. Scalars that the reference divides a
+stream by (1/sqrt(D)) are cast to the stream's type first, as JAX's weak
+typing does.
 """
 from __future__ import annotations
 
@@ -31,9 +41,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
-from ..kernels.slstm import slstm_fused
+from ..kernels.slstm.slstm import slstm_fused, slstm_fused_bwd
 from .common import ModelConfig, dense_init, rms_norm
 
 NEG = -1e30
@@ -284,11 +295,34 @@ def slstm_block_init(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+class _SlstmScan(torch.autograd.Function):
+    """The sLSTM recurrence with a gradient: forward `slstm_fused`,
+    backward `slstm_fused_bwd` (each a kernel launch on a CUDA tensor, the
+    plain version on a CPU tensor). Saves xg, r, the initial state and
+    hs; an output's missing cotangent is zero."""
+
+    @staticmethod
+    def forward(ctx, xg, r, c, n, h, m, nh):
+        hs, out = slstm_fused(xg, r, (c, n, h, m), nh)
+        ctx.nh = nh
+        ctx.save_for_backward(xg, r, c, n, h, m, hs)
+        return (hs, *out)
+
+    @staticmethod
+    def backward(ctx, dhs, dc, dn, dh, dm):
+        xg, r, c, n, h, m, hs = ctx.saved_tensors
+        dxg, dr, dst0 = slstm_fused_bwd(xg, r, (c, n, h, m), ctx.nh, hs,
+                                        dhs, (dc, dn, dh, dm))
+        return (dxg, dr, *dst0, None)
+
+
 def slstm_scan(p, xg: torch.Tensor, nh: int, state):
     """xg: (B, S, 4d) pre-activations from inputs. The recurrence over the
     whole sequence in one launch of the fused kernel (its plain version on
-    a CPU tensor). Returns (hs (B, S, d) f32, (c, n, h, m))."""
-    return slstm_fused(xg, p["slstm_r"], state, nh)
+    a CPU tensor), differentiable through `_SlstmScan`. Returns (hs (B, S,
+    d) f32, (c, n, h, m))."""
+    hs, *out = _SlstmScan.apply(xg, p["slstm_r"], *state, nh)
+    return hs, tuple(out)
 
 
 def slstm_block_apply(p, x, cfg: ModelConfig, state=None):
@@ -355,15 +389,21 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, states=None):
     """states=None → no state in or out (training form); else a list of
-    per-block states (serving). Returns (logits (B, S, V_pad), states)."""
+    per-block states (serving). Returns (logits (B, S, V_pad), states).
+    Blocks are rematerialized in the backward when ``cfg.remat`` (training
+    form, grad enabled; the blocks draw no random numbers)."""
     h = params["embed"][tokens].to(cfg.param_dtype())
+    remat = cfg.remat and states is None and torch.is_grad_enabled()
     new_states = []
     for i, bp in enumerate(params["blocks"]):
         st = None if states is None else states[i]
-        if "slstm" in bp:
-            h, ns = slstm_block_apply(bp["slstm"], h, cfg, st)
+        kind = "slstm" if "slstm" in bp else "mlstm"
+        apply = slstm_block_apply if kind == "slstm" else mlstm_block_apply
+        if remat:
+            h, ns = checkpoint(apply, bp[kind], h, cfg, st,
+                               use_reentrant=False, preserve_rng_state=False)
         else:
-            h, ns = mlstm_block_apply(bp["mlstm"], h, cfg, st)
+            h, ns = apply(bp[kind], h, cfg, st)
         new_states.append(ns)
     h = rms_norm(h, params["final_norm"])
     logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])

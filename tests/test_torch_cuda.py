@@ -1510,7 +1510,7 @@ def test_slstm_refuses_on_card(cuda_device):
     with pytest.raises(ValueError, match="state c"):
         sl_kern.slstm_fused(xg, r, (st[0].cpu(),) + st[1:], 2)
     leaf = xg.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="models.xlstm.slstm_scan"):
         sl_kern.slstm_fused(leaf, r, st, 2)
     assert sl_kern.LAUNCHES["slstm_fused"] == before
     with torch.no_grad():                  # no autograd: the kernel runs
@@ -1532,14 +1532,16 @@ def test_reduced_xlstm_serving_launches_slstm_per_block_and_step(
     logits, state = prefill(params, {"tokens": toks}, state)
     torch.cuda.synchronize()
     assert sl_kern.LAUNCHES["slstm_fused"] == n
-    assert sl_kern.INSTANCE_LAUNCHES == {"cluster": n, "stream": 0}
+    assert sl_kern.INSTANCE_LAUNCHES == {"cluster": n, "stream": 0,
+                                         "bwd_stream": 0}
     first = logits
     tok = logits.argmax(-1).to(torch.int32)[:, None]
     for i in range(4):
         tok, logits, state = decode(params, tok, 32 + i, state)
     torch.cuda.synchronize()
     assert sl_kern.LAUNCHES["slstm_fused"] == n * 5
-    assert sl_kern.INSTANCE_LAUNCHES == {"cluster": n * 5, "stream": 0}
+    assert sl_kern.INSTANCE_LAUNCHES == {"cluster": n * 5, "stream": 0,
+                                         "bwd_stream": 0}
     assert all(v == 0 for v in fa.LAUNCHES.values())
     assert bool(torch.isfinite(logits).all())
     # the same prefill on the host (the plain versions), f32, TF32 off
@@ -1757,3 +1759,170 @@ def test_grad_compress_on_card_equals_host(cuda_device):
     assert torch.equal(pc.cpu(), p) and torch.equal(sc.cpu(), s)
     assert torch.equal(grad_comp.decompress(pc, sc).cpu(),
                        grad_comp.decompress(p, s))
+
+
+# ---------------------------------------------------------------------------
+# the sharded checkpoint over gloo, and xlstm training on the card
+# ---------------------------------------------------------------------------
+
+def _ckpt_rank_on_card(rank: int, world: int, tmp: str):
+    """One rank of a gloo world on cuda:0: a tree of DTensor leaves (an
+    uneven Shard(0) of a (7, 5) f32 tensor, a replicated bf16 one) saved
+    through the host-staged gather, the same tree saved as plain tensors,
+    and the DTensor checkpoint restored onto the same mesh, replicated."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_mesh
+    torch.cuda.set_device(0)
+    mesh = make_mesh((world,), ("data",), "cuda")
+    plain = {"w": torch.arange(35, dtype=torch.float32,
+                               device="cuda").reshape(7, 5) / 7,
+             "b": torch.linspace(-2, 2, 12, device="cuda").to(
+                 torch.bfloat16).reshape(3, 4)}
+    sharded = {"w": distribute_tensor(plain["w"], mesh, [Shard(0)],
+                                      src_data_rank=None),
+               "b": distribute_tensor(plain["b"], mesh, [Replicate()],
+                                      src_data_rank=None)}
+    CheckpointManager(f"{tmp}/dtensor").save(1, sharded)
+    CheckpointManager(f"{tmp}/plain").save(1, plain)
+    got = CheckpointManager(f"{tmp}/dtensor").restore(plain, mesh=mesh)
+    torch.cuda.synchronize()
+    return ({k: v.to_local().cpu() for k, v in got.items()},
+            {k: v.cpu() for k, v in plain.items()},
+            {k: v.to_local().device.type for k, v in got.items()})
+
+
+@pytest.mark.cuda
+def test_dtensor_checkpoint_over_gloo_on_card_saves_and_restores_bitwise(
+        cuda_device, tmp_path):
+    """Two gloo ranks on one card: `CheckpointManager.save` gathers CUDA
+    DTensor leaves through the host (gloo cannot all-gather CUDA
+    tensors), writes exactly what a plain-tensor save writes, and the
+    restore gives every rank the tensors bitwise, on the card."""
+    import pathlib
+
+    from repro_torch.launch.mesh import run_ranks
+    outs = run_ranks(_ckpt_rank_on_card, 2, (str(tmp_path),), timeout_s=300)
+    for got, plain, devices in outs:
+        assert devices == {"w": "cuda", "b": "cuda"}
+        for k in plain:
+            assert got[k].dtype == plain[k].dtype and torch.equal(
+                got[k], plain[k]), k
+    dt = pathlib.Path(tmp_path, "dtensor", "step_00000001")
+    pl = pathlib.Path(tmp_path, "plain", "step_00000001")
+    assert sorted(p.name for p in dt.iterdir()) == sorted(
+        p.name for p in pl.iterdir())
+    for p in pl.iterdir():
+        assert (dt / p.name).read_bytes() == p.read_bytes(), p.name
+
+
+# (b, s, nh, dh): heads of the cluster kernel's range (dh <= 256) and of
+# the stream kernel's (the forward's); the backward kernel is one design
+SLSTM_BWD_GRID = [(2, 33, 2, 16), (3, 65, 4, 192), (1, 17, 1, 300)]
+
+
+def _slstm_bwd_case(case, dtype, dev):
+    xg, r, st = _slstm_inputs(case, dtype, dev, seed=5)
+    b, s, nh, dh = case
+    g = torch.Generator().manual_seed(17)
+    dhs = torch.randn((b, s, nh * dh), generator=g).to(dev)
+    dfin = tuple(torch.randn((b, nh * dh), generator=g).to(dev)
+                 for _ in range(4))
+    with torch.no_grad():
+        hs, _ = sl_kern.slstm_fused(xg, r, st, nh)
+    return xg, r, st, hs, dhs, dfin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SLSTM_BWD_GRID)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_bwd_kernel_agrees_with_plain_on_card(cuda_device, case,
+                                                    dtype):
+    """The backward kernel against `ref.slstm_fused_bwd` on the card (TF32
+    off) on the same inputs and hs: dpre's f32 sums in another order, so
+    each output within 1e-4 · max(1, max|want|); dxg and dr in bf16 also
+    within one bf16 rounding (2^-7 · |want|). One launch counted."""
+    nh = case[2]
+    xg, r, st, hs, dhs, dfin = _slstm_bwd_case(case, dtype, cuda_device)
+    before = sl_kern.LAUNCHES["slstm_fused_bwd"]
+    with fp32_exact():
+        got = sl_kern.slstm_fused_bwd(xg, r, st, nh, hs, dhs, dfin)
+        want = sl_ref.slstm_fused_bwd(xg, r, st, nh, hs, dhs, dfin)
+    torch.cuda.synchronize()
+    assert sl_kern.LAUNCHES["slstm_fused_bwd"] == before + 1
+    assert got[0].dtype == xg.dtype and got[1].dtype == r.dtype
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    for name, a, w in zip(("dxg", "dr", "dc0", "dn0", "dh0", "dm0"),
+                          (got[0], got[1], *got[2]),
+                          (want[0].to(xg.dtype), want[1].to(r.dtype),
+                           *want[2])):
+        a, w = a.float(), w.float()
+        tol = 1e-4 * max(1.0, float(w.abs().max())) + rel * w.abs()
+        assert bool(((a - w).abs() <= tol).all()), (name, float(
+            (a - w).abs().max()))
+
+
+@pytest.mark.cuda
+def test_slstm_bwd_kernel_repeats_bitwise_on_card(cuda_device):
+    case = SLSTM_BWD_GRID[1]
+    xg, r, st, hs, dhs, dfin = _slstm_bwd_case(case, torch.bfloat16,
+                                               cuda_device)
+    a = sl_kern.slstm_fused_bwd(xg, r, st, case[2], hs, dhs, dfin)
+    b = sl_kern.slstm_fused_bwd(xg, r, st, case[2], hs, dhs, dfin)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+
+
+@pytest.mark.cuda
+def test_reduced_xlstm_gradients_on_card_equal_the_plain_path(cuda_device):
+    """The reduced xlstm's loss gradient on the card (the forward kernel
+    twice a block under remat, the backward kernel once) against the same
+    on the host (the plain versions), f32 and TF32 off: every leaf within
+    1e-3 · max|leaf|, slstm_r's and slstm_w's nonzero (the check that
+    caught a gradient that never reached a kernel's weights)."""
+    cfg = lm_configs.get_config("xlstm-125m", reduced=True, tp=1)
+    model = lm_registry.build(cfg)
+    host = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+
+    def grads(params, dev):
+        leaves = [p.to(dev).requires_grad_(True)
+                  for p in tree_leaves(params)]
+        t = toks.to(dev)
+        with fp32_exact():
+            loss, _ = model.loss_fn(tree_unflatten(params, leaves),
+                                    {"tokens": t, "labels": t})
+            return loss.detach().cpu(), [
+                g.cpu() for g in torch.autograd.grad(loss, leaves)]
+
+    sl_kern.reset_launch_counts()
+    loss, got = grads(host, cuda_device)
+    torch.cuda.synchronize()
+    n = len(cfg.slstm_at)
+    assert sl_kern.LAUNCHES == {"slstm_fused": 2 * n, "slstm_fused_bwd": n}
+    want_loss, want = grads(host, "cpu")
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    names = [p for p, _ in interop.tree_named_leaves(host)]
+    for name, a, w in zip(names, got, want):
+        assert float((a - w).abs().max()) <= 1e-3 * float(
+            w.abs().max()), name
+    for key in ("slstm_r", "slstm_w"):
+        i = names.index(f"blocks/1/slstm/{key}")
+        assert float(got[i].abs().max()) > 0, key
+
+
+@pytest.mark.cuda
+def test_train_build_trains_xlstm_on_card(cuda_device):
+    cfg = lm_configs.get_config("xlstm-125m", reduced=True, tp=1)
+    init_state, train_step = lm_train.build(cfg, 3e-4, 2, cuda_device)
+    params, opt = init_state()
+    toks = torch.randint(0, cfg.vocab, (2, 2, 32), device=cuda_device)
+    sl_kern.reset_launch_counts()
+    params, opt, met = train_step(params, opt, {"tokens": toks,
+                                                "labels": toks})
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(met["loss"]))
+    assert sl_kern.LAUNCHES["slstm_fused_bwd"] == 2 * len(cfg.slstm_at)

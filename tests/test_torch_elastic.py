@@ -17,6 +17,8 @@
 
 The ranks import this module, which imports jax only inside the tests.
 """
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -188,3 +190,104 @@ def test_reference_checkpoint_restores_without_a_mesh(reference_checkpoint):
         np.testing.assert_array_equal(got["layers"][k].numpy(),
                                       ref["layers"][k])
     assert got["step"].dtype == torch.int32 and int(got["step"]) == 7
+
+
+# ---------------------------------------------------------------------------
+# the host-staged gather of `CheckpointManager.save`
+# ---------------------------------------------------------------------------
+
+# (name, logical shape, placements on the (2, 2) mesh): uneven
+# `torch.chunk` shards (7 = 4 + 3, then 2 + 2 / 2 + 1; 5 = 3 + 2), one
+# Replicate dimension, a dim cut twice, and an empty last shard (1 = 1 + 0)
+GATHER_CASES = (("shard0_rep", (7, 5), ("S0", "R")),
+                ("rep_shard1", (7, 5), ("R", "S1")),
+                ("shard0_twice", (7, 5), ("S0", "S0")),
+                ("shard1_shard0", (7, 5), ("S1", "S0")),
+                ("empty_shard", (1, 5), ("S0", "R")))
+
+
+def _placement(code: str):
+    from torch.distributed.tensor import Replicate, Shard
+    return Replicate() if code == "R" else Shard(int(code[1]))
+
+
+def _gather_tree():
+    return {"w": torch.arange(35, dtype=torch.float32).reshape(7, 5) / 7,
+            "b": (torch.arange(10, dtype=torch.float32) - 4.5).to(
+                torch.bfloat16).reshape(2, 5),
+            "n": torch.arange(6, dtype=torch.int32).reshape(3, 2)}
+
+
+def _gather_ranks(rank: int, world: int, dirs: dict) -> dict:
+    from torch.distributed.tensor import DTensor, Partial, distribute_tensor
+
+    from repro_torch.checkpoint import manager
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    out = {"gathered": {}}
+    for name, shape, codes in GATHER_CASES:
+        full = torch.arange(float(np.prod(shape))).reshape(shape) * 1.25 - 3
+        t = distribute_tensor(full, mesh, [_placement(c) for c in codes])
+        out["gathered"][name] = (
+            manager.gather_through_host(t, name).numpy(),
+            t.full_tensor().numpy(), tuple(t.to_local().shape))
+    plain = _gather_tree()
+    place = {"w": ("S0", "S1"), "b": ("R", "S1"), "n": ("S0", "R")}
+    sharded = {k: distribute_tensor(v, mesh, [_placement(c)
+                                              for c in place[k]])
+               for k, v in plain.items()}
+    CheckpointManager(dirs["plain"]).save(1, plain)
+    CheckpointManager(dirs["full_tensor"]).save(1, sharded)
+    manager._gathers_through_host = lambda t: True      # the CUDA-off-NCCL
+    CheckpointManager(dirs["host"]).save(1, sharded)    # route, on the CPU
+    partial = {"p": DTensor.from_local(torch.ones(2, 2), mesh,
+                                       [Partial(), _placement("R")])}
+    for route in ("host", "full_tensor"):
+        manager._gathers_through_host = lambda t, r=route: r == "host"
+        try:
+            CheckpointManager(dirs["partial"]).save(2, partial)
+            out[f"partial_{route}"] = None
+        except ValueError as e:
+            out[f"partial_{route}"] = str(e)
+    return out
+
+
+@pytest.fixture(scope="module")
+def gather_world(tmp_path_factory):
+    dirs = {k: str(tmp_path_factory.mktemp(k)) for k in
+            ("plain", "full_tensor", "host", "partial")}
+    return run_ranks(_gather_ranks, WORLD, (dirs,), timeout_s=300), dirs
+
+
+@pytest.mark.parametrize("case", [c[0] for c in GATHER_CASES])
+def test_host_gather_equals_full_tensor_bitwise(gather_world, case):
+    world, _ = gather_world
+    shape = dict((c[0], c[1]) for c in GATHER_CASES)[case]
+    locals_ = []
+    for out in world:
+        got, want, local = out["gathered"][case]
+        assert got.shape == shape and got.dtype == want.dtype
+        assert got.tobytes() == want.tobytes()
+        locals_.append(local)
+    if case == "empty_shard":
+        assert sorted(locals_) == [(0, 5), (0, 5), (1, 5), (1, 5)]
+    if case == "shard0_twice":
+        assert sorted(locals_) == [(1, 5), (2, 5), (2, 5), (2, 5)]
+
+
+@pytest.mark.parametrize("route", ["full_tensor", "host"])
+def test_dtensor_save_equals_plain_save_file_for_file(gather_world, route):
+    _, dirs = gather_world
+    plain = sorted(pathlib.Path(dirs["plain"], "step_00000001").iterdir())
+    got = pathlib.Path(dirs[route], "step_00000001")
+    assert [p.name for p in plain] == sorted(p.name for p in got.iterdir())
+    assert len(plain) == 4                     # three leaves + manifest
+    for p in plain:
+        assert (got / p.name).read_bytes() == p.read_bytes(), p.name
+
+
+@pytest.mark.parametrize("route", ["full_tensor", "host"])
+def test_partial_placement_raises_naming_the_leaf(gather_world, route):
+    world, _ = gather_world
+    for out in world:
+        msg = out[f"partial_{route}"]
+        assert msg is not None and msg.startswith("p:") and "Partial" in msg

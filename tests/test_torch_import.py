@@ -233,10 +233,37 @@ def test_parallel_modules_import_without_jax(name):
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+TRAIN_MOE_MODULES = ("repro_torch.models.mlp",
+                     "repro_torch.models.transformer",
+                     "repro_torch.models.registry",
+                     "repro_torch.configs.mixtral_8x22b",
+                     "repro_torch.configs.moonshot_v1_16b_a3b",
+                     "repro_torch.kernels.slstm.slstm",
+                     "repro_torch.kernels.slstm.ref",
+                     "repro_torch.models.xlstm", "repro_torch.launch.train",
+                     "repro_torch.checkpoint.manager")
+
+
+@pytest.mark.parametrize("name", TRAIN_MOE_MODULES)
+def test_xlstm_training_and_moe_modules_import_without_jax(name):
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({name!r})
+        bad = sorted(k for k in sys.modules
+                     if k == "jax" or k.startswith("jax.")
+                     or k == "repro" or k.startswith("repro."))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO_SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.mark.parametrize("path", [
     os.path.join(os.path.dirname(REPO_SRC), "chip_smoke.py"),
     *(os.path.join(REPO_SRC, "repro_torch", *m.split(".")[1:]) + ".py"
-      for m in ADAPT_FLEET_MODULES + PARALLEL_MODULES
+      for m in ADAPT_FLEET_MODULES + PARALLEL_MODULES + TRAIN_MOE_MODULES
       if m.count(".") > 1)])
 def test_source_names_no_jax_or_reference_import(path):
     """Statically: neither chip_smoke.py nor the new modules import `jax`
@@ -380,7 +407,15 @@ def _tiny_state():
     lambda tmp: lm_data.lm_batches(lm_data.PipelineConfig(8, 2),
                                    lm_configs.get_config("qwen3-0.6b", True)),
     lambda tmp: _saved(tmp).restore(_tiny_state(), device="cuda"),
-], ids=["build", "main", "run", "lm_batches", "restore"])
+    lambda tmp: lm_train.build(lm_configs.get_config("xlstm-125m", True),
+                               3e-4, 1),
+    lambda tmp: lm_train.run(["--arch", "xlstm-125m", "--steps", "1",
+                              "--batch", "2", "--seq", "8", "--ckpt-dir",
+                              str(tmp)]),
+    lambda tmp: lm_serve.serve_session(
+        lm_configs.get_config("moonshot-v1-16b-a3b", True, tp=1), 1, 4, 8),
+], ids=["build", "main", "run", "lm_batches", "restore", "xlstm_build",
+        "xlstm_run", "moe_serve"])
 def test_training_entry_points_raise_without_card(monkeypatch, tmp_path,
                                                   entry):
     _no_card(monkeypatch)
@@ -414,3 +449,13 @@ def test_slstm_build_raises_without_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kern.build()
+
+
+def test_slstm_bwd_build_raises_without_compiler(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.slstm import slstm as kern
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kern.build_bwd()

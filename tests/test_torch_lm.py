@@ -54,7 +54,9 @@ from repro_torch.parallel import sharding as tsharding
 
 KEY = jax.random.PRNGKey(0)
 PORTED = ("qwen3-0.6b", "smollm-135m", "internlm2-1.8b", "deepseek-7b",
-          "xlstm-125m")
+          "mixtral-8x22b", "moonshot-v1-16b-a3b", "xlstm-125m")
+FAMILY = {"xlstm-125m": "ssm", "mixtral-8x22b": "moe",
+          "moonshot-v1-16b-a3b": "moe"}
 F32_ATOL = 5e-6        # single ops at |y| ≲ 10: a few f32 ulps
 B, S, MAX_LEN, STEPS = 2, 24, 48, 4
 
@@ -117,16 +119,36 @@ def test_archs_list_only_what_the_port_builds():
     assert tconfigs.SHAPES == {k: tconfigs.ShapeSpec(**dataclasses.asdict(v))
                                for k, v in jconfigs.SHAPES.items()}
     with pytest.raises(ValueError, match="unknown arch"):
-        tconfigs.get_config("mixtral-8x22b")
+        tconfigs.get_config("zamba2-1.2b")
     for arch in tconfigs.ARCHS:
         assert treg.build(tconfigs.get_config(arch, True)).cfg.family == (
-            "ssm" if arch == "xlstm-125m" else "dense")
+            FAMILY.get(arch, "dense"))
+        assert tconfigs.ARCHS.index(arch) == sorted(
+            tconfigs.ARCHS, key=jconfigs.ARCHS.index).index(arch)
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "hybrid", "encdec"])
-def test_unported_families_raise_naming_their_roadmap_item(family):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+@pytest.mark.parametrize("family,item", [("vlm", 1), ("hybrid", 2),
+                                         ("encdec", 3)],
+                         ids=["vlm", "hybrid", "encdec"])
+def test_unported_families_raise_naming_their_roadmap_item(family, item):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1 item {item}\\)"):
         treg.build(tcommon.ModelConfig(family=family))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "moonshot-v1-16b-a3b"])
+def test_moe_family_builds_and_its_prefill_runs(arch):
+    cfg = tconfigs.get_config(arch, reduced=True)
+    model = treg.build(cfg)
+    assert model.cfg.family == "moe"
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 9),
+                         generator=torch.Generator().manual_seed(1))
+    logits, cache = model.prefill(params, {"tokens": toks},
+                                  model.init_serve_state(2, 16, "cpu"))
+    assert logits.shape == (2, cfg.vocab_padded)
+    assert cache["k"].shape[0] == cfg.n_layers
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_ssm_family_builds_and_its_prefill_runs():
@@ -143,10 +165,17 @@ def test_ssm_family_builds_and_its_prefill_runs():
     assert bool(torch.isfinite(logits).all())
 
 
-def test_moe_layers_raise():
-    cfg = tcommon.ModelConfig(n_experts=4, top_k=2, dtype="float32")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ttr.init_layer(torch.Generator(), cfg, device="cpu")
+def test_moe_layers_init_the_reference_leaves():
+    """A config with experts gets the MoE layer: the reference's four
+    leaves, the router in f32 and the experts in the model's type."""
+    cfg = tcommon.ModelConfig(n_experts=4, top_k=2, dtype="bfloat16",
+                              d_model=64, d_ff=96, n_heads=2, n_kv_heads=2)
+    lp = ttr.init_layer(torch.Generator(), cfg, device="cpu")
+    assert {k: (tuple(v.shape), v.dtype) for k, v in lp["mlp"].items()} == {
+        "router": ((64, 4), torch.float32),
+        "moe_gate": ((4, 64, 96), torch.bfloat16),
+        "moe_up": ((4, 64, 96), torch.bfloat16),
+        "moe_down": ((4, 96, 64), torch.bfloat16)}
 
 
 # ---------------------------------------------------------------------------

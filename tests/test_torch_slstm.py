@@ -207,7 +207,7 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
     got, _ = tkern.slstm_fused(xg, r, st, 2)
     want, _ = tref.slstm_fused(xg, r, st, 2)
     assert torch.equal(got, want)
-    assert tkern.LAUNCHES == {"slstm_fused": 0}
+    assert tkern.LAUNCHES == {"slstm_fused": 0, "slstm_fused_bwd": 0}
 
 
 def test_exports_do_not_shadow_the_kernel_module():
@@ -310,8 +310,177 @@ def test_cluster_plans_fit_the_card():
 
 def test_reset_zeroes_the_instance_counts_and_cpu_counts_none():
     tkern.INSTANCE_LAUNCHES["cluster"] = 3
+    tkern.INSTANCE_LAUNCHES["bwd_stream"] = 2
     tkern.reset_launch_counts()
-    assert tkern.INSTANCE_LAUNCHES == {"cluster": 0, "stream": 0}
+    none = {"cluster": 0, "stream": 0, "bwd_stream": 0}
+    assert tkern.INSTANCE_LAUNCHES == none
     xg, r, st = _valid()
     tkern.slstm_fused(xg, r, st, 2)
-    assert tkern.INSTANCE_LAUNCHES == {"cluster": 0, "stream": 0}
+    assert tkern.INSTANCE_LAUNCHES == none
+
+
+# ---------------------------------------------------------------------------
+# the backward: the plain reverse loop against autograd and jax.grad
+# ---------------------------------------------------------------------------
+
+# (b, s, nh, dh, nonzero initial state, nonzero final-state cotangents,
+# a tie in the stabilizer's max at t = 0)
+BWD_CASES = [(2, 37, 2, 16, False, False, False),
+             (2, 37, 1, 100, True, True, False),
+             (1, 37, 2, 192, True, False, False),
+             (2, 1, 2, 16, False, True, False),
+             (2, 1, 1, 100, True, False, False),
+             (2, 6, 2, 16, True, False, True)]
+BWD_IDS = ["dh16", "dh100_state_dstate", "dh192_state", "s1_dstate",
+           "s1_dh100_state", "max_tie"]
+
+
+def _bwd_inputs(case, seed=3):
+    """xg, r, state as `_inputs` draws them (zero or nonzero state), and
+    the cotangents of hs (N) and of the final state (N, or zero); for the
+    tie case m0 = 0.5, h0 = 0 and xg's f̃ = 1.0, ĩ = 1.5 at t = 0, so f̃ +
+    m0 == ĩ exactly."""
+    b, s, nh, dh, nz, dst, tie = case
+    xg, r, st = _inputs(b, s, nh, dh, seed, zero_state=not nz)
+    d = nh * dh
+    st = [v.copy() for v in st]
+    if tie:
+        st[2][:] = 0.0
+        st[3][:] = 0.5
+        xg[:, 0, d:2 * d] = 1.5
+        xg[:, 0, 2 * d:3 * d] = 1.0
+    rng = np.random.default_rng(seed + 1)
+    dhs = rng.standard_normal((b, s, d)).astype(np.float32)
+    dfin = [(rng.standard_normal((b, d)) * (1.0 if dst else 0.0)).astype(
+        np.float32) for _ in range(4)]
+    return xg, r, tuple(st), dhs, tuple(dfin)
+
+
+def _autograd(xg, r, st, nh, dhs, dfin, dtype):
+    """Gradients of sum(hs·dhs) + Σ sum(final·dfin) through
+    `ref.slstm_fused` in ``dtype``: (dxg, dr, dc0, dn0, dh0, dm0), and
+    hs."""
+    leaves = [_t(a, dtype).requires_grad_(True) for a in (xg, r, *st)]
+    hs, fin = tref.slstm_fused(leaves[0], leaves[1], tuple(leaves[2:]),
+                               r.shape[1], dtype)
+    out = (hs * _t(dhs, dtype)).sum() + sum(
+        (f * _t(g, dtype)).sum() for f, g in zip(fin, dfin))
+    return torch.autograd.grad(out, leaves), hs.detach()
+
+
+def _plain_bwd(xg, r, st, nh, dhs, dfin, dtype, hs):
+    dxg, dr, dst0 = tref.slstm_fused_bwd(
+        _t(xg, dtype), _t(r, dtype), tuple(_t(a, dtype) for a in st), nh,
+        hs, _t(dhs, dtype), tuple(_t(a, dtype) for a in dfin), dtype)
+    return (dxg, dr, *dst0)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
+def test_plain_backward_equals_autograd_in_float64(case):
+    """The reverse loop is the derivative of the forward: in float64 every
+    gradient within 1e-10 of autograd through `ref.slstm_fused`."""
+    xg, r, st, dhs, dfin = _bwd_inputs(case)
+    nh = case[2]
+    want, hs = _autograd(xg, r, st, nh, dhs, dfin, torch.float64)
+    got = _plain_bwd(xg, r, st, nh, dhs, dfin, torch.float64, hs)
+    for name, g, w in zip(("xg", "r", "c0", "n0", "h0", "m0"), got, want):
+        assert g.dtype == torch.float64 and g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-10,
+                                   err_msg=name)
+    if case[-1]:                                  # the tie is hit and split
+        pre, _ = tref.recompute(_t(xg, torch.float64), _t(r, torch.float64),
+                                tuple(_t(a, torch.float64) for a in st), nh,
+                                hs, torch.float64)
+        d = case[2] * case[3]
+        assert bool((pre[:, 0, 2 * d:3 * d] + 0.5
+                     == pre[:, 0, d:2 * d]).all())
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
+def test_plain_backward_in_f32_within_the_slstm_bound(case):
+    """In f32 the reverse loop and autograd sum in other orders; each
+    gradient is within the sLSTM bound of autograd's f32 result: atol
+    1e-4 · max(1, max|truth|), or 4× autograd's own distance from the
+    float64 truth where that is larger."""
+    xg, r, st, dhs, dfin = _bwd_inputs(case)
+    nh = case[2]
+    truth, _ = _autograd(xg, r, st, nh, dhs, dfin, torch.float64)
+    want, hs = _autograd(xg, r, st, nh, dhs, dfin, torch.float32)
+    got = _plain_bwd(xg, r, st, nh, dhs, dfin, torch.float32, hs)
+    for name, g, w, t in zip(("xg", "r", "c0", "n0", "h0", "m0"), got,
+                             want, truth):
+        assert g.dtype == torch.float32, name
+        scale = max(1.0, float(t.abs().max()))
+        own = float((w.double() - t).abs().max())
+        err = float((g - w).abs().max())
+        assert err <= max(1e-4 * scale, 4 * own), (name, err, own, scale)
+
+
+def test_wrapper_backward_on_the_cpu_rounds_as_autograd_and_counts_none():
+    """`slstm_fused_bwd` on CPU tensors: the plain backward, dxg in xg's
+    type and dr in r's, no launch counted; it refuses what the forward
+    refuses and cotangents of the wrong shape."""
+    xg, r, st, dhs, dfin = _bwd_inputs(BWD_CASES[0])
+    nh = BWD_CASES[0][2]
+    tkern.reset_launch_counts()
+    xb, rb = _t(xg, torch.bfloat16), _t(r, torch.bfloat16)
+    state = tuple(map(_t, st))
+    hs, _ = tkern.slstm_fused(xb, rb, state, nh)
+    dxg, dr, dst0 = tkern.slstm_fused_bwd(xb, rb, state, nh, hs, _t(dhs),
+                                          tuple(map(_t, dfin)))
+    want = tref.slstm_fused_bwd(xb, rb, state, nh, hs, _t(dhs),
+                                tuple(map(_t, dfin)))
+    assert (dxg.dtype, dr.dtype) == (torch.bfloat16, torch.bfloat16)
+    assert torch.equal(dxg, want[0].to(torch.bfloat16))
+    assert torch.equal(dr, want[1].to(torch.bfloat16))
+    assert all(torch.equal(a, b) for a, b in zip(dst0, want[2]))
+    assert tkern.LAUNCHES == {"slstm_fused": 0, "slstm_fused_bwd": 0}
+    with pytest.raises(ValueError, match="dhs must be"):
+        tkern.slstm_fused_bwd(xb, rb, state, nh, hs, _t(dhs)[:, 1:],
+                              tuple(map(_t, dfin)))
+    with pytest.raises(ValueError, match="nh must be"):
+        tkern.slstm_fused_bwd(xb, rb, state, 0, hs, _t(dhs),
+                              tuple(map(_t, dfin)))
+
+
+def test_model_slstm_scan_gradient_matches_jax_grad():
+    """`models.xlstm.slstm_scan` (the autograd Function) against jax.grad
+    of the reference's `slstm_scan` (its `lax.scan`), f32, from a nonzero
+    state, with cotangents on hs and on every final-state tensor: rtol
+    1e-4, atol 1e-4 · max|want|."""
+    import jax
+    b, s, nh, dh = 2, 23, 2, 16
+    xg, r, st, dhs, _ = _bwd_inputs((b, s, nh, dh, True, True, False))
+    rng = np.random.default_rng(9)
+    dfin = [rng.standard_normal((b, nh * dh)).astype(np.float32)
+            for _ in range(4)]
+
+    def jloss(xg_, r_, *st_):
+        hs, fin = jxlstm.slstm_scan({"slstm_r": r_}, xg_, nh, st_)
+        return (hs * dhs).sum() + sum((f * g).sum()
+                                      for f, g in zip(fin, dfin))
+    want = jax.grad(jloss, argnums=tuple(range(6)))(
+        *map(jnp.asarray, (xg, r, *st)))
+    leaves = [_t(a).requires_grad_(True) for a in (xg, r, *st)]
+    hs, fin = txlstm.slstm_scan({"slstm_r": leaves[1]}, leaves[0], nh,
+                                tuple(leaves[2:]))
+    out = (hs * _t(dhs)).sum() + sum((f * _t(g)).sum()
+                                     for f, g in zip(fin, dfin))
+    got = torch.autograd.grad(out, leaves)
+    for name, g, w in zip(("xg", "r", "c0", "n0", "h0", "m0"), got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(w).max()),
+                                   err_msg=name)
+    assert float(got[1].abs().max()) > 0
+
+
+def test_bwd_costs_at_the_train_shape():
+    """xlstm-125m's sLSTM at a 4 × 2048-token micro-batch: pre, c, n, m,
+    hs and dhs (f32) read once, dpre written once, bf16 R once, the
+    states: 328.4 MB; the transpose product's 9.66e9 operations."""
+    c = tkern.slstm_bwd_costs(4, 2048, 4, 192)
+    bsd = 4 * 2048 * 768
+    assert c["bytes"] == bsd * 9 * 4 + bsd * 4 * 4 + 4 * 4 * 192 * 192 * 2 \
+        + 8 * 4 * 768 * 4 == 328_433_664
+    assert c["flops"] == tkern.slstm_costs(4, 2048, 4, 192)["flops"]

@@ -17,7 +17,14 @@ through `interop` (bf16 through ml_dtypes where the tree is bf16). Held:
     1e-4 · max|want|; measured ≤ 7e-7 · max|want|);
   * the init tree leaf for leaf (keys, shapes, types and the deterministic
     leaves);
-  * the serving CLI on the host, and the training launcher's refusal.
+  * the serving CLI on the host;
+  * training: the reduced loss and every gradient against jax.grad of the
+    reference's loss_fn within 1e-3 · max|leaf| (the dense family's
+    gradient bound), slstm_r and slstm_w nonzero; remat == no remat
+    bitwise; three train steps against the reference's jitted step (loss
+    rtol 1e-5, params and moments at the LM bound); `launch.train`
+    building and stepping the family (f32, bf16) and a CLI run that
+    survives an injected failure bitwise.
 """
 import dataclasses
 import functools
@@ -33,6 +40,7 @@ from repro.models import registry as jreg
 from repro.models import xlstm as jx
 from repro_torch import configs as tconfigs
 from repro_torch import interop
+from repro_torch.interop import tree_leaves, tree_unflatten
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.models import registry as treg
@@ -351,12 +359,157 @@ def test_serve_session_builds_seeded_xlstm_weights_and_states():
     assert bool(torch.isfinite(logits).all())
 
 
-@pytest.mark.parametrize("device", ["cpu", "cuda"])
-def test_train_build_refuses_the_ssm_family(device):
-    """On every device, before anything is built: the sLSTM kernel has no
-    backward, so training would send no gradient to slstm_r or slstm_w."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_build_trains_the_ssm_family(dtype):
+    """`launch.train.build` takes xlstm: one step of the reduced model on
+    the CPU (f32, and bf16 as the full config trains) gives a finite loss,
+    moves every parameter leaf, and its gradient reaches slstm_r and
+    slstm_w."""
+    cfg = tconfigs.get_config(ARCH, reduced=True, tp=1, dtype=dtype)
+    init_state, train_step = ttrain.build(cfg, 3e-4, 1, device="cpu")
+    params, opt = init_state()
+    toks = _t(_tokens(cfg.vocab)[None])
+    new, new_opt, met = train_step(params, opt, {"tokens": toks,
+                                                 "labels": toks})
+    assert bool(torch.isfinite(met["loss"])) and int(new_opt.step) == 1
+    moved = {p: bool((a.float() != b.float()).any()) for p, a, b in zip(
+        _leaves(params), tree_leaves(params), tree_leaves(new))}
+    assert moved["/blocks/1/slstm/slstm_r"]
+    assert moved["/blocks/1/slstm/slstm_w"]
+    grads = tree_leaves(new_opt.mu)
+    names = list(_leaves(params))
+    for key in ("/blocks/1/slstm/slstm_r", "/blocks/1/slstm/slstm_w"):
+        assert float(grads[names.index(key)].abs().max()) > 0, key
+
+
+@pytest.fixture
+def cuda_absent():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: tests/test_torch_cuda.py trains "
+                    "there")
+
+
+def test_train_build_on_the_card_does_not_fall_back(cuda_absent):
+    """Without a card, `build(..., device="cuda")` raises (the entry point
+    runs on the card or not at all); with one, tests/test_torch_cuda.py
+    trains there."""
+    with pytest.raises(RuntimeError):
         ttrain.build(tconfigs.get_config(ARCH, reduced=True), 3e-4, 1,
-                     device=device)
-    with pytest.raises(NotImplementedError, match="xlstm training"):
-        ttrain.main(["--arch", ARCH, "--steps", "1", "--device", "cpu"])
+                     device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# training: loss and gradients against jax.grad, the train step, restarts
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_loss_and_grads():
+    """jax.value_and_grad of the reference's reduced xlstm loss (~17 s on
+    the host: computed once a module)."""
+    jm = jreg.build(jconfigs.get_config(ARCH, True))
+    toks = jnp.asarray(_tokens(jm.cfg.vocab), jnp.int32)
+    (loss, aux), grads = jax.value_and_grad(jm.loss_fn, has_aux=True)(
+        jax.tree.map(jnp.asarray, _jax_params()),
+        {"tokens": toks, "labels": toks})
+    return float(loss), _np(grads)
+
+
+def _port_loss_and_grads(**overrides):
+    tm = treg.build(tconfigs.get_config(ARCH, True, **overrides))
+    params = interop.to_torch(_jax_params(), "cpu")
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    toks = _t(_tokens(tm.cfg.vocab))
+    loss, _ = tm.loss_fn(tree_unflatten(params, leaves),
+                         {"tokens": toks, "labels": toks})
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(params, list(grads))
+
+
+def test_loss_and_every_gradient_match_jax_grad(jax_loss_and_grads):
+    """The reduced model's loss (rtol 1e-5) and the gradient of every leaf
+    within 1e-3 · max|leaf| of jax.grad of the reference's loss_fn (the
+    dense family's gradient bound), through the sLSTM block's backward
+    (the plain reverse loop here) and remat; slstm_r's and slstm_w's
+    gradients nonzero."""
+    jloss, jgrads = jax_loss_and_grads
+    loss, grads = _port_loss_and_grads()
+    np.testing.assert_allclose(float(loss), jloss, rtol=1e-5)
+    g, w = _leaves(grads), _leaves(jgrads)
+    assert g.keys() == w.keys()
+    for path in w:
+        want = np.asarray(w[path], np.float32)
+        assert g[path].shape == want.shape, path
+        np.testing.assert_allclose(g[path].numpy(), want, rtol=1e-3,
+                                   atol=1e-3 * float(np.abs(want).max()),
+                                   err_msg=path)
+    for key in ("slstm_r", "slstm_w"):
+        assert float(g[f"/blocks/1/slstm/{key}"].abs().max()) > 0, key
+
+
+def test_remat_leaves_loss_and_gradients_unchanged():
+    """Rematerializing each block recomputes the same values: loss and
+    gradients equal the run without remat bitwise (on the CPU)."""
+    a_loss, a = _port_loss_and_grads()
+    b_loss, b = _port_loss_and_grads(remat=False)
+    assert torch.equal(a_loss, b_loss)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def test_three_train_steps_match_reference_jitted_step():
+    """Three steps of `launch.steps.build_train_step` (accum 2, AdamW with
+    grad_clip_norm 1.0) from carried-over params and a carried-over
+    optimizer state after one reference step, against the reference's
+    jitted step: the loss at rtol 1e-5, every leaf of the params and of
+    both moments at the LM bound (`_close`)."""
+    from repro.launch import steps as jsteps
+    from repro.optim import AdamW as JAdamW
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.optim import AdamW
+    steps, lr = 3, 3e-4
+    jm = jreg.build(jconfigs.get_config(ARCH, True))
+    jopt = JAdamW(lr=lr, grad_clip_norm=1.0)
+    jstep = jax.jit(jsteps.build_train_step(jm, jopt))
+    jp = jax.tree.map(jnp.asarray, _jax_params())
+    jo = jopt.init(jp)
+    data = np.asarray(jax.random.randint(jax.random.PRNGKey(3),
+                                         (steps + 1, 2, 2, 24), 0,
+                                         jm.cfg.vocab), np.int32)
+    jp, jo, _ = jstep(jp, jo, {"tokens": jnp.asarray(data[0]),
+                               "labels": jnp.asarray(data[0])})
+    params = interop.to_torch(_np(jp), "cpu")
+    opt_state = interop.adam_state_to_torch(_np(jo), "cpu")
+    tm = treg.build(tconfigs.get_config(ARCH, True))
+    tstep = tsteps.build_train_step(tm, AdamW(lr=lr, grad_clip_norm=1.0))
+    for i in range(1, steps + 1):
+        batch = {"tokens": jnp.asarray(data[i]),
+                 "labels": jnp.asarray(data[i])}
+        jp, jo, jmet = jstep(jp, jo, batch)
+        tb = {"tokens": _t(data[i]).long(), "labels": _t(data[i]).long()}
+        params, opt_state, met = tstep(params, opt_state, tb)
+        np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]),
+                                   rtol=1e-5)
+    assert int(opt_state.step) == int(jo.step) == steps + 1
+    for what, got, want in (("params", params, jp),
+                            ("mu", opt_state.mu, jo.mu),
+                            ("nu", opt_state.nu, jo.nu)):
+        _tree_close(got, want, _close, f"{what} ")
+
+
+def test_train_run_survives_a_failure_bitwise(tmp_path):
+    """`launch.train.run` on xlstm-reduced with a failure injected before
+    step 2 and a checkpoint every step ends bitwise where an uninterrupted
+    run ends, with the same losses."""
+    def run(name, fail):
+        return ttrain.run(["--arch", ARCH, "--device", "cpu", "--steps",
+                           "3", "--batch", "2", "--seq", "16", "--accum",
+                           "2", "--ckpt-every", "1", "--ckpt-dir",
+                           str(tmp_path / name), *fail])
+    clean = run("clean", [])
+    failed = run("failed", ["--fail-at", "2"])
+    assert (clean["restarts"], failed["restarts"]) == (0, 1)
+    assert clean["losses"] == failed["losses"]
+    assert all(np.isfinite(clean["losses"]))
+    for a, b in zip(tree_leaves(clean["final"]),
+                    tree_leaves(failed["final"])):
+        assert torch.equal(a, b)
