@@ -329,12 +329,62 @@ result line), in the order they run:
      plain loop, nonzero and within 1e-3 · max|leaf|; and the backward's
      call and device time, the plain loop's time and the bound from
      `slstm_bwd_costs`;
+  8v. VLM serving: `serve_session` builds llava-next-34b at full width
+     (d_model 7168, 56 heads of 128 over 8 KV heads, d_ff 20480, vocab
+     64000, bf16, fused_attention, tp = 1) with its depth cut to 8 of 60
+     layers (its parameter count checked against the one the config
+     implies) and serves 4 × (2880 image tokens ~ 0.1·N from a seed +
+     2048 text tokens), then 32 greedy decode steps at the global
+     positions 4928 + i (the prefix shifts the text): 8 flash launches in
+     the prefill, 0 in the decode, finite logits; prints prefill ms,
+     decode ms per step, tokens/s and peak memory; then f32 at 2 layers
+     over 1 × (256 + 256) tokens: the card's logits at every position
+     against the host's within 2e-3 or 4 × the host's own f32 distance
+     from a float64 run where f32 cannot resolve 2e-3 ([8m]'s rule), and
+     decode at the prefix-shifted position against a prefill one token
+     longer within 2e-3;
+  8h. hybrid serving: zamba2-1.2b at full width and depth (38 mamba2
+     layers, d_model 2048, 64 SSD heads of 64, ssm_state 64, the shared
+     block of 32 heads of 64 and d_ff 8192 after layers 5, 11, …, 35,
+     vocab 32000, bf16, tp = 1; 1 170 473 856 parameters), 4 × 2048
+     tokens + 32 decode steps: 6 flash launches in the prefill, 0 in the
+     decode; prints as [8v] and the prefill's device idle share under
+     torch.profiler; then f32 at 12 layers (two applications of the
+     shared block) over 1 × 512 tokens, card vs host and decode at 512
+     against a prefill over 513, bounds as [8v];
+  8w. encoder-decoder serving: whisper-large-v3 at full width and depth
+     (32 + 32 layers, d_model 1280, 20 heads of 64, d_ff 5120, vocab
+     51866 padded to 51968, enc_len 1500, bf16, tp = 1; 1 601 251 840
+     parameters) on 4 × 1500 frames (~ 0.1·N, in place of the stubbed
+     mel frontend) and 416-token prompts, then 32 decode steps (416 + 32
+     = whisper's 448-token context): 32 flash launches in the prefill
+     (the decoder's causal self-attention; the encoder and the
+     cross-attention are plain, as in the reference), 0 in the decode;
+     prints the prefill, the encoder alone, decode ms per step, tokens/s
+     and peak memory; then f32 at 2 + 2 layers over 1500 frames and 64
+     tokens, bounds as [8v]; then the flash forward's figures of [8d] at
+     the two head-dim-64 prefill shapes, (4, 2048, 32, 64) and (4, 416,
+     20, 64) bf16 causal;
+  9h. hybrid training: `launch.train.build` at zamba2-1.2b's full width
+     and depth (bf16, remat, fused_attention, AdamW lr 3e-4,
+     grad_clip_norm 1.0) on 2 × (4 × 2048) tokens a step: one warm-up
+     step, then 4 timed steps; every loss finite, the last no higher than
+     the first; per step exactly 24 flash_attention_fwd (2 per
+     application of the shared block and micro-batch under remat), 12
+     dK/dV and 12 dQ launches; prints ms per step, tokens/s, peak memory,
+     the losses and one profiled micro-batch step's idle share; then f32
+     at full width, 12 layers, 1 × 512 tokens: the shared block's attn
+     and mlp gradients and mamba layer 7's in_proj and A_log, fused
+     against plain attention, nonzero and within 1e-3 · max|leaf|;
   9d (last): one full-width LM train step under torch.profiler, after a
      warm-up step inside the profiler's schedule: idle share and the top
      device activities.
 The line before the last is the `kernels` JSON (twelve kernels; the
 three cnn_eq rows also carry their launches on each path, `path_launches`:
-[4], [11], [12], [13], [14], [15] and [16], the last summed over ranks);
+[4], [11], [12], [13], [14], [15] and [16], the last summed over ranks;
+the flash forward's row its launches in the [8], [8v], [8h] and [8w]
+prefills and its head-dim-64 readings, the training kernels' rows their
+launches over [9]'s and [9h]'s timed steps);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -344,9 +394,10 @@ filter with noise, also from a seed ([13c] draws its traffic from seeded
 card generators through the simulated channels; [14] trains and draws
 its drift traffic from seeded generators, the reference's seeds 0, 1, 3
 and 77 as numbers); phases 6–7 train from seeded generators on
-the simulated link; phases 8, 9 and 10 draw their weights from seeded card
-generators, phase 9 its tokens from the reference's seeded stream. Without
-a CUDA card the script exits with code 2.
+the simulated link; phases 8, 9 and 10 (and 8v, 8h, 8w, 9h) draw their
+weights from seeded card generators, phases 9 and 9h their tokens from
+the reference's seeded stream. Without a CUDA card the script exits with
+code 2.
 """
 from __future__ import annotations
 
@@ -415,7 +466,9 @@ from repro_torch.launch import train as LM_train  # noqa: E402
 from repro_torch.models import attention as LM_attn  # noqa: E402
 from repro_torch.models import registry as LM_registry  # noqa: E402
 from repro_torch.models import transformer as LM_tr  # noqa: E402
+from repro_torch.models import whisper as WH  # noqa: E402
 from repro_torch.models import xlstm as XL  # noqa: E402
+from repro_torch.models import zamba2 as ZB  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.obs import (LinkMonitor, Observability,  # noqa: E402
                              SloEngine, SloRule)
@@ -517,6 +570,12 @@ FLASH_CASES = (  # b, sq, sk, h, hkv, d, causal, window, q_offset
     (1, 2049, 2049, 16, 8, 128, True, 0, 0),
     (1, 129, 129, 16, 8, 112, True, 37, 0),       # window ends inside a tile
     (1, 65, 2049, 16, 8, 80, True, 0, 1984),      # Sq < Sk, offset 1984
+    # head dim 64: the served shapes of [8h] (zamba2's shared block, MHA
+    # 32/32, its window the 2080-slot cache) and [8w] (whisper's decoder
+    # prefill, 20/20), and a tile edge
+    (4, 2048, 2048, 32, 32, 64, True, 2080, 0),
+    (4, 416, 416, 20, 20, 64, True, 0, 0),
+    (1, 65, 65, 16, 8, 64, True, 0, 0),
 )
 LM_LOGIT_TOL = 2e-3          # the reference's decode-vs-prefill bound
 # the LM training slice (phase 9): microbatches of 4 x 2048 tokens, accum 2
@@ -556,6 +615,10 @@ TRAIN_CASES = (  # b, sq, sk, h, hkv, d, window, q_offset
     (1, 65, 65, 16, 16, 112, 0, 0),
     (1, 127, 127, 16, 2, 128, 0, -5),     # rows with no valid key
     (1, 129, 129, 16, 8, 112, 37, 0),     # window ends inside a tile
+    # head dim 64: [9h]'s shared block (one micro-batch of zamba2, MHA
+    # 32/32) and a tile edge
+    (4, 2048, 2048, 32, 32, 64, 0, 0),
+    (1, 65, 65, 16, 8, 64, 0, 0),
 )
 LSE_TOL = 1e-5               # lse: f32 math in both, any input type
 BWD_F32_TOL = 5e-4           # the reference's bound on its own backward
@@ -637,6 +700,45 @@ MOE_F32_ENVELOPE = 4.0
 # vs prefill at LM_PROMPT; both within LM_LOGIT_TOL, stated before the
 # first run
 XL_F32_TOKENS = 512
+# [8v] VLM serving: llava-next-34b at full width, its depth cut to
+# VLM_LAYERS of 60 (the whole model is 68.8 GB of bf16 weights; 8 layers
+# with the embedding and the head are 10.8 GB), LM_BATCH x (2880 image +
+# LM_PROMPT text) tokens and LM_GEN decode steps at the global positions;
+# the image prefix ~ VLM_PREFIX_STD · N from a seed. Then f32 at
+# VLM_F32_LAYERS layers over VLM_F32_IMG image + VLM_F32_TEXT text tokens,
+# card vs host and decode at the prefix-shifted position vs a prefill one
+# token longer, each to [8m]'s rule: LM_LOGIT_TOL, or F32_ENVELOPE x the
+# host's own f32 distance from float64 where f32 cannot resolve it
+VLM_ARCH, VLM_LAYERS, VLM_PREFIX_STD = "llava-next-34b", 8, 0.1
+VLM_F32_LAYERS, VLM_F32_IMG, VLM_F32_TEXT = 2, 256, 256
+F32_ENVELOPE = MOE_F32_ENVELOPE
+# where f32 cannot resolve LM_LOGIT_TOL for decode vs prefill, the bound
+# is F32_ENVELOPE x the host's own f32 decode's and prefill's distance
+# from their float64 runs, and the serving path's decode vs prefill in
+# float64 must agree within this ([8h]'s f32 decode vs prefill on the
+# card is 3.9e-3 where the host's own f32 forward is 8.3e-3 from float64,
+# PERF.md)
+F64_CONSISTENCY_TOL = 1e-6
+F32_RULE = (f"each {LM_LOGIT_TOL}, or where f32 cannot resolve it "
+            f"{F32_ENVELOPE} x the host's own f32 distance from float64 on "
+            f"the same function")
+# [8h] / [9h] the hybrid: zamba2-1.2b at full width and depth (its
+# parameter count at tp = 1, from the reference's init shapes); f32 checks
+# at HY_F32_LAYERS layers (two applications of the shared block) over
+# HY_F32_TOKENS tokens; [9h] trains 1 warm-up + HY_TRAIN_STEPS steps and
+# holds the shared block's and one mamba layer's gradients, fused against
+# plain attention, to HY_GRAD_TOL · max|leaf| (the PR 14 guard)
+HY_ARCH, HY_PARAMS = "zamba2-1.2b", 1_170_473_856
+HY_F32_LAYERS, HY_F32_TOKENS = 12, 512
+HY_TRAIN_STEPS, HY_GRAD_TOL, HY_GRAD_LAYER = 4, 1e-3, 7
+# [8w] the encoder-decoder: whisper-large-v3 at full width and depth,
+# LM_BATCH x 1500 frames (~ VLM_PREFIX_STD · N, in place of the stubbed
+# mel frontend), an ED_PROMPT-token decoder prompt and ED_GEN decode steps
+# (416 + 32 = whisper's 448-token text context); f32 at ED_F32_LAYERS +
+# ED_F32_LAYERS layers over 1500 frames and ED_F32_TOKENS tokens
+ED_ARCH, ED_PARAMS = "whisper-large-v3", 1_601_251_840
+ED_PROMPT, ED_GEN = 416, 32
+ED_F32_LAYERS, ED_F32_TOKENS = 2, 64
 # [11] one stream of N_i = 64 instances of l_inst symbols, split over 8 and
 # over 64 instances
 PART_SYMS = HT.N_INSTANCES * HT.L_INST          # 468 480 symbols
@@ -2852,7 +2954,8 @@ def layer0_qkv(run: dict):
 
 def check_flash(dev, q, k, v) -> dict:
     """The kernel against its plain version: the served layer 0 (bf16,
-    rtol 1e-2 with atol 2e-2), then random inputs at non-aligned shapes."""
+    rtol 1e-2 with atol 2e-2), then random inputs at non-aligned shapes
+    and at the head-dim-64 shapes of [8h] and [8w] (reported apart)."""
     out = {}
     got = FA.flash_attention(q, k, v)
     want = FA_ref.flash_attention(q, k, v)
@@ -2876,7 +2979,7 @@ def check_flash(dev, q, k, v) -> dict:
             require(g.dtype == dt and bool(torch.isfinite(g.float()).all())
                     and e <= tol, f"flash_attention {case} {dt}: max "
                     f"|diff| {e:.3e} > {tol}")
-            key = str(dt).replace("torch.", "")
+            key = str(dt).replace("torch.", "") + (" d64" if d == 64 else "")
             worst[key] = max(worst.get(key, 0.0), e)
     out["random_max_abs"] = worst
     return out
@@ -2929,7 +3032,8 @@ def redesign_figures(t: dict, kern_f32, f32_name: str) -> dict:
                                         warm=True)}
 
 
-def time_flash(q, k, v, iters: int) -> dict:
+def time_flash(q, k, v, iters: int,
+               what: str = f"{LM_ARCH} prefill, layer 0") -> dict:
     """Kernel (CUDA events and profiler device time), plain version,
     SDPA yardstick and bound at the serving shape."""
     b, sq, h, d = q.shape
@@ -2951,7 +3055,8 @@ def time_flash(q, k, v, iters: int) -> dict:
     qf, kf, vf = q.float(), k.float(), v.float()
     out = {"ms": t_k, "ms_repeat": t_k2, "plain_ms": t_p, "library_ms": t_l,
            "device_ms": _device_ms(lambda: FA.flash_attention(q, k, v),
-                                   FLASH_KERNEL[q.dtype], calls=10),
+                                   FLASH_KERNEL[q.dtype], calls=10,
+                                   warm=True),
            "bound_ms": max(t_ops, t_bytes) * 1e3, "flops": costs["flops"]}
     out.update(redesign_figures(
         out, lambda: FA.flash_attention(qf, kf, vf),
@@ -2964,7 +3069,7 @@ def time_flash(q, k, v, iters: int) -> dict:
                        "enable_gqa=True) on (B, H, S, D) views",
             "shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} "
                      f"{str(q.dtype).replace('torch.', '')}, causal "
-                     f"({LM_ARCH} prefill, layer 0)"}
+                     f"({what})"}
 
 
 def trace_lm(run: dict, steps: int = 4) -> dict:
@@ -3138,7 +3243,8 @@ def check_train_kernels(dev, q, k, v, do, causal=True, window=0,
 
 def check_train_random(dev) -> dict:
     """The training kernels against their plain versions at random
-    non-aligned shapes, f32 and bf16: worst max |diff| per dtype."""
+    non-aligned shapes and [9h]'s head-dim-64 shape, f32 and bf16: worst
+    max |diff| per dtype (head dim 64 apart)."""
     gen = torch.Generator(device=dev).manual_seed(12)
     worst = {}
     for b, sq, sk, h, hkv, d, win, qoff in TRAIN_CASES:
@@ -3148,7 +3254,7 @@ def check_train_random(dev) -> dict:
                                       (b, sk, hkv, d), (b, sq, h, d)))
             errs = check_train_kernels(dev, q, k, v, do, window=win,
                                        q_offset=qoff)
-            key = str(dt).replace("torch.", "")
+            key = str(dt).replace("torch.", "") + (" d64" if d == 64 else "")
             for name, e in errs.items():
                 worst.setdefault(key, {})
                 worst[key][name] = max(worst[key].get(name, 0.0), e)
@@ -3280,7 +3386,7 @@ def time_train_kernels(q, k, v, do, iters: int) -> dict:
         out[name] = {
             "ms": t_k, "ms_repeat": t_k2, "plain_ms": t_p,
             "library_ms": t_fwd if fwd else t_bwd,
-            "device_ms": _device_ms(kern, kernel_name, calls=10),
+            "device_ms": _device_ms(kern, kernel_name, calls=10, warm=True),
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": products * product, "bytes": n_bytes[name],
@@ -3928,10 +4034,10 @@ def time_slstm_bwd(xg, r, cell0, nh: int, iters: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def serve_moe(dev) -> dict:
-    """`serve_session` on moonshot-v1-16b-a3b at full width with its depth
+    """`serve_family` on moonshot-v1-16b-a3b at full width with its depth
     cut to MOE_LAYERS: one prefill of LM_BATCH × LM_PROMPT tokens and
-    LM_GEN greedy decode steps (a warm-up pass first), the flash counts
-    zeroed before each and read after."""
+    LM_GEN greedy decode steps, MOE_LAYERS flash launches in the prefill,
+    none in the decode."""
     cfg = LM_configs.get_config(MOE_ARCH, tp=1, fused_attention=True,
                                 n_layers=MOE_LAYERS)
     full = LM_configs.get_config(MOE_ARCH)
@@ -3939,58 +4045,10 @@ def serve_moe(dev) -> dict:
              cfg.top_k, cfg.d_ff, cfg.vocab, cfg.dtype, full.n_layers) ==
             (2048, 16, 16, 64, 6, 1408, 163840, "bfloat16", 48),
             f"{MOE_ARCH} is not at full width: {cfg}")
-    max_len = LM_PROMPT + LM_GEN
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model, params, state, prefill, decode = LM_serve.serve_session(
-        cfg, LM_BATCH, LM_PROMPT, max_len, device=dev, seed=0)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    gen = torch.Generator(device=dev).manual_seed(7)
-    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
-                           generator=gen, device=dev)
-    warm = model.init_serve_state(LM_BATCH, max_len, dev)
-    logits, warm = prefill(params, {"tokens": tokens}, warm)
-    decode(params, logits.argmax(-1).to(torch.int32)[:, None], LM_PROMPT,
-           warm)
-    del warm
-    torch.cuda.synchronize()
-    FA.reset_launch_counts()
-    t0 = time.perf_counter()
-    logits, state = prefill(params, {"tokens": tokens}, state)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    prefill_launches = FA.LAUNCHES["flash_attention"]
-    require(prefill_launches == cfg.n_layers,
-            f"MoE prefill launched flash_attention {prefill_launches} "
-            f"times, expected {cfg.n_layers}")
-    first = logits.clone()
-    FA.reset_launch_counts()
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-    generated = [tok]
-    t0 = time.perf_counter()
-    for i in range(LM_GEN):
-        tok, logits, state = decode(params, tok, LM_PROMPT + i, state)
-        generated.append(tok)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    require(FA.LAUNCHES["flash_attention"] == 0,
-            "MoE decode launched flash_attention")
-    out = torch.cat(generated, dim=1)
-    require(bool(torch.isfinite(first.float()).all()
-                 and torch.isfinite(logits.float()).all()),
-            "MoE logits not finite")
-    require(bool(((out >= 0) & (out < cfg.vocab)).all()),
-            "MoE tokens out of range")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    del params, state, model
-    return {"cfg": cfg, "tokens": tokens, "setup_s": setup_s,
-            "prefill_ms": prefill_s * 1e3,
-            "decode_ms_per_step": decode_s * 1e3 / LM_GEN,
-            "decode_tokens_per_s": LM_BATCH * LM_GEN / decode_s,
-            "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
-            "peak_mem_gib": peak, "prefill_launches": prefill_launches,
-            "generated": out}
+    run = serve_family(dev, cfg, family_batch(cfg, LM_BATCH, LM_PROMPT, dev),
+                       LM_GEN, cfg.n_layers)
+    del run["params"], run["model"]
+    return run
 
 
 def check_moe_f32(dev, tokens: torch.Tensor) -> dict:
@@ -4067,6 +4125,632 @@ def check_moe_f32(dev, tokens: torch.Tensor) -> dict:
     require(out["card_vs_host_max_abs"] <= bound,
             f"f32 {MOE_ARCH}: card vs host {json.dumps(out)}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 8v, 8h, 8w, 9h: the VLM, hybrid and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+def transformer_params(cfg) -> int:
+    """The parameter count a dense transformer config implies: embed and
+    head, final norm, and per layer two norms, attention (q and o over
+    the padded q heads, k and v over kv_eff) and a gated MLP."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    hq, kv = SHARD.resolve_heads(cfg.n_heads, cfg.n_kv_heads, cfg.tp)
+    layer = 2 * d + 2 * d * hq * hd + 2 * d * kv * hd + 3 * d * f
+    return 2 * cfg.vocab_padded * d + d + cfg.n_layers * layer
+
+
+def family_batch(cfg, b: int, s: int, dev, seed: int = 7) -> dict:
+    """Tokens (b, s) and the family's stub input, ~ VLM_PREFIX_STD · N from
+    a seeded card generator: the image prefix (b, img_tokens, d) of a VLM
+    or the frames (b, enc_len, d) of an encdec model, in the param dtype."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     device=dev)}
+    return dict(batch, **LM_registry.stub_inputs(
+        cfg, (b,), dev, make=lambda shape: (VLM_PREFIX_STD * torch.randn(
+            shape, generator=gen, device=dev)).to(cfg.param_dtype())))
+
+
+def serve_family(dev, cfg, batch: dict, gen: int, flash_prefill: int
+                 ) -> dict:
+    """`serve_session` for ``cfg``: one prefill of ``batch`` and ``gen``
+    greedy decode steps at the global positions (a VLM's prefix shifts
+    them), a warm-up prefill and decode step on a second state first. The
+    flash counts are zeroed before the prefill and before the decode: the
+    prefill must launch `flash_attention` ``flash_prefill`` times and no
+    training kernel, the decode none."""
+    b, prompt = batch["tokens"].shape
+    start = LM_serve.prefix_len(cfg) + prompt
+    max_len = start + gen
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, params, state, prefill, decode = LM_serve.serve_session(
+        cfg, b, prompt, max_len, device=dev, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    warm = model.init_serve_state(b, max_len, dev)
+    logits, warm = prefill(params, batch, warm)
+    decode(params, logits.argmax(-1).to(torch.int32)[:, None], start, warm)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    FA.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, batch, state)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    want = {k: (flash_prefill if k == "flash_attention" else 0)
+            for k in FA.LAUNCHES}
+    require(FA.LAUNCHES == want, f"{cfg.name} prefill launched "
+            f"{FA.LAUNCHES}, expected {want}")
+    first = logits.clone()
+    FA.reset_launch_counts()
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    generated = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen):
+        tok, logits, state = decode(params, tok, start + i, state)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    require(all(n == 0 for n in FA.LAUNCHES.values()),
+            f"{cfg.name} decode launched {FA.LAUNCHES}")
+    out = torch.cat(generated, dim=1)
+    require(first.shape == (b, cfg.vocab_padded) and bool(
+        torch.isfinite(first.float()).all()
+        and torch.isfinite(logits.float()).all()),
+        f"{cfg.name} logits: wrong shape or not finite")
+    # greedy decode takes the argmax over the padded vocabulary, as the
+    # reference's does (whisper pads 51866 to 51968)
+    require(bool(((out >= 0) & (out < cfg.vocab_padded)).all()),
+            f"{cfg.name} tokens out of range")
+    peak = torch.cuda.max_memory_allocated()
+    return {"cfg": cfg, "model": model, "params": params, "batch": batch,
+            "setup_s": setup_s, "n_params": LM_registry.param_count(params),
+            "first_decode_pos": start, "max_len": max_len,
+            "prefill_ms": prefill_s * 1e3,
+            "prefill_tokens_per_s": b * start / prefill_s,
+            "decode_ms_per_step": decode_s * 1e3 / gen,
+            "decode_tokens_per_s": b * gen / decode_s,
+            "peak_mem_gib": peak / 2 ** 30,
+            "peak_added_gib": (peak - base) / 2 ** 30,
+            "prefill_launches": flash_prefill, "decode_launches": 0,
+            "generated": out}
+
+
+def trace_prefill(run: dict) -> dict:
+    """One prefill of the served batch under torch.profiler on a fresh
+    state, a prefill in the profiler's warm-up step first: idle share,
+    device time by kind, top activities."""
+    model, params, batch = run["model"], run["params"], run["batch"]
+    b = batch["tokens"].shape[0]
+
+    def one():
+        model.prefill(params, batch,
+                      model.init_serve_state(b, run["max_len"],
+                                             batch["tokens"].device))
+    return device_trace(one, warmup=one)
+
+
+FAMILY_FORWARD = {   # family → logits at every position, training form
+    "vlm": lambda p, b, c: LM_tr.forward(
+        p, b["tokens"], c, embed_prefix=b["embed_prefix"])[0],
+    "hybrid": lambda p, b, c: ZB.forward(p, b["tokens"], c),
+    "encdec": lambda p, b, c: WH.decode_train(
+        p, b["tokens"], WH.encode(p, b["enc_embed"], c), c),
+}
+
+
+def check_family_f32(dev, cfg, batch: dict, flash: int) -> dict:
+    """f32 at full width (TF32 off), seed 1: the card's logits at every
+    position of ``batch`` without its last token (the fused forward,
+    ``flash`` launches of the serving kernel) against the same weights on
+    the host; and on the card decode at the position after that prefix (a
+    VLM's image prefix shifts it) against a prefill of the whole batch.
+
+    Each is held to LM_LOGIT_TOL where f32 resolves it. Where the card
+    vs host distance is above it, a float64 run of the forward on the
+    host measures f32's own distance on that function, and the bound
+    (``bound``) is max(LM_LOGIT_TOL, F32_ENVELOPE x host f32 vs float64).
+    Where decode vs prefill is above it, the host runs the same decode
+    and prefill in f32 and in float64: the bound (``decode_bound``) is
+    max(LM_LOGIT_TOL, F32_ENVELOPE x the larger of the host's f32 decode
+    vs float64 decode and f32 prefill vs float64 prefill), and the
+    float64 decode vs prefill must agree within F64_CONSISTENCY_TOL."""
+    model = LM_registry.build(cfg)
+    fwd = FAMILY_FORWARD[cfg.family]
+    n = batch["tokens"].shape[1] - 1
+    short = dict(batch, tokens=batch["tokens"][:, :n])
+    start = LM_serve.prefix_len(cfg) + n
+    cpu = torch.device("cpu")
+    cfg64 = dataclasses.replace(cfg, dtype="float64", fused_attention=False)
+
+    def decode_and_prefill(m, params, full, sub, dev_):
+        _, st = m.prefill(params, sub, m.init_serve_state(1, start + 1, dev_))
+        ld, _ = m.decode(params, full["tokens"][:, n:], start, st)
+        lf, _ = m.prefill(params, full, m.init_serve_state(1, start + 1,
+                                                           dev_))
+        return ld, lf
+
+    def gap(a, b) -> float:
+        return float((a.double() - b.double()).abs().max())
+
+    with torch.no_grad(), fp32_exact():
+        params = model.init(torch.Generator(device=dev).manual_seed(1), dev)
+        FA.reset_launch_counts()
+        lc = fwd(params, short, cfg)
+        torch.cuda.synchronize()
+        require(FA.LAUNCHES["flash_attention"] == flash,
+                f"f32 {cfg.name} forward launched {FA.LAUNCHES}, expected "
+                f"{flash} flash_attention")
+        dvp = gap(*decode_and_prefill(model, params, batch, short, dev))
+        torch.cuda.synchronize()
+        host = interop.tree_map(lambda t: t.to(cpu), params)
+        del params
+        hb = {k: v.to(cpu) for k, v in batch.items()}
+        hshort = dict(hb, tokens=hb["tokens"][:, :n])
+        t0 = time.perf_counter()
+        lh = fwd(host, hshort, cfg)
+        host_s = time.perf_counter() - t0
+        lc = lc.cpu()
+        out = {"max_abs_logit": float(lh.abs().max()),
+               "card_vs_host_max_abs": gap(lc, lh), "bound": LM_LOGIT_TOL,
+               "decode_pos": start, "decode_vs_prefill_max_abs": dvp,
+               "decode_bound": LM_LOGIT_TOL, "host_forward_s": host_s}
+        host64 = (interop.tree_map(lambda t: t.double(), host)
+                  if max(out["card_vs_host_max_abs"], dvp) > LM_LOGIT_TOL
+                  else None)
+        if out["card_vs_host_max_abs"] > LM_LOGIT_TOL:
+            l64 = fwd(host64, hshort, cfg64)
+            out["host_f32_vs_f64_max_abs"] = gap(lh, l64)
+            out["card_vs_f64_max_abs"] = gap(lc, l64)
+            out["bound"] = max(LM_LOGIT_TOL, F32_ENVELOPE
+                               * out["host_f32_vs_f64_max_abs"])
+        if dvp > LM_LOGIT_TOL:
+            hd, hf = decode_and_prefill(model, host, hb, hshort, cpu)
+            d64, f64 = decode_and_prefill(LM_registry.build(cfg64), host64,
+                                          hb, hshort, cpu)
+            out["host_f32_decode_vs_f64_max_abs"] = gap(hd, d64)
+            out["host_f32_prefill_vs_f64_max_abs"] = gap(hf, f64)
+            out["host_f32_decode_vs_prefill_max_abs"] = gap(hd, hf)
+            out["host_f64_decode_vs_prefill_max_abs"] = gap(d64, f64)
+            require(out["host_f64_decode_vs_prefill_max_abs"]
+                    <= F64_CONSISTENCY_TOL, f"float64 {cfg.name}: decode "
+                    f"vs prefill {json.dumps(out)}")
+            out["decode_bound"] = max(LM_LOGIT_TOL, F32_ENVELOPE * max(
+                out["host_f32_decode_vs_f64_max_abs"],
+                out["host_f32_prefill_vs_f64_max_abs"]))
+        del host, host64
+    require(out["card_vs_host_max_abs"] <= out["bound"],
+            f"f32 {cfg.name}: card vs host {json.dumps(out)}")
+    require(out["decode_vs_prefill_max_abs"] <= out["decode_bound"],
+            f"f32 {cfg.name}: decode vs prefill {json.dumps(out)}")
+    return out
+
+
+def serve_vlm(dev) -> dict:
+    """[8v]: llava-next-34b at full width, VLM_LAYERS of 60 layers."""
+    cfg = LM_configs.get_config(VLM_ARCH, tp=1, fused_attention=True,
+                                n_layers=VLM_LAYERS)
+    full = LM_configs.get_config(VLM_ARCH)
+    require((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+             cfg.d_ff, cfg.vocab, cfg.img_tokens, cfg.dtype, full.n_layers)
+            == (7168, 56, 8, 128, 20480, 64000, 2880, "bfloat16", 60),
+            f"{VLM_ARCH} is not at full width: {cfg}")
+    run = serve_family(dev, cfg, family_batch(cfg, LM_BATCH, LM_PROMPT, dev),
+                       LM_GEN, cfg.n_layers)
+    want = transformer_params(cfg)
+    require(run["n_params"] == want, f"{VLM_ARCH} at {VLM_LAYERS} layers: "
+            f"{run['n_params']} parameters, the config implies {want}")
+    require(run["first_decode_pos"] == cfg.img_tokens + LM_PROMPT,
+            "VLM decode does not start after the image prefix")
+    run["n_params_full"] = transformer_params(full)
+    return run
+
+
+def check_vlm_f32(dev) -> dict:
+    cfg = LM_configs.get_config(
+        VLM_ARCH, tp=1, fused_attention=True, n_layers=VLM_F32_LAYERS,
+        img_tokens=VLM_F32_IMG, dtype="float32")
+    return check_family_f32(dev, cfg, family_batch(
+        cfg, 1, VLM_F32_TEXT + 1, dev, seed=9), cfg.n_layers)
+
+
+def serve_hybrid(dev) -> dict:
+    """[8h]: zamba2-1.2b at full width and depth."""
+    cfg = LM_configs.get_config(HY_ARCH, tp=1, fused_attention=True)
+    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim,
+             cfg.expand, cfg.ssm_head, cfg.ssm_state, cfg.d_ff, cfg.vocab,
+             cfg.ssd_chunk, cfg.dtype) ==
+            (38, 2048, 32, 64, 2, 64, 64, 8192, 32000, 64, "bfloat16"),
+            f"{HY_ARCH} is not at full width: {cfg}")
+    apps = len(ZB.attn_points(cfg))
+    run = serve_family(dev, cfg, family_batch(cfg, LM_BATCH, LM_PROMPT, dev),
+                       LM_GEN, apps)
+    require(run["n_params"] == HY_PARAMS, f"{HY_ARCH}: {run['n_params']} "
+            f"parameters, expected {HY_PARAMS}")
+    return run
+
+
+def check_hybrid_f32(dev) -> dict:
+    cfg = LM_configs.get_config(HY_ARCH, tp=1, fused_attention=True,
+                                n_layers=HY_F32_LAYERS, dtype="float32")
+    return check_family_f32(dev, cfg, family_batch(
+        cfg, 1, HY_F32_TOKENS + 1, dev, seed=9), len(ZB.attn_points(cfg)))
+
+
+def serve_encdec(dev) -> dict:
+    """[8w]: whisper-large-v3 at full width and depth; the encoder alone
+    timed after the run (host clock around a synchronised call)."""
+    cfg = LM_configs.get_config(ED_ARCH, tp=1, fused_attention=True)
+    require((cfg.n_layers, cfg.enc_layers, cfg.d_model, cfg.n_heads,
+             cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.vocab_padded,
+             cfg.enc_len, cfg.rope_theta, cfg.mlp_act, cfg.dtype) ==
+            (32, 32, 1280, 20, 64, 5120, 51866, 51968, 1500, 0.0, "gelu",
+             "bfloat16"), f"{ED_ARCH} is not at full width: {cfg}")
+    run = serve_family(dev, cfg, family_batch(cfg, LM_BATCH, ED_PROMPT, dev),
+                       ED_GEN, cfg.n_layers)
+    require(run["n_params"] == ED_PARAMS, f"{ED_ARCH}: {run['n_params']} "
+            f"parameters, expected {ED_PARAMS}")
+    enc_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        WH.encode(run["params"], run["batch"]["enc_embed"], cfg)
+        torch.cuda.synchronize()
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+    run["encoder_ms"] = enc_ms[-1]
+    run["decoder_prefill_ms"] = run["prefill_ms"] - enc_ms[-1]
+    return run
+
+
+def check_encdec_f32(dev) -> dict:
+    cfg = LM_configs.get_config(ED_ARCH, tp=1, fused_attention=True,
+                                n_layers=ED_F32_LAYERS,
+                                enc_layers=ED_F32_LAYERS, dtype="float32")
+    return check_family_f32(dev, cfg, family_batch(
+        cfg, 1, ED_F32_TOKENS + 1, dev, seed=9), cfg.n_layers)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _alloc_site(frames) -> str:
+    """The innermost frame of the port or this script, as file:line fn."""
+    for f in frames:
+        name = f["filename"]
+        if "repro_torch" in name or name.endswith("chip_smoke.py"):
+            return f"{pathlib.Path(name).name}:{f['line']} {f['name']}"
+    return "elsewhere"
+
+
+def peak_breakdown(fn, top: int = 10) -> dict:
+    """What is live on the card at the peak of one call of fn, from the
+    allocator's recorded history (python frames): the bytes allocated
+    before the call, the peak the history replays to, and the largest
+    groups of the allocations the call made that are live at that peak,
+    by the innermost frame of the port or this script (GiB, count)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(max_entries=8_000_000,
+                                             stacks="python")
+    try:
+        fn()
+        torch.cuda.synchronize()
+        events = torch.cuda.memory._snapshot()["device_traces"][
+            torch.cuda.current_device()]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    sign = {"alloc": 1, "free_completed": -1}
+    cur, peak, peak_at = base, base, -1
+    for n, ev in enumerate(events):
+        cur += sign.get(ev["action"], 0) * ev["size"]
+        if cur > peak:
+            peak, peak_at = cur, n
+    live = {}
+    for ev in events[:peak_at + 1]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+        elif ev["action"] == "free_completed":
+            live.pop(ev["addr"], None)
+    groups = {}
+    for ev in live.values():
+        g = groups.setdefault(_alloc_site(ev["frames"]), [0, 0])
+        g[0] += ev["size"]
+        g[1] += 1
+    ranked = sorted(groups.items(), key=lambda kv: -kv[1][0])
+    return {"before_gib": base / 2 ** 30, "peak_gib": peak / 2 ** 30,
+            "events": len(events),
+            "added_live_at_peak_gib": sum(g[0] for g in groups.values())
+            / 2 ** 30,
+            "top": [[site, round(b / 2 ** 30, 3), c]
+                    for site, (b, c) in ranked[:top]]}
+
+
+def train_hybrid(dev) -> dict:
+    """[9h]: `launch.train.build` on zamba2-1.2b at full width and depth
+    and its train step, one warm-up step, then HY_TRAIN_STEPS timed steps
+    of LM_TRAIN_ACCUM × (LM_TRAIN_MB × LM_TRAIN_SEQ) tokens from the
+    reference's stream. The counts are zeroed after the warm-up; each step
+    must launch the flash forward-with-lse twice per application of the
+    shared block and micro-batch (remat), each backward kernel once, and
+    the serving kernel never. Then one more step under the allocator's
+    history (`peak_breakdown`) and one profiled micro-batch step."""
+    cfg = LM_configs.get_config(HY_ARCH, tp=1, fused_attention=True)
+    require((cfg.n_layers, cfg.d_model, cfg.remat, cfg.dtype) ==
+            (38, 2048, True, "bfloat16"), f"{HY_ARCH}: {cfg}")
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    init_state, step = LM_train.build(cfg, LM_TRAIN_LR, LM_TRAIN_ACCUM, dev)
+    params, opt = init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    static = {"params_gib": _tree_bytes(params) / 2 ** 30,
+              "adam_moments_gib": (_tree_bytes(opt.mu)
+                                   + _tree_bytes(opt.nu)) / 2 ** 30,
+              "f32_gradient_sums_gib": 4 * LM_registry.param_count(params)
+              / 2 ** 30}
+    batches = lm_batches(PipelineConfig(
+        seq_len=LM_TRAIN_SEQ, global_batch=LM_TRAIN_MB * LM_TRAIN_ACCUM,
+        accum=LM_TRAIN_ACCUM), cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, next(batches))
+    losses = [float(m["loss"])]
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    apps = len(ZB.attn_points(cfg))
+    want = {"flash_attention": 0,
+            "flash_attention_fwd": 2 * apps * LM_TRAIN_ACCUM,
+            "flash_attention_bwd_dkv": apps * LM_TRAIN_ACCUM,
+            "flash_attention_bwd_dq": apps * LM_TRAIN_ACCUM}
+    FA.reset_launch_counts()
+    step_ms = []
+    for i in range(HY_TRAIN_STEPS):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        before = dict(FA.LAUNCHES)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        got = {k: n - before[k] for k, n in FA.LAUNCHES.items()}
+        require(got == want, f"{HY_ARCH} train step {i} launched {got}, "
+                f"expected {want}")
+    launches = dict(FA.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    require(bool(np.isfinite(losses).all()) and losses[-1] <= losses[0],
+            f"{HY_ARCH} training loss not finite or rising: {losses}")
+    require(int(opt.step) == HY_TRAIN_STEPS + 1, "optimizer step count")
+    tokens = LM_TRAIN_ACCUM * LM_TRAIN_MB * LM_TRAIN_SEQ
+    box = {"p": params, "o": opt}
+    del params, opt
+    # what is live at the peak of one more whole step
+    whole = next(batches)
+
+    def full():
+        box["p"], box["o"], _ = step(box["p"], box["o"], whole)
+    breakdown = dict(peak_breakdown(full), **static)
+    # one micro-batch a profiled step (the SSD chunk loop makes tens of
+    # thousands of device events of a micro-batch); warm-up in the schedule
+    batch = interop.tree_map(lambda t: t[:1], next(batches))
+
+    def one():
+        box["p"], box["o"], _ = step(box["p"], box["o"], batch)
+    trace = device_trace(one, warmup=one)
+    del box, batches, whole
+    return {"cfg": cfg, "setup_s": setup_s, "warmup_ms": warm_ms,
+            "losses": losses, "step_ms": step_ms,
+            "mean_step_ms": float(np.mean(step_ms)),
+            "median_step_ms": float(np.median(step_ms)),
+            "tokens_per_step": tokens,
+            "tokens_per_s": tokens / (np.mean(step_ms) / 1e3),
+            "peak_mem_gib": peak / 2 ** 30,
+            "peak_added_gib": (peak - base) / 2 ** 30,
+            "launches": launches, "launches_per_step": want,
+            "peak_breakdown": breakdown, "trace": trace}
+
+
+def check_hybrid_grads(dev) -> dict:
+    """[9h]: f32 at full width (TF32 off), HY_F32_LAYERS layers, 1 ×
+    HY_F32_TOKENS tokens: the loss's gradient with the shared block's
+    attention through the flash kernels (`_FusedCausal`, both
+    applications) against the plain path on the same weights. The shared
+    block's attn and mlp leaves and mamba layer HY_GRAD_LAYER's in_proj
+    and A_log: nonzero and within HY_GRAD_TOL · max|leaf|; the loss within
+    TRAIN_F32_LOSS_TOL."""
+    cfg = LM_configs.get_config(HY_ARCH, tp=1, fused_attention=True,
+                                n_layers=HY_F32_LAYERS, dtype="float32")
+    plain = LM_registry.build(dataclasses.replace(cfg,
+                                                  fused_attention=False))
+    fused = LM_registry.build(cfg)
+    toks = family_batch(cfg, 1, HY_F32_TOKENS, dev, seed=11)["tokens"]
+    apps = len(ZB.attn_points(cfg))
+    with fp32_exact():
+        params = fused.init(torch.Generator(device=dev).manual_seed(2), dev)
+        FA.reset_launch_counts()
+        lf, gf = _loss_grads(fused, params, toks)
+        counts = dict(FA.LAUNCHES)
+        lp, gp = _loss_grads(plain, params, toks)
+        torch.cuda.synchronize()
+    require(counts == {"flash_attention": 0, "flash_attention_fwd": 2 * apps,
+                       "flash_attention_bwd_dkv": apps,
+                       "flash_attention_bwd_dq": apps},
+            f"f32 fused {HY_ARCH} step launched {counts}")
+    names = [name for name, _ in tree_named_leaves(params)]
+    held = [n for n in names if n.startswith(("shared/attn/", "shared/mlp/"))]
+    out = {"loss_fused": lf, "loss_plain": lp, "loss_abs_diff": abs(lf - lp)}
+    for name in held + ["layers/mamba/in_proj", "layers/mamba/A_log"]:
+        a, b = gf[names.index(name)], gp[names.index(name)]
+        if name.startswith("layers/"):
+            a, b, name = a[HY_GRAD_LAYER], b[HY_GRAD_LAYER], \
+                f"{name}[{HY_GRAD_LAYER}]"
+        scale = float(b.abs().max())
+        out[name] = {"max_abs": float(a.abs().max()),
+                     "diff_over_max": float((a - b).abs().max())
+                     / max(scale, 1e-30)}
+        require(out[name]["max_abs"] > 0 and scale > 0,
+                f"{HY_ARCH}: no gradient reached {name}")
+        require(out[name]["diff_over_max"] <= HY_GRAD_TOL,
+                f"{HY_ARCH} gradient {name}: {out[name]}")
+    require(out["loss_abs_diff"] < TRAIN_F32_LOSS_TOL,
+            f"f32 {HY_ARCH} loss fused {lf} vs plain {lp}")
+    del params, gf, gp
+    return out
+
+
+def time_flash_hd64(dev) -> dict:
+    """The flash forward at the two head-dim-64 prefill shapes the new
+    families give it (bf16, causal, seeded random q, k, v): zamba2's
+    shared block (LM_BATCH, LM_PROMPT, 32, 64) and whisper's decoder
+    (LM_BATCH, ED_PROMPT, 20, 64); `time_flash`'s figures beside SDPA."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for what, (s, h) in (("zamba2 prefill", (LM_PROMPT, 32)),
+                         ("whisper decoder prefill", (ED_PROMPT, 20))):
+        q, k, v = (torch.randn((LM_BATCH, s, h, 64), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        out[what] = time_flash(q, k, v, iters=50, what=what)
+        del q, k, v
+    return out
+
+
+def new_families(dev, card: str) -> dict:
+    """[8v], [8h], [8w] and [9h], each phase's objects freed before the
+    next; returns the flash launches of each path and the head-dim-64
+    flash readings for the `kernels` line."""
+    vlm = serve_vlm(dev)
+    print(f"[8v] VLM serving: {vlm['cfg'].name} at full width (d_model "
+          f"7168, 56/8 heads of 128, d_ff 20480, vocab 64000, bf16, "
+          f"fused_attention, tp=1; depth cut to {VLM_LAYERS} of 60 layers: "
+          f"{vlm['n_params']} parameters, {vlm['n_params_full']} at 60; "
+          f"seeded weights, set-up {vlm['setup_s']:.2f} s) on {LM_BATCH} x "
+          f"({vlm['cfg'].img_tokens} image + {LM_PROMPT} text) = "
+          f"{vlm['first_decode_pos']}-token prefills (image prefix ~ "
+          f"{VLM_PREFIX_STD}·N) + {LM_GEN} greedy decode steps at positions "
+          f"{vlm['first_decode_pos']}..: prefill {vlm['prefill_ms']:.3f} ms "
+          f"({vlm['prefill_tokens_per_s']:.1f} tokens/s), decode "
+          f"{vlm['decode_ms_per_step']:.3f} ms/step, "
+          f"{vlm['decode_tokens_per_s']:.1f} tokens/s; max_memory_allocated "
+          f"{vlm['peak_mem_gib']:.2f} GiB ({vlm['peak_added_gib']:.2f} "
+          f"above what was allocated before); flash_attention launches: "
+          f"prefill {vlm['prefill_launches']}, decode 0; row 0 tokens "
+          f"{vlm['generated'][0, :8].tolist()}; {card}", flush=True)
+    launches = {"8v": vlm["prefill_launches"]}
+    del vlm
+    torch.cuda.empty_cache()
+    vf32 = check_vlm_f32(dev)
+    print(f"[8v] {VLM_ARCH} f32 at full width, {VLM_F32_LAYERS} layers, 1 x "
+          f"({VLM_F32_IMG} image + {VLM_F32_TEXT} text) tokens (TF32 off): "
+          f"card vs host at every position within {vf32['bound']:.3e}, "
+          f"decode at the prefix-shifted position vs a prefill one token "
+          f"longer within {vf32['decode_bound']:.3e} ({F32_RULE}): "
+          f"{json.dumps(vf32)}", flush=True)
+    torch.cuda.empty_cache()
+
+    hy = serve_hybrid(dev)
+    hy_trace = trace_prefill(hy)
+    print(f"[8h] hybrid serving: {hy['cfg'].name} at full width and depth "
+          f"(38 mamba2 layers, d_model 2048, 64 SSD heads of 64, ssm_state "
+          f"64, the shared block (32 heads of 64, d_ff 8192) after layers "
+          f"{ZB.attn_points(hy['cfg'])}, vocab 32000, bf16, "
+          f"fused_attention, tp=1; {hy['n_params']} parameters, seeded, "
+          f"set-up {hy['setup_s']:.2f} s) on {LM_BATCH} x {LM_PROMPT}-token "
+          f"prompts + {LM_GEN} greedy decode steps: prefill "
+          f"{hy['prefill_ms']:.3f} ms ({hy['prefill_tokens_per_s']:.1f} "
+          f"tokens/s), decode {hy['decode_ms_per_step']:.3f} ms/step, "
+          f"{hy['decode_tokens_per_s']:.1f} tokens/s; max_memory_allocated "
+          f"{hy['peak_mem_gib']:.2f} GiB ({hy['peak_added_gib']:.2f} above "
+          f"what was allocated before); flash_attention launches: prefill "
+          f"{hy['prefill_launches']}, decode 0; row 0 tokens "
+          f"{hy['generated'][0, :8].tolist()}; one prefill under "
+          f"torch.profiler: idle share {hy_trace['idle_share']}, device busy "
+          f"{hy_trace['device_busy_ms']:.1f} of {hy_trace['wall_ms']:.1f} "
+          f"ms, by kind {json.dumps(hy_trace['by_kind_ms'])}, top "
+          f"{json.dumps(hy_trace['top_ms'])}; {card}", flush=True)
+    launches["8h"] = hy["prefill_launches"]
+    del hy
+    torch.cuda.empty_cache()
+    hf32 = check_hybrid_f32(dev)
+    print(f"[8h] {HY_ARCH} f32 at full width, {HY_F32_LAYERS} layers, 1 x "
+          f"{HY_F32_TOKENS} tokens (TF32 off): card vs host within "
+          f"{hf32['bound']:.3e}, decode at {HY_F32_TOKENS} vs a prefill "
+          f"over {HY_F32_TOKENS + 1} within {hf32['decode_bound']:.3e} "
+          f"({F32_RULE}): {json.dumps(hf32)}", flush=True)
+    torch.cuda.empty_cache()
+
+    ed = serve_encdec(dev)
+    print(f"[8w] encoder-decoder serving: {ed['cfg'].name} at full width "
+          f"and depth (32 + 32 layers, d_model 1280, 20 heads of 64, d_ff "
+          f"5120, vocab 51866 padded to 51968, enc_len 1500, bf16, "
+          f"fused_attention, tp=1; {ed['n_params']} parameters, seeded, "
+          f"set-up {ed['setup_s']:.2f} s) on {LM_BATCH} x 1500 frames (~ "
+          f"{VLM_PREFIX_STD}·N) and {ED_PROMPT}-token prompts + {ED_GEN} "
+          f"greedy decode steps: prefill {ed['prefill_ms']:.3f} ms (encoder "
+          f"alone {ed['encoder_ms']:.3f} ms, so the decoder's prefill "
+          f"{ed['decoder_prefill_ms']:.3f} ms), decode "
+          f"{ed['decode_ms_per_step']:.3f} ms/step, "
+          f"{ed['decode_tokens_per_s']:.1f} tokens/s; max_memory_allocated "
+          f"{ed['peak_mem_gib']:.2f} GiB ({ed['peak_added_gib']:.2f} above "
+          f"what was allocated before); flash_attention launches: prefill "
+          f"{ed['prefill_launches']}, decode 0; row 0 tokens "
+          f"{ed['generated'][0, :8].tolist()}; {card}", flush=True)
+    launches["8w"] = ed["prefill_launches"]
+    del ed
+    torch.cuda.empty_cache()
+    ef32 = check_encdec_f32(dev)
+    print(f"[8w] {ED_ARCH} f32 at full width, {ED_F32_LAYERS} + "
+          f"{ED_F32_LAYERS} layers, 1 x 1500 frames and {ED_F32_TOKENS} "
+          f"tokens (TF32 off): card vs host within {ef32['bound']:.3e}, "
+          f"decode at {ED_F32_TOKENS} vs a prefill over "
+          f"{ED_F32_TOKENS + 1} within {ef32['decode_bound']:.3e} "
+          f"({F32_RULE}): {json.dumps(ef32)}", flush=True)
+    torch.cuda.empty_cache()
+
+    hd64 = time_flash_hd64(dev)
+    print(f"[8h/8w] flash_attention at head dim 64 (ms; CUDA events, mean "
+          f"of 50 calls; device_ms from torch.profiler over 10 calls): "
+          f"{json.dumps(hd64)}; {card}", flush=True)
+
+    ht = train_hybrid(dev)
+    trace = ht.pop("trace")
+    print(f"[9h] hybrid training: {ht['cfg'].name} at full width and depth "
+          f"(bf16, remat, fused_attention, tp=1; AdamW lr {LM_TRAIN_LR}, "
+          f"grad_clip_norm 1.0; seeded weights, set-up {ht['setup_s']:.2f} "
+          f"s) on {LM_TRAIN_ACCUM} x ({LM_TRAIN_MB} x {LM_TRAIN_SEQ}) = "
+          f"{ht['tokens_per_step']} tokens per step: warm-up "
+          f"{ht['warmup_ms']:.1f} ms, then {HY_TRAIN_STEPS} steps of "
+          f"{json.dumps(ht['step_ms'])} ms (mean {ht['mean_step_ms']:.1f} "
+          f"ms, median {ht['median_step_ms']:.1f} ms, "
+          f"{ht['tokens_per_s']:.1f} tokens/s at the mean); losses "
+          f"{json.dumps(ht['losses'])}; max_memory_allocated "
+          f"{ht['peak_mem_gib']:.2f} GiB ({ht['peak_added_gib']:.2f} above "
+          f"what was allocated before); flash launches per step "
+          f"{json.dumps(ht['launches_per_step'])}, over the timed steps "
+          f"{json.dumps(ht['launches'])}; at the peak of one more step "
+          f"(the allocator's history): {json.dumps(ht['peak_breakdown'])}; "
+          f"one micro-batch step under "
+          f"torch.profiler: idle share {trace['idle_share']}, device busy "
+          f"{trace['device_busy_ms']:.1f} of {trace['wall_ms']:.1f} ms, by "
+          f"kind {json.dumps(trace['by_kind_ms'])}, top "
+          f"{json.dumps(trace['top_ms'])}; {card}", flush=True)
+    launches["9h"] = ht["launches"]
+    del ht
+    torch.cuda.empty_cache()
+    hgrads = check_hybrid_grads(dev)
+    print(f"[9h] {HY_ARCH} f32 at full width, {HY_F32_LAYERS} layers, 1 x "
+          f"{HY_F32_TOKENS} tokens (TF32 off), fused vs plain attention: "
+          f"the shared block's and mamba layer {HY_GRAD_LAYER}'s gradients "
+          f"nonzero and within {HY_GRAD_TOL} x max|leaf|, loss within "
+          f"{TRAIN_F32_LOSS_TOL}: {json.dumps(hgrads)}", flush=True)
+    torch.cuda.empty_cache()
+    return {"flash_attention": {k: launches[k] for k in ("8v", "8h", "8w")},
+            "9h": launches["9h"], "head_dim_64": hd64}
 
 
 # ---------------------------------------------------------------------------
@@ -4462,12 +5146,13 @@ def main() -> int:
           f"{moe['prefill_ms']:.3f} ms ({moe['prefill_tokens_per_s']:.1f} "
           f"tokens/s), decode {moe['decode_ms_per_step']:.3f} ms/step, "
           f"{moe['decode_tokens_per_s']:.1f} tokens/s; "
-          f"max_memory_allocated {moe['peak_mem_gib']:.2f} GiB; "
+          f"max_memory_allocated {moe['peak_mem_gib']:.2f} GiB (the "
+          f"served run, weights included); "
           f"flash_attention launches: prefill {moe['prefill_launches']}, "
           f"decode 0; row 0 tokens {moe['generated'][0, :8].tolist()}; "
           f"{card}", flush=True)
     torch.cuda.empty_cache()
-    moe_f32 = check_moe_f32(dev, moe["tokens"])
+    moe_f32 = check_moe_f32(dev, moe["batch"]["tokens"])
     print(f"[8m] {MOE_ARCH} f32 at full width, {MOE_F32_LAYERS} layers, 1 x "
           f"{MOE_F32_TOKENS} tokens (TF32 off), card vs host, the host "
           f"routed as the card, bound max({LM_LOGIT_TOL}, "
@@ -4601,6 +5286,8 @@ def main() -> int:
     xt_launches = xt["launches"]
     del xt, xgb, pb, hb, cb
     torch.cuda.empty_cache()
+    family_launches = new_families(dev, card)
+
     print(f"[9d] one full-width LM train step under torch.profiler (after "
           f"a warm-up step in the profiler's schedule): "
           f"{json.dumps(trace_train_step(tr))}", flush=True)
@@ -4646,7 +5333,10 @@ def main() -> int:
         "plain_ms": ftimes["plain_ms"], "bound_ms": ftimes["bound_ms"],
         "bound_by": ftimes["bound_by"], "library_ms": ftimes["library_ms"],
         "device_ms": ftimes["device_ms"], "library": ftimes["library"],
-        "shape": ftimes["shape"], "card": card})
+        "shape": ftimes["shape"], "card": card,
+        "path_launches": {"8": flash_launches,
+                          **family_launches["flash_attention"]},
+        "head_dim_64": family_launches["head_dim_64"]})
     for name, (source, replaces, _) in TRAIN_KERNELS.items():
         t = ttimes[name]
         err = (layer0["o"] if name == "flash_attention_fwd" else
@@ -4658,7 +5348,9 @@ def main() -> int:
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
-            "library": t["library"], "shape": t["shape"], "card": card})
+            "library": t["library"], "shape": t["shape"], "card": card,
+            "path_launches": {"9": tr_launches[name],
+                              "9h": family_launches["9h"][name]}})
     kernels.append({
         "name": SLSTM[0], "route": "cuda", "source": SLSTM[1],
         "replaces": SLSTM[2], "launches": slstm_launches,

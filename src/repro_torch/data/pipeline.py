@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..models import registry
 from ..models.common import ModelConfig
 
 
@@ -56,10 +57,15 @@ class TokenSource:
 def lm_batches(cfg: PipelineConfig, model_cfg: ModelConfig,
                device: DeviceLike = "cuda", start_step: int = 0
                ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Yields {tokens, labels}: the same (accum, global_batch / accum,
-    seq_len) int64 tensor on ``device``, row a·mb + r of step s being
-    `TokenSource.block(s, a·mb + r)`, as in the reference. The device is
-    resolved here, so an absent card raises at the call."""
+    """Yields {tokens, labels[, enc_embed | embed_prefix]}: tokens and
+    labels the same (accum, global_batch / accum, seq_len) int64 tensor on
+    ``device``, row a·mb + r of step s being `TokenSource.block(s, a·mb +
+    r)`, as in the reference; an encdec model gets zero frame embeddings
+    ``enc_embed`` (accum, mb, enc_len, d_model) and a vlm model a zero
+    image prefix ``embed_prefix`` (accum, mb, img_tokens, d_model), both
+    in the model's param dtype, as the reference's stubs
+    (`registry.stub_inputs`). The device is resolved here, so an absent
+    card raises at the call."""
     dev = resolve_device(device)
     source = TokenSource(cfg, model_cfg.vocab)
     mb = cfg.global_batch // cfg.accum
@@ -70,7 +76,10 @@ def lm_batches(cfg: PipelineConfig, model_cfg: ModelConfig,
                              for i in range(cfg.accum * mb)])
             toks = torch.from_numpy(rows.reshape(
                 cfg.accum, mb, cfg.seq_len).astype(np.int64)).to(dev)
-            yield {"tokens": toks, "labels": toks}
+            batch = {"tokens": toks, "labels": toks}
+            batch.update(registry.stub_inputs(model_cfg, (cfg.accum, mb),
+                                              dev))
+            yield batch
             step += 1
 
     return gen(start_step)

@@ -2,12 +2,14 @@
 pipeline → checkpoints (atomic, keep-k) → fault-tolerant restart loop →
 straggler monitor.
 
-Port of `repro.launch.train` for the dense, moe and ssm (xlstm)
-families, on one card: there is no mesh, so where the reference takes
-``--mesh`` this takes ``--device`` (default ``cuda``, which raises
-without a card; ``cpu`` runs the kernels' plain PyTorch versions), and it trains with ``tp=1, fused_attention=True``
-(attention and its gradient in the flash kernels), as the serving CLI
-serves. ``--layers`` cuts the depth (for a quick run at full width).
+Port of `repro.launch.train`, for every family (dense, moe, vlm, hybrid,
+ssm, encdec; `data.lm_batches` supplies a vlm's image prefix and an
+encdec's frame embeddings), on one card: there is no mesh, so where the
+reference takes ``--mesh`` this takes ``--device`` (default ``cuda``,
+which raises without a card; ``cpu`` runs the kernels' plain PyTorch
+versions), and it trains with ``tp=1, fused_attention=True`` (attention
+and its gradient in the flash kernels), as the serving CLI serves.
+``--layers`` cuts the depth (for a quick run at full width).
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
@@ -50,7 +52,9 @@ def build(cfg: ModelConfig, lr: float, accum: int,
     batch) → (params, opt_state, {"loss"}) over a batch with a leading
     accum axis (``accum`` is the batch's, as in the reference). xlstm's
     sLSTM blocks take their gradient through `models.xlstm.slstm_scan`
-    (the backward kernel on the card)."""
+    (the backward kernel on the card); attention with
+    ``cfg.fused_attention`` through the flash kernels (zamba2's shared
+    block at each of its application points)."""
     dev = resolve_device(device)
     model = registry.build(cfg)
     opt = AdamW(lr=lr, grad_clip_norm=1.0)
@@ -69,7 +73,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="full config; default: reduced")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0: the "
-                         "config's)")
+                         "config's); for whisper the decoder's depth, the "
+                         "encoder keeps its enc_layers")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)

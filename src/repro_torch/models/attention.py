@@ -18,7 +18,10 @@ Two causal paths, chosen as the reference chooses them
     (the reference's XLA-level path, here plain PyTorch).
 
 Where the reference returns new cache arrays, `self_attention` writes the
-caller's cache tensors in place and returns them.
+caller's cache tensors in place and returns them. `cross_attention`
+(decoder to encoder, whisper) and bidirectional encoder attention take the
+plain `attend_full`, as the reference does: it never sends them to its
+kernel.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from ..device import DeviceLike, resolve_device
 from ..kernels.flash_attn import (flash_attention, flash_attention_bwd,
                                   flash_attention_fwd, rows_aligned)
 from ..parallel import sharding
-from .common import ModelConfig, dense_init, rms_norm, rope
+from .common import ModelConfig, dense_init, rms_norm, rope, upcast
 
 NEG_INF = -1e30
 
@@ -86,7 +89,7 @@ def qkv(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
 
 
 def _attend_dense(q, k, v, mask, scale):
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    s = upcast(torch.einsum("bqhd,bkhd->bhqk", q, k)) * scale
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
@@ -256,3 +259,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def cross_attention(params, x, enc_out, cfg: ModelConfig,
+                    cached_kv: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None):
+    """Decoder→encoder attention; the encoder's K/V can be precomputed at
+    prefill (``cached_kv``). Returns (out, (k, v))."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+    if cached_kv is None:
+        k = torch.einsum("bsd,dhk->bshk", enc_out, params["wk"])
+        v = torch.einsum("bsd,dhk->bshk", enc_out, params["wv"])
+        if cfg.qk_norm:
+            k = rms_norm(k, params["k_norm"])
+        k = _expand_kv(k, cfg)
+        v = _expand_kv(v, cfg)
+    else:
+        k, v = cached_kv
+    o = attend_full(q, k, v)
+    return out_proj(params, o), (k, v)

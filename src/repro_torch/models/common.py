@@ -1,4 +1,5 @@
-"""Shared model machinery: config, norms, RoPE, init helpers.
+"""Shared model machinery: config, norms, RoPE, sinusoidal positions,
+rematerialization, init helpers.
 
 Port of `repro.models.common`. `rms_norm` carries the reference's custom
 VJP as a `torch.autograd.Function`.
@@ -6,11 +7,13 @@ VJP as a `torch.autograd.Function`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..interop import tree_map
@@ -82,12 +85,19 @@ class ModelConfig:
 # Numerics
 # ---------------------------------------------------------------------------
 
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """x in f32 where the reference computes in f32 (bf16, f16 and f32
+    inputs), but a float64 tensor stays float64, so a float64 run of the
+    same function (the chip checks' reference) keeps its precision."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _rms_norm_impl(x: torch.Tensor, scale: torch.Tensor,
                    eps: float) -> torch.Tensor:
     dt = x.dtype
-    xf = x.float()
+    xf = upcast(x)
     xf = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
-    return (xf * scale.float()).to(dt)
+    return (xf * upcast(scale)).to(dt)
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -104,10 +114,10 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, scale = ctx.saved_tensors
-        xf, gf = x.float(), g.float()
+        xf, gf = upcast(x), upcast(g)
         r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + ctx.eps)
         xhat = xf * r
-        gs = gf * scale.float()
+        gs = gf * upcast(scale)
         dx = r * (gs - xhat * (gs * xhat).mean(dim=-1, keepdim=True))
         dscale = (gf * xhat).sum(dim=tuple(range(x.dim() - 1)))
         return dx.to(x.dtype), dscale.to(scale.dtype), None
@@ -130,16 +140,60 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     host-to-device copy per call."""
     half = x.shape[-1] // 2
     rate = float(np.float32(np.log(np.float32(theta))) / np.float32(half))
-    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) * rate)
+    ft = torch.promote_types(x.dtype, torch.float32)
+    freqs = torch.exp(-torch.arange(0, half, dtype=ft, device=x.device)
+                      * rate)
     if positions.dim() == 1:
         positions = positions[None, :]
-    ang = positions[..., None].float() * freqs           # (B, S, half)
+    ang = positions[..., None].to(ft) * freqs            # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
-    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    xf1, xf2 = upcast(x[..., :half]), upcast(x[..., half:])
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int,
+                         device: DeviceLike = "cuda") -> torch.Tensor:
+    """(n, d) f32 table [sin(pos / 10000^(2i/d)), cos(...)], i < d // 2.
+
+    The reference computes 10000^(2i/d) in f32 with `jnp.power`; a one-ulp
+    difference there moves the angle at position 1499 by ~1e-4 rad (and
+    `torch.pow` differs from it in 11 of whisper's 640 entries). So the
+    exponent 2i/d is formed in f32 as the reference forms it, the power is
+    taken in float64 on the host and rounded once to f32, which gives the
+    reference's denominators exactly, and the angle pos / denominator is
+    divided in f32 as the reference divides it. Its sin and cos are taken
+    in float64 and rounded to f32: torch's f32 sin and cos on the host
+    give results 1.5e-4 apart at angles near 1500 depending on how the
+    tensor is split over threads (vectorized and scalar paths), float64's
+    do not. The table is within 1 f32 ulp of the reference's, on
+    ``device``. It is built once per (n, d, device) and shared by every
+    caller after that (no host work or host-to-device copy per call), so
+    callers read it and never write to it."""
+    return _sinusoid_table(n, d, resolve_device(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _sinusoid_table(n: int, d: int, dev: torch.device) -> torch.Tensor:
+    dim = np.arange(d // 2, dtype=np.float32)
+    expo = (np.float32(2) * dim) / np.float32(d)
+    denom = np.power(10000.0, expo.astype(np.float64)).astype(np.float32)
+    pos = torch.arange(n, dtype=torch.float32, device=dev)[:, None]
+    ang = (pos / torch.from_numpy(denom).to(dev)[None, :]).double()
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).float()
+
+
+def remat_run(on: bool) -> Callable[..., Any]:
+    """run(fn, *args) → fn(*args), under `torch.utils.checkpoint`
+    (non-reentrant) when ``on`` and grad is enabled, where the reference
+    wraps a body in `jax.checkpoint`: the body's activations are dropped
+    after the forward and recomputed in the backward. The bodies draw no
+    random numbers, so no RNG state is kept."""
+    if not (on and torch.is_grad_enabled()):
+        return lambda fn, *args: fn(*args)
+    return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
+                                        preserve_rng_state=False)
 
 
 # ---------------------------------------------------------------------------

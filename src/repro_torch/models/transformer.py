@@ -1,12 +1,15 @@
-"""Decoder-only transformer stack: the dense GQA and MoE families.
+"""Decoder-only transformer stack: the dense GQA, MoE and VLM families.
 
-Port of `repro.models.transformer` for the dense and MoE families:
+Port of `repro.models.transformer` for the dense, MoE and VLM families:
 pre-RMSNorm blocks, RoPE, GQA attention (`models.attention`), a SwiGLU or
 GELU MLP or, where ``cfg.n_experts`` > 0, the MoE layer (`models.mlp`;
 its aux loss is summed over the layers and `loss_fn` adds 1e-2 of it),
 the training forward and loss, and the ring-buffer KV cache of capacity
 min(max_len, window). Covers internlm2, deepseek, smollm, qwen3, mixtral
-and moonshot.
+and moonshot, and llava (family "vlm"): a prefix-LM whose stubbed vision
+tower's patch embeddings (``embed_prefix``, (B, img_tokens, d)) are
+prepended to the token embeddings, so text positions start after the
+prefix in prefill and decode alike, and `loss_fn` covers only the text.
 
 Where the reference scans over the stacked layer params, the port loops
 over them in Python (eager PyTorch: one layer's ops at a time), and where
@@ -23,8 +26,7 @@ reference wraps it in `jax.checkpoint`: its activations are dropped after
 the forward and recomputed in the backward, so a fused-attention layer
 launches the forward kernel twice per backward pass. The stacked layer
 params are split with one `unbind` per leaf, so each leaf's gradient is
-stacked once, not scattered into a zero (L, ...) tensor per layer. The
-VLM variant comes with its family (ROADMAP Queue 1 item 1).
+stacked once, not scattered into a zero (L, ...) tensor per layer.
 """
 from __future__ import annotations
 
@@ -32,12 +34,12 @@ from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..parallel import sharding
 from . import attention, mlp
-from .common import ModelConfig, dense_init, rms_norm, stack_layers
+from .common import (ModelConfig, dense_init, remat_run, rms_norm,
+                     stack_layers)
 
 Pos = Union[int, torch.Tensor]
 
@@ -148,13 +150,9 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     h = embed_tokens(params, tokens, cfg, embed_prefix)
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    remat = cfg.remat and torch.is_grad_enabled()
+    run = remat_run(cfg.remat)
     for lp in _unbind_layers(params["layers"], cfg.n_layers):
-        if remat:
-            h, a = checkpoint(_body, h, lp, cfg, positions,
-                              use_reentrant=False, preserve_rng_state=False)
-        else:
-            h, a = _body(h, lp, cfg, positions)
+        h, a = run(_body, h, lp, cfg, positions)
         aux = aux + a
     h = rms_norm(h, params["final_norm"])
     logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])

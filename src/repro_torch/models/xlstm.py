@@ -41,11 +41,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..kernels.slstm.slstm import slstm_fused, slstm_fused_bwd
-from .common import ModelConfig, dense_init, rms_norm
+from .common import ModelConfig, dense_init, remat_run, rms_norm
 
 NEG = -1e30
 
@@ -393,17 +392,13 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, states=None):
     Blocks are rematerialized in the backward when ``cfg.remat`` (training
     form, grad enabled; the blocks draw no random numbers)."""
     h = params["embed"][tokens].to(cfg.param_dtype())
-    remat = cfg.remat and states is None and torch.is_grad_enabled()
+    run = remat_run(cfg.remat and states is None)
     new_states = []
     for i, bp in enumerate(params["blocks"]):
         st = None if states is None else states[i]
         kind = "slstm" if "slstm" in bp else "mlstm"
         apply = slstm_block_apply if kind == "slstm" else mlstm_block_apply
-        if remat:
-            h, ns = checkpoint(apply, bp[kind], h, cfg, st,
-                               use_reentrant=False, preserve_rng_state=False)
-        else:
-            h, ns = apply(bp[kind], h, cfg, st)
+        h, ns = run(apply, bp[kind], h, cfg, st)
         new_states.append(ns)
     h = rms_norm(h, params["final_norm"])
     logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])

@@ -1926,3 +1926,92 @@ def test_train_build_trains_xlstm_on_card(cuda_device):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(met["loss"]))
     assert sl_kern.LAUNCHES["slstm_fused_bwd"] == 2 * len(cfg.slstm_at)
+
+
+NEW_FAMILIES = ("llava-next-34b", "zamba2-1.2b", "whisper-large-v3")
+
+
+def _family_batch(cfg, b, s, device):
+    """Tokens and the family's stub input (a 0.1·N image prefix or frame
+    embeddings), seeded, on ``device``."""
+    g = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=g)
+    batch = {"tokens": toks, "labels": toks, **lm_registry.stub_inputs(
+        cfg, (b,), "cpu", make=lambda shape: 0.1 * torch.randn(
+            shape, generator=g))}
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_reduced_family_gradients_through_flash_equal_the_plain_path(
+        cuda_device, arch):
+    """Each new family at its reduced config, f32 with TF32 off: the
+    loss's gradient with ``fused_attention`` (the flash forward-with-lse
+    and the two backward kernels; zamba2's shared block at both of its
+    application points, whisper's decoder self-attention) against the
+    plain attention path on the same card: loss within 1e-5, every leaf
+    within 1e-3 · max|leaf| and nonzero where the plain path's is."""
+    cfg = lm_configs.get_config(arch, reduced=True, tp=1)
+    host = lm_registry.build(cfg).init(torch.Generator().manual_seed(0),
+                                       "cpu")
+    batch = _family_batch(cfg, 2, 40, cuda_device)
+
+    def grads(fused):
+        model = lm_registry.build(dataclasses.replace(
+            cfg, fused_attention=fused))
+        leaves = [p.to(cuda_device).requires_grad_(True)
+                  for p in tree_leaves(host)]
+        with fp32_exact():
+            loss, _ = model.loss_fn(tree_unflatten(host, leaves), batch)
+            return loss.detach().cpu(), [
+                g.cpu() for g in torch.autograd.grad(loss, leaves)]
+
+    fa.reset_launch_counts()
+    loss, got = grads(True)
+    torch.cuda.synchronize()
+    apps = {"hybrid": 2, "encdec": cfg.n_layers}.get(cfg.family,
+                                                       cfg.n_layers)
+    assert fa.LAUNCHES["flash_attention_fwd"] == 2 * apps      # remat
+    assert fa.LAUNCHES["flash_attention_bwd_dq"] == apps
+    want_loss, want = grads(False)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    names = [p for p, _ in interop.tree_named_leaves(host)]
+    for name, a, w in zip(names, got, want):
+        scale = float(w.abs().max())
+        assert float((a - w).abs().max()) <= 1e-3 * scale, name
+        assert (scale == 0) == (float(a.abs().max()) == 0), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_serve_cli_serves_the_new_families_on_card(cuda_device, arch):
+    assert lm_serve.main(["--arch", arch, "--batch", "2", "--prompt-len",
+                          "24", "--gen", "4"]) == 0
+
+
+@pytest.mark.cuda
+def test_serve_cli_decodes_llava_at_the_prefix_shifted_positions_on_card(
+        cuda_device, monkeypatch):
+    """On the card, the CLI's llava decode steps run at img_tokens +
+    prompt_len + i in a cache of img_tokens + prompt_len + gen, and its
+    prefill launches the flash kernel once a layer."""
+    seen = {}
+    real = lm_serve.serve_session
+
+    def recording(cfg, batch, prompt_len, max_len, device="cuda", seed=0):
+        out = real(cfg, batch, prompt_len, max_len, device=device,
+                   seed=seed)
+        seen["max_len"], decode = max_len, out[4]
+
+        def dec(params, token, pos, state):
+            seen.setdefault("pos", []).append(pos)
+            return decode(params, token, pos, state)
+        return (*out[:4], dec)
+    monkeypatch.setattr(lm_serve, "serve_session", recording)
+    assert lm_serve.main(["--arch", "llava-next-34b", "--batch", "2",
+                          "--prompt-len", "24", "--gen", "3"]) == 0
+    cfg = lm_configs.get_config("llava-next-34b", reduced=True)
+    p0 = cfg.img_tokens + 24
+    assert seen == {"max_len": p0 + 3, "pos": [p0, p0 + 1, p0 + 2]}
+    assert fa.LAUNCHES["flash_attention"] == cfg.n_layers

@@ -19,9 +19,10 @@ card), keeping its `chaos` marker:
 
 Against the JAX package: an int8 fleet's streams (with a worker killed)
 equal the JAX `FleetRuntime`'s exactly; the report's fleet section
-renders as the reference's. `test_best_mesh_shapes_and_runtime_reexport`
-has no twin yet: `best_mesh` returns a JAX mesh, and the port's mesh type
-is chosen with the parallel layer (ROADMAP Queue 1 item 9).
+renders as the reference's. The twin of
+`test_best_mesh_shapes_and_runtime_reexport` is in
+tests/test_torch_elastic.py (`mesh_shape` against the reference's
+`best_mesh`, and `best_mesh` building `DeviceMesh`es over gloo ranks).
 """
 import jax
 import jax.numpy as jnp

@@ -260,11 +260,34 @@ def test_xlstm_training_and_moe_modules_import_without_jax(name):
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+FAMILY_MODULES = ("repro_torch.models.mamba2", "repro_torch.models.zamba2",
+                  "repro_torch.models.whisper",
+                  "repro_torch.configs.llava_next_34b",
+                  "repro_torch.configs.zamba2_1_2b",
+                  "repro_torch.configs.whisper_large_v3")
+
+
+@pytest.mark.parametrize("name", FAMILY_MODULES)
+def test_vlm_hybrid_and_encdec_modules_import_without_jax(name):
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({name!r})
+        bad = sorted(k for k in sys.modules
+                     if k == "jax" or k.startswith("jax.")
+                     or k == "repro" or k.startswith("repro."))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO_SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.mark.parametrize("path", [
     os.path.join(os.path.dirname(REPO_SRC), "chip_smoke.py"),
     *(os.path.join(REPO_SRC, "repro_torch", *m.split(".")[1:]) + ".py"
       for m in ADAPT_FLEET_MODULES + PARALLEL_MODULES + TRAIN_MOE_MODULES
-      if m.count(".") > 1)])
+      + FAMILY_MODULES if m.count(".") > 1)])
 def test_source_names_no_jax_or_reference_import(path):
     """Statically: neither chip_smoke.py nor the new modules import `jax`
     or `repro` (the subprocess checks above see only what one import
@@ -414,8 +437,15 @@ def _tiny_state():
                               str(tmp)]),
     lambda tmp: lm_serve.serve_session(
         lm_configs.get_config("moonshot-v1-16b-a3b", True, tp=1), 1, 4, 8),
+    *(lambda tmp, a=arch: lm_serve.main(["--arch", a, "--batch", "1",
+                                         "--prompt-len", "4", "--gen", "1"])
+      for arch in ("llava-next-34b", "zamba2-1.2b", "whisper-large-v3")),
+    *(lambda tmp, a=arch: lm_train.build(lm_configs.get_config(a, True),
+                                         3e-4, 1)
+      for arch in ("llava-next-34b", "zamba2-1.2b", "whisper-large-v3")),
 ], ids=["build", "main", "run", "lm_batches", "restore", "xlstm_build",
-        "xlstm_run", "moe_serve"])
+        "xlstm_run", "moe_serve", "vlm_serve", "hybrid_serve",
+        "encdec_serve", "vlm_build", "hybrid_build", "encdec_build"])
 def test_training_entry_points_raise_without_card(monkeypatch, tmp_path,
                                                   entry):
     _no_card(monkeypatch)

@@ -53,10 +53,12 @@ from repro_torch.models import transformer as ttr
 from repro_torch.parallel import sharding as tsharding
 
 KEY = jax.random.PRNGKey(0)
-PORTED = ("qwen3-0.6b", "smollm-135m", "internlm2-1.8b", "deepseek-7b",
-          "mixtral-8x22b", "moonshot-v1-16b-a3b", "xlstm-125m")
+PORTED = ("internlm2-1.8b", "deepseek-7b", "smollm-135m", "qwen3-0.6b",
+          "llava-next-34b", "mixtral-8x22b", "moonshot-v1-16b-a3b",
+          "zamba2-1.2b", "xlstm-125m", "whisper-large-v3")
 FAMILY = {"xlstm-125m": "ssm", "mixtral-8x22b": "moe",
-          "moonshot-v1-16b-a3b": "moe"}
+          "moonshot-v1-16b-a3b": "moe", "llava-next-34b": "vlm",
+          "zamba2-1.2b": "hybrid", "whisper-large-v3": "encdec"}
 F32_ATOL = 5e-6        # single ops at |y| ≲ 10: a few f32 ulps
 B, S, MAX_LEN, STEPS = 2, 24, 48, 4
 
@@ -115,25 +117,47 @@ def test_model_config_defaults_equal_reference():
 
 
 def test_archs_list_only_what_the_port_builds():
-    assert set(tconfigs.ARCHS) == set(PORTED) < set(jconfigs.ARCHS)
+    """`ARCHS` is the reference's ten, in its order, and every one builds
+    its family."""
+    assert tconfigs.ARCHS == jconfigs.ARCHS == PORTED
     assert tconfigs.SHAPES == {k: tconfigs.ShapeSpec(**dataclasses.asdict(v))
                                for k, v in jconfigs.SHAPES.items()}
     with pytest.raises(ValueError, match="unknown arch"):
-        tconfigs.get_config("zamba2-1.2b")
+        tconfigs.get_config("llava-next-35b")
     for arch in tconfigs.ARCHS:
         assert treg.build(tconfigs.get_config(arch, True)).cfg.family == (
             FAMILY.get(arch, "dense"))
-        assert tconfigs.ARCHS.index(arch) == sorted(
-            tconfigs.ARCHS, key=jconfigs.ARCHS.index).index(arch)
+    assert tconfigs.llava_next_34b.IMG_TOKENS == 2880 == (
+        tconfigs.get_config("llava-next-34b").img_tokens)
 
 
-@pytest.mark.parametrize("family,item", [("vlm", 1), ("hybrid", 2),
-                                         ("encdec", 3)],
+@pytest.mark.parametrize("arch", ["llava-next-34b", "zamba2-1.2b",
+                                  "whisper-large-v3"],
                          ids=["vlm", "hybrid", "encdec"])
-def test_unported_families_raise_naming_their_roadmap_item(family, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item {item}\\)"):
-        treg.build(tcommon.ModelConfig(family=family))
+def test_new_families_build_and_their_prefill_runs(arch):
+    """The three families the port refused until now build and serve a
+    prefill with the CLI's stub inputs; the VLM's prefix lands in the
+    cache ahead of the text."""
+    cfg = tconfigs.get_config(arch, reduced=True)
+    model = treg.build(cfg)
+    assert model.cfg.family == FAMILY[arch]
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 9),
+                         generator=torch.Generator().manual_seed(1))
+    max_len = tserve.prefix_len(cfg) + 16
+    batch = {"tokens": toks, **treg.stub_inputs(cfg, (2,), "cpu")}
+    logits, state = model.prefill(params, batch,
+                                  model.init_serve_state(2, max_len, "cpu"))
+    assert logits.shape == (2, cfg.vocab_padded)
+    assert bool(torch.isfinite(logits).all())
+    if cfg.family == "vlm":
+        assert state["k"].shape[2] == cfg.img_tokens + 16
+        assert bool(state["k"][:, :, cfg.img_tokens + 8].any())
+
+
+def test_unknown_family_raises_value_error():
+    with pytest.raises(ValueError, match="unknown family"):
+        treg.build(tcommon.ModelConfig(family="diffusion"))
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "moonshot-v1-16b-a3b"])
@@ -445,3 +469,220 @@ def test_serve_session_builds_seeded_weights_and_caches():
     nxt, logits, st = a[4](a[1], logits.argmax(-1)[:, None], 8, st)
     assert nxt.shape == (2, 1) and nxt.dtype == torch.int32
     assert bool(torch.isfinite(logits).all())
+
+
+# ---------------------------------------------------------------------------
+# the VLM family (llava-reduced): a prefix-LM on the same transformer
+# ---------------------------------------------------------------------------
+
+VLM = "llava-next-34b"
+
+
+def _vlm_inputs():
+    """Tokens (B, S + STEPS) and an image prefix (B, img_tokens, d) ~
+    0.1·N (the reference's tests/test_models.py recipe, drawn by numpy)."""
+    cfg = jconfigs.get_config(VLM, True)
+    toks = _tokens(cfg.vocab)
+    prefix = (0.1 * np.random.default_rng(11).standard_normal(
+        (B, cfg.img_tokens, cfg.d_model))).astype(np.float32)
+    return toks, prefix
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_vlm_prefill_and_prefix_shifted_decode_match_reference(fused):
+    """Prefill of the image prefix + S text tokens, then STEPS
+    teacher-forced decode steps at the GLOBAL positions img_tokens + S + i
+    (the prefix shifts the text): logits at the LM bound, and the caches
+    after the prefill."""
+    jm, jp, tm, tp = _both(VLM, fused)
+    toks, prefix = _vlm_inputs()
+    p0 = jm.cfg.img_tokens + S
+    jl, jst = jax.jit(jm.prefill)(
+        jp, {"tokens": jnp.asarray(toks[:, :S], jnp.int32),
+             "embed_prefix": jnp.asarray(prefix)},
+        jm.init_serve_state(B, p0 + STEPS))
+    tl, tst = tm.prefill(tp, {"tokens": _t(toks[:, :S]),
+                              "embed_prefix": _t(prefix)},
+                         tm.init_serve_state(B, p0 + STEPS, "cpu"))
+    _close(tl, jl, "prefill logits")
+    _close(tst["k"], jst["k"], "cache k")
+    _close(tst["v"], jst["v"], "cache v")
+    jdecode = jax.jit(jm.decode)
+    for i in range(STEPS):
+        tok = np.asarray(jnp.argmax(jl, axis=-1), np.int64)[:, None]
+        jl, jst = jdecode(jp, jnp.asarray(tok, jnp.int32),
+                          jnp.asarray(p0 + i, jnp.int32), jst)
+        tl, tst = tm.decode(tp, _t(tok), p0 + i, tst)
+        _close(tl, jl, f"decode step {i} (position {p0 + i})")
+
+
+def test_vlm_prefix_changes_text_logits():
+    """The port's twin of the reference's test of the same name: doubling
+    the prefix moves the text logits."""
+    cfg = tconfigs.get_config(VLM, True)
+    params = ttr.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks, prefix = map(_t, _vlm_inputs())
+    lg1, _ = ttr.forward(params, toks[:1, :16], cfg,
+                         embed_prefix=prefix[:1])
+    lg2, _ = ttr.forward(params, toks[:1, :16], cfg,
+                         embed_prefix=2.0 * prefix[:1])
+    assert lg1.shape[1] == cfg.img_tokens + 16
+    assert float((lg1 - lg2).abs().max()) > 1e-6
+
+
+@pytest.fixture(scope="module")
+def vlm_jax_loss_and_grads():
+    """jax.value_and_grad of the reference's reduced llava loss (text
+    positions only), computed once a module."""
+    jm = jreg.build(jconfigs.get_config(VLM, True))
+    toks, prefix = _vlm_inputs()
+    t = jnp.asarray(toks, jnp.int32)
+    (loss, _), grads = jax.jit(jax.value_and_grad(jm.loss_fn,
+                                                  has_aux=True))(
+        jax.tree.map(jnp.asarray, _jax_params(VLM)),
+        {"tokens": t, "labels": t, "embed_prefix": jnp.asarray(prefix)})
+    return float(loss), _tree_np(grads)
+
+
+def test_vlm_loss_and_every_gradient_match_jax_grad(vlm_jax_loss_and_grads):
+    """The loss on the text positions (rtol 1e-5) and every leaf's
+    gradient within 1e-3 · max|leaf| of jax.grad."""
+    from repro_torch.interop import tree_leaves, tree_unflatten
+    jloss, jgrads = vlm_jax_loss_and_grads
+    tm = treg.build(tconfigs.get_config(VLM, True))
+    params = interop.to_torch(_jax_params(VLM), "cpu")
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    toks, prefix = map(_t, _vlm_inputs())
+    loss, _ = tm.loss_fn(tree_unflatten(params, leaves),
+                         {"tokens": toks, "labels": toks,
+                          "embed_prefix": prefix})
+    grads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(float(loss), jloss, rtol=1e-5)
+    g = _paths(tree_unflatten(params, list(grads)))
+    w = _paths(jgrads)
+    assert g.keys() == w.keys()
+    for path in w:
+        want = np.asarray(w[path], np.float32)
+        assert tuple(g[path].shape) == want.shape, path
+        np.testing.assert_allclose(g[path].numpy(), want, rtol=1e-3,
+                                   atol=1e-3 * float(np.abs(want).max()),
+                                   err_msg=path)
+
+
+VLM_MOMENT_TOL = 5e-3
+
+
+def test_vlm_three_train_steps_match_reference_jitted_step():
+    """Three steps of `launch.steps.build_train_step` (accum 2, AdamW with
+    grad_clip_norm 1.0, an image prefix in every micro-batch) from
+    carried-over params and optimizer state after one reference step:
+    loss at rtol 1e-5 and params at the LM bound, as for qwen3; both Adam
+    moments within VLM_MOMENT_TOL · max|leaf|. llava-reduced has one KV
+    head, so `dense_init` draws wk with fan_in 1 and |k| reaches ~10: a
+    near one-hot softmax (smollm's case in tests/test_torch_lm_train.py),
+    whose gradient f32 resolves only to a few 1e-4 of max|leaf| in either
+    package (one gradient of `test_vlm_loss_and_every_gradient_match_jax_
+    grad`'s batch: port 2.9e-4, JAX 1.4e-4 from a float64 run of the port).
+    After three steps the moments differ from JAX's by up to 3.1e-3 ·
+    max|leaf| (mu of embed), the port's f32 run from its float64 run by
+    3.2e-3 and JAX's by 6.3e-4, while the params agree to 4e-5."""
+    from repro.launch import steps as jsteps
+    from repro.optim import AdamW as JAdamW
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.optim import AdamW
+    steps, lr = 3, 3e-4
+    jm = jreg.build(jconfigs.get_config(VLM, True))
+    jopt = JAdamW(lr=lr, grad_clip_norm=1.0)
+    jstep = jax.jit(jsteps.build_train_step(jm, jopt))
+    jp = jax.tree.map(jnp.asarray, _jax_params(VLM))
+    jo = jopt.init(jp)
+    data = np.asarray(jax.random.randint(jax.random.PRNGKey(3),
+                                         (steps + 1, 2, 2, 12), 0,
+                                         jm.cfg.vocab), np.int32)
+    prefix = (0.1 * np.random.default_rng(4).standard_normal(
+        (steps + 1, 2, 2, jm.cfg.img_tokens, jm.cfg.d_model))).astype(
+            np.float32)
+
+    def jb(i):
+        return {"tokens": jnp.asarray(data[i]), "labels": jnp.asarray(
+            data[i]), "embed_prefix": jnp.asarray(prefix[i])}
+    jp, jo, _ = jstep(jp, jo, jb(0))
+    params = interop.to_torch(_tree_np(jp), "cpu")
+    opt_state = interop.adam_state_to_torch(_tree_np(jo), "cpu")
+    tstep = tsteps.build_train_step(
+        treg.build(tconfigs.get_config(VLM, True)),
+        AdamW(lr=lr, grad_clip_norm=1.0))
+    for i in range(1, steps + 1):
+        jp, jo, jmet = jstep(jp, jo, jb(i))
+        tb = _t(data[i]).long()
+        params, opt_state, met = tstep(params, opt_state, {
+            "tokens": tb, "labels": tb, "embed_prefix": _t(prefix[i])})
+        np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]),
+                                   rtol=1e-5)
+    for what, got, want in (("params", params, jp),
+                            ("mu", opt_state.mu, jo.mu),
+                            ("nu", opt_state.nu, jo.nu)):
+        got, want = _paths(got), _paths(_tree_np(want))
+        assert got.keys() == want.keys()
+        for path in want:
+            if what == "params":
+                _close(got[path], want[path], f"{what} {path}")
+                continue
+            w = np.asarray(want[path], np.float32)
+            np.testing.assert_allclose(
+                got[path].float().numpy(), w, rtol=VLM_MOMENT_TOL,
+                atol=VLM_MOMENT_TOL * float(np.abs(w).max()),
+                err_msg=f"{what} {path}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vlm_lm_batches_carry_the_reference_tokens_and_zero_prefix(dtype):
+    from jax.sharding import PartitionSpec as P
+    from repro.data.pipeline import PipelineConfig as JPipelineConfig
+    from repro.data.pipeline import lm_batches as jlm_batches
+    from repro.launch.mesh import make_mesh
+    from repro_torch.data import PipelineConfig, lm_batches
+    tcfg = tconfigs.get_config(VLM, True, dtype=dtype)
+    pipe = PipelineConfig(seq_len=16, global_batch=6, accum=2, seed=4)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    spec = {"tokens": P(None, ("data",), None),
+            "embed_prefix": P(None, ("data",), None, None)}
+    jit_ = jlm_batches(JPipelineConfig(**dataclasses.asdict(pipe)),
+                       jconfigs.get_config(VLM, True, dtype=dtype), mesh,
+                       spec, start_step=1)
+    it = lm_batches(pipe, tcfg, "cpu", start_step=1)
+    for _ in range(2):
+        want, got = next(jit_), next(it)
+        assert set(got) == set(want) == {"tokens", "labels",
+                                         "embed_prefix"}
+        np.testing.assert_array_equal(got["tokens"].numpy(),
+                                      np.asarray(want["tokens"]))
+        e = got["embed_prefix"]
+        assert e.shape == (2, 3, tcfg.img_tokens, tcfg.d_model) == \
+            want["embed_prefix"].shape
+        assert e.dtype == tcfg.param_dtype() and not bool(e.any())
+
+
+def test_vlm_serve_main_decodes_at_the_prefix_shifted_positions(
+        monkeypatch):
+    """The serving CLI sizes a VLM's cache img_tokens + prompt_len + gen
+    and decodes step i at img_tokens + prompt_len + i (the reference's
+    CLI decodes at prompt_len + i: see launch/serve.py)."""
+    seen = {}
+    real = tserve.serve_session
+
+    def recording(cfg, batch, prompt_len, max_len, device="cuda", seed=0):
+        model, params, state, prefill, decode = real(
+            cfg, batch, prompt_len, max_len, device=device, seed=seed)
+        seen["max_len"] = max_len
+
+        def dec(params, token, pos, state):
+            seen.setdefault("pos", []).append(pos)
+            return decode(params, token, pos, state)
+        return model, params, state, prefill, dec
+    monkeypatch.setattr(tserve, "serve_session", recording)
+    assert tserve.main(["--arch", VLM, "--batch", "2", "--prompt-len", "12",
+                        "--gen", "3", "--device", "cpu"]) == 0
+    img = tconfigs.get_config(VLM, True).img_tokens
+    assert seen == {"max_len": img + 12 + 3,
+                    "pos": [img + 12, img + 13, img + 14]}
