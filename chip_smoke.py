@@ -11,7 +11,9 @@ result line), in the order they run:
      flash_attn_bwd, slstm, slstm_bwd) for sm_90a; prints the -Xptxas -v
      register / shared-memory / spill lines of every kernel instance (the
      sLSTM source's: the cluster kernel's twelve, the stream kernel's
-     four; the sLSTM backward's two), and
+     four; the sLSTM backward's: the cluster kernel's twelve, all
+     present and their registers and spills printed, and the stream
+     kernel's two), and
      the registers and spills of the three register-blocked cnn_eq
      instances (`cnn_eq_kernel_rb`, fp32, bf16 and int8 at the plan's P),
      the three register-blocked conv1d instances (`conv1d_kernel_rb`, the
@@ -318,17 +320,21 @@ result line), in the order they run:
      steps; every loss finite and the last no higher than the first; per
      step exactly 8 slstm_fused launches (the cluster kernel, twice per
      sLSTM block and micro-batch under remat) and 4 slstm_fused_bwd
-     launches (`INSTANCE_LAUNCHES` "bwd_stream"); prints ms per step,
+     launches, all the cluster backward (`INSTANCE_LAUNCHES`
+     "bwd_cluster"; none "bwd_stream"); prints ms per step,
      tokens/s, peak memory, the losses and one profiled step's idle
      share. Then on block 3's trained inputs (a fresh micro-batch; bf16 xg
-     and r) the backward kernel against `ref.slstm_fused_bwd` (f32, TF32
-     off) and its float64 run: each output within max(1e-4 · max(1,
-     |x|), 4 × the plain version's own float64 distance), two launches
-     bitwise; the block's slstm_r and slstm_w gradients in f32 through the
-     kernel path (`models.xlstm.slstm_scan`) against autograd through the
-     plain loop, nonzero and within 1e-3 · max|leaf|; and the backward's
-     call and device time, the plain loop's time and the bound from
-     `slstm_bwd_costs`;
+     and r) the backward's planned kernel (the cluster kernel, its plan
+     held to the library's `slstm_bwd_plan`) and the stream kernel forced,
+     each against `ref.slstm_fused_bwd` (f32, TF32 off) and its float64
+     run: each output within max(1e-4 · max(1, |x|), 4 × the plain
+     version's own float64 distance), two launches of each bitwise; the
+     block's slstm_r and slstm_w gradients in f32 through the kernel path
+     (`models.xlstm.slstm_scan`) against autograd through the plain loop,
+     nonzero and within 1e-3 · max|leaf|; and the backward's call and
+     device time, µs a step, Q and RB, beside the stream kernel's forced
+     on the same inputs in the same call, the plain loop's time and the
+     bound from `slstm_bwd_costs`;
   8v. VLM serving: `serve_session` builds llava-next-34b at full width
      (d_model 7168, 56 heads of 128 over 8 KV heads, d_ff 20480, vocab
      64000, bf16, fused_attention, tp = 1) with its depth cut to 8 of 60
@@ -384,7 +390,9 @@ three cnn_eq rows also carry their launches on each path, `path_launches`:
 [4], [11], [12], [13], [14], [15] and [16], the last summed over ranks;
 the flash forward's row its launches in the [8], [8v], [8h] and [8w]
 prefills and its head-dim-64 readings, the training kernels' rows their
-launches over [9]'s and [9h]'s timed steps);
+launches over [9]'s and [9h]'s timed steps; the sLSTM backward's row the
+cluster kernel's Q, RB, registers and µs a step beside the stream
+kernel's times forced in the same call);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -458,6 +466,7 @@ from repro_torch.kernels.volterra import ref as V_ref  # noqa: E402
 from repro_torch.kernels.volterra import sweep as V_sweep  # noqa: E402
 from repro_torch.kernels.slstm import ref as SL_ref  # noqa: E402
 from repro_torch.kernels.slstm import slstm as SL  # noqa: E402
+from repro_torch.kernels.slstm import sweep as SL_sweep  # noqa: E402
 from repro_torch.kernels.volterra import volterra as V  # noqa: E402
 from repro_torch.interop import (tree_leaves,  # noqa: E402
                                  tree_named_leaves, tree_unflatten)
@@ -2296,10 +2305,13 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+# the port's kernels by name prefix (a kind in `device_trace` is a kernel's
+# whole name up to its arguments, template arguments included)
 KERNEL_NAMES = ("cnn_eq_kernel", "volterra_kernel", "quant_kernel",
                 "quant_many_kernel",
                 "conv1d_kernel", "flash_attn_kernel", "flash_bwd_dkv_kernel",
-                "flash_bwd_dq_kernel", "slstm_kernel", "slstm_bwd_kernel")
+                "flash_bwd_dq_kernel", "slstm_kernel", "slstm_bwd_kernel",
+                "slstm_bwd_kernel_cluster")
 
 
 def device_trace(fn, warmup=None) -> dict:
@@ -2688,9 +2700,11 @@ def _bound(n_bytes: float, flops: float) -> tuple:
 
 def _device_ms(fn, name: str, calls: int = 20, warm: bool = False):
     """Mean device ms of the kernels whose name starts with ``name`` over
-    ``calls`` calls of fn; with ``warm``, one call runs first in the
-    profiler's warm-up step (a session that follows another may miss its
-    first kernel events, which a 3-call session cannot spare)."""
+    ``calls`` calls of fn (end ``name`` with "<" to take one template's
+    instances only: "slstm_bwd_kernel<" is the stream backward, not
+    "slstm_bwd_kernel_cluster<…>"); with ``warm``, one call runs first in
+    the profiler's warm-up step (a session that follows another may miss
+    its first kernel events, which a 3-call session cannot spare)."""
     prof = device_trace(lambda: [fn() for _ in range(calls)],
                         warmup=fn if warm else None)
     ms = [v["mean_ms"] for k, v in prof["by_kind_ms"].items()
@@ -3491,7 +3505,7 @@ def serve_xlstm(dev) -> dict:
             f"prefill launched slstm_fused {prefill_launches} times, "
             f"expected {n_slstm} (one per sLSTM block)")
     require(SL.INSTANCE_LAUNCHES == {"cluster": n_slstm, "stream": 0,
-                                     "bwd_stream": 0},
+                                     "bwd_cluster": 0, "bwd_stream": 0},
             f"prefill ran {SL.INSTANCE_LAUNCHES}, expected only the "
             f"cluster kernel")
     require(all(n == 0 for n in FA.LAUNCHES.values()),
@@ -3512,7 +3526,8 @@ def serve_xlstm(dev) -> dict:
             f"decode launched slstm_fused {decode_launches} times, expected "
             f"{n_slstm * LM_GEN} ({n_slstm} per step)")
     require(SL.INSTANCE_LAUNCHES == {"cluster": n_slstm * LM_GEN,
-                                     "stream": 0, "bwd_stream": 0},
+                                     "stream": 0, "bwd_cluster": 0,
+                                     "bwd_stream": 0},
             f"decode ran {SL.INSTANCE_LAUNCHES}, expected only the cluster "
             f"kernel")
     require(all(n == 0 for n in FA.LAUNCHES.values()),
@@ -3839,7 +3854,7 @@ def train_xlstm(dev) -> dict:
     want = {"slstm_fused": 2 * n * LM_TRAIN_ACCUM,
             "slstm_fused_bwd": n * LM_TRAIN_ACCUM}
     want_inst = {"cluster": want["slstm_fused"], "stream": 0,
-                 "bwd_stream": want["slstm_fused_bwd"]}
+                 "bwd_cluster": want["slstm_fused_bwd"], "bwd_stream": 0}
     SL.reset_launch_counts()
     step_ms = []
     for i in range(XL_TRAIN_STEPS):
@@ -3904,45 +3919,65 @@ def train_block3(run: dict, seed: int = 23):
 
 
 def check_slstm_bwd(dev, xg, p, h, cell0, nh: int) -> dict:
-    """[9x]: the backward kernel against `ref.slstm_fused_bwd` (f32, TF32
-    off) and a float64 run of it, on block 3's trained xg (bf16) and r
-    (bf16) with a seeded cotangent; two launches bitwise; then slstm_r's
-    and slstm_w's gradients through the block in f32, the kernel path
-    (`models.xlstm.slstm_scan`) against autograd through the plain loop."""
+    """[9x]: the backward's planned kernel (the cluster kernel, the plan
+    held to the library's) and the stream kernel forced, each against
+    `ref.slstm_fused_bwd` (f32, TF32 off) and a float64 run of it, on block
+    3's trained xg (bf16) and r (bf16) with a seeded cotangent; two
+    launches of each bitwise; then slstm_r's and slstm_w's gradients
+    through the block in f32, the kernel path (`models.xlstm.slstm_scan`)
+    against autograd through the plain loop."""
     gen = torch.Generator(device=dev).manual_seed(29)
     r = p["slstm_r"]
     b, s, d4 = xg.shape
+    dh = d4 // (4 * nh)
+    plan = SL._plan_bwd(b, nh, dh)
+    require(plan.instance == "bwd_cluster" and plan == SL._lib_plan_bwd(
+        SL._lib_bwd(), b, nh, dh), f"slstm_fused_bwd plan {plan}")
     dhs = torch.randn((b, s, d4 // 4), generator=gen, device=dev)
     zero = tuple(torch.zeros_like(t) for t in cell0)
+    runs = {"cluster": lambda: SL.slstm_fused_bwd(xg, r, cell0, nh, hs, dhs,
+                                                  zero),
+            "stream": lambda: SL._forced_bwd("stream", xg, r, cell0, nh, hs,
+                                             dhs, zero)}
     with torch.no_grad(), fp32_exact():
         hs, _ = SL.slstm_fused(xg, r, cell0, nh)
-        got = SL.slstm_fused_bwd(xg, r, cell0, nh, hs, dhs, zero)
-        again = SL.slstm_fused_bwd(xg, r, cell0, nh, hs, dhs, zero)
+        before = dict(SL.INSTANCE_LAUNCHES)
+        got = {k: (f(), f()) for k, f in runs.items()}
         want = SL_ref.slstm_fused_bwd(xg, r, cell0, nh, hs, dhs, zero)
         truth = SL_ref.slstm_fused_bwd(xg, r, cell0, nh, hs, dhs, zero,
                                        dtype=torch.float64)
     torch.cuda.synchronize()
-    require(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
-            and all(torch.equal(a, c) for a, c in zip(got[2], again[2])),
-            "slstm_fused_bwd: two launches differ")
-    out = {"repeat": "bitwise"}
+    require(SL.INSTANCE_LAUNCHES["bwd_cluster"] == before["bwd_cluster"] + 2
+            and SL.INSTANCE_LAUNCHES["bwd_stream"] == before["bwd_stream"]
+            + 2, f"slstm_fused_bwd ran {SL.INSTANCE_LAUNCHES}, expected "
+            f"two launches of each kernel")
+    out = {"plan": plan._asdict(), "repeat": "bitwise"}
     names = ("dxg", "dr", "dc0", "dn0", "dh0", "dm0")
-    for name, g, w, t in zip(names, (got[0], got[1], *got[2]),
-                             (want[0].to(xg.dtype), want[1].to(r.dtype),
-                              *want[2]), (truth[0], truth[1], *truth[2])):
-        g, w = g.double(), w.double()
-        require(bool(torch.isfinite(g).all()),
-                f"slstm_fused_bwd: {name} not finite")
-        kp = float((g - w).abs().max())
-        p64 = float((w - t).abs().max())
-        mag = float(t.abs().max())
-        bound = max(SLSTM_ATOL * max(1.0, mag), SLSTM_ENVELOPE * p64)
-        require(kp <= bound, f"slstm_fused_bwd block 3: {name} kernel vs "
-                f"plain {kp:.3e} > {bound:.3e} (plain vs float64 "
-                f"{p64:.3e}, max |x| {mag:.3e})")
-        out[name] = {"kernel_vs_plain": kp, "plain_vs_f64": p64,
-                     "kernel_vs_f64": float((g - t).abs().max()),
-                     "max_abs": mag, "bound": bound}
+    for kind, (one, again) in got.items():
+        require(all(torch.equal(a, c) for a, c in zip(
+            (one[0], one[1], *one[2]), (again[0], again[1], *again[2]))),
+            f"slstm_fused_bwd ({kind}): two launches differ")
+        for name, g, w, t in zip(names, (one[0], one[1], *one[2]),
+                                 (want[0].to(xg.dtype), want[1].to(r.dtype),
+                                  *want[2]),
+                                 (truth[0], truth[1], *truth[2])):
+            g, w = g.double(), w.double()
+            require(bool(torch.isfinite(g).all()),
+                    f"slstm_fused_bwd ({kind}): {name} not finite")
+            kp = float((g - w).abs().max())
+            p64 = float((w - t).abs().max())
+            mag = float(t.abs().max())
+            bound = max(SLSTM_ATOL * max(1.0, mag), SLSTM_ENVELOPE * p64)
+            require(kp <= bound, f"slstm_fused_bwd ({kind}) block 3: {name}"
+                    f" kernel vs plain {kp:.3e} > {bound:.3e} (plain vs "
+                    f"float64 {p64:.3e}, max |x| {mag:.3e})")
+            row = {"kernel_vs_plain": kp, "plain_vs_f64": p64,
+                   "kernel_vs_f64": float((g - t).abs().max()),
+                   "max_abs": mag, "bound": bound}
+            if kind == "cluster":
+                out[name] = row
+            else:
+                out.setdefault("stream", {})[name] = row
     # the block's slstm_r / slstm_w gradients: the kernel path (f32)
     # against autograd through the plain loop, in f32 and in float64, over
     # the whole sequence and over its first XL_GRAD_PREFIX steps
@@ -3995,8 +4030,10 @@ def check_slstm_bwd(dev, xg, p, h, cell0, nh: int) -> dict:
 def time_slstm_bwd(xg, r, cell0, nh: int, iters: int) -> dict:
     """[9x]: the backward's call time (CUDA events: the pre recompute, the
     kernel, dr's einsum) and device time (profiler) on block 3's trained
-    inputs, the plain reverse loop's time, and the bound from
-    `slstm_bwd_costs`. No single PyTorch call computes it."""
+    inputs, through the plan (the cluster kernel) and with the stream
+    kernel forced, in turns (cluster, stream, stream, cluster); the plain
+    reverse loop's time, and the bound from `slstm_bwd_costs`. No single
+    PyTorch call computes it."""
     b, s, d4 = xg.shape
     dh = d4 // (4 * nh)
     gen = torch.Generator(device=xg.device).manual_seed(31)
@@ -4008,15 +4045,30 @@ def time_slstm_bwd(xg, r, cell0, nh: int, iters: int) -> dict:
     t_ops = costs["flops"] / PEAK_OPS_S["fp32"]
     t_bytes = costs["bytes"] / HBM_BYTES_S
 
+    plan = SL._plan_bwd(b, nh, dh)
+
     def kern():
         return SL.slstm_fused_bwd(xg, r, cell0, nh, hs, dhs, zero)
+
+    def stream():
+        return SL._forced_bwd("stream", xg, r, cell0, nh, hs, dhs, zero)
     with torch.no_grad(), fp32_exact():
         t_k = cuda_ms(kern, iters, warmup=2)
+        t_s = cuda_ms(stream, max(1, iters // 3), warmup=1)
+        t_s2 = cuda_ms(stream, max(1, iters // 3), warmup=0)
+        t_k2 = cuda_ms(kern, iters, warmup=0)
         t_p = cuda_ms(lambda: SL_ref.slstm_fused_bwd(
             xg, r, cell0, nh, hs, dhs, zero), 1, warmup=1)
-    dev_ms = _device_ms(kern, "slstm_bwd_kernel", calls=3, warm=True)
-    return {"ms": t_k, "plain_ms": t_p, "device_ms": dev_ms,
+        dev_ms = _device_ms(kern, "slstm_bwd_kernel_cluster<", calls=3,
+                            warm=True)
+        s_dev = _device_ms(stream, "slstm_bwd_kernel<", calls=3, warm=True)
+    return {"ms": t_k, "ms_repeat": t_k2, "plain_ms": t_p,
+            "device_ms": dev_ms, "instance": plan.instance, "q": plan.q,
+            "rb": plan.rb,
             "us_per_step": None if dev_ms is None else dev_ms * 1e3 / s,
+            "stream_ms": t_s, "stream_ms_repeat": t_s2,
+            "stream_device_ms": s_dev,
+            "stream_us_per_step": None if s_dev is None else s_dev * 1e3 / s,
             "library_ms": None, "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": costs["flops"], "bytes": costs["bytes"],
@@ -4805,10 +4857,14 @@ def main() -> int:
     require(len(v_ptxas) == 3 and all(
         v.get("spill_bytes") == 0 for v in v_ptxas.values()),
         f"volterra_kernel_rb instances spill or are missing: {v_ptxas}")
+    bwd_ptxas = SL_sweep.ptxas_bwd(logs[SL.CSRC_BWD])
+    require(len(bwd_ptxas) == 12, f"slstm_bwd_kernel_cluster instances "
+            f"missing: {bwd_ptxas}")
     print(f"[2] cnn_eq_kernel_rb registers and spill bytes: "
           f"{json.dumps(rb_ptxas)}; conv1d_kernel_rb: "
           f"{json.dumps(c1_ptxas)}; volterra_kernel_rb: "
-          f"{json.dumps(v_ptxas)}", flush=True)
+          f"{json.dumps(v_ptxas)}; slstm_bwd_kernel_cluster: "
+          f"{json.dumps(bwd_ptxas)}", flush=True)
 
     inputs = kernel_inputs(dev, ROWS, SYMS)
     K.reset_launch_counts()
@@ -5371,8 +5427,14 @@ def main() -> int:
         "bound_ms": btimes["bound_ms"], "bound_by": btimes["bound_by"],
         "library_ms": btimes["library_ms"],
         "device_ms": btimes["device_ms"], "library": btimes["library"],
-        "us_per_step": btimes["us_per_step"], "shape": btimes["shape"],
-        "card": card})
+        "instance": btimes["instance"], "q": btimes["q"],
+        "rb": btimes["rb"], "us_per_step": btimes["us_per_step"],
+        "registers": bwd_ptxas.get("bf16 RB=1 KB=24", {}),
+        "stream_ms": btimes["stream_ms"],
+        "stream_device_ms": btimes["stream_device_ms"],
+        "stream_us_per_step": btimes["stream_us_per_step"],
+        "stream_max_abs_err": bchecks["stream"]["dxg"]["kernel_vs_plain"],
+        "shape": btimes["shape"], "card": card})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

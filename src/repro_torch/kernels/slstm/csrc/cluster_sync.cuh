@@ -1,5 +1,7 @@
-// PTX for the sLSTM cluster kernel's h exchange (sm_90): the cluster
-// barrier's two halves, and mbarrier-counted stores into peer CTAs.
+// PTX for the sLSTM cluster kernels' exchanges (sm_90): the cluster
+// barrier's two halves, and mbarrier-counted stores into peer CTAs (h in
+// the forward, one float each; the four gates' dpre in the backward, one
+// 16-byte vector each).
 #pragma once
 
 __device__ __forceinline__ void cluster_arrive() {
@@ -50,4 +52,15 @@ __device__ __forceinline__ void st_async_f32(unsigned addr, float v,
   asm volatile(
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
       "[%2];" :: "r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+// v (16 bytes, addr 16-byte aligned) into a peer's shared memory, counted
+// on the peer's barrier
+__device__ __forceinline__ void st_async_v4(unsigned addr, float4 v,
+                                            unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];"
+      :: "r"(addr), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+         "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
+      : "memory");
 }

@@ -27,13 +27,21 @@ reach: training goes through `models.xlstm.slstm_scan`, a
 
 The backward. `slstm_fused_bwd` recomputes the gate pre-activations from
 hs by one batched product (`ref.recompute`) and hands them, with R
-transposed, to a second source (csrc/slstm_bwd.cu, `slstm_bwd_kernel`:
-one block per (head, batch row), the whole reverse sequence in one
-launch), which also recomputes c, n, m into a scratch buffer; dr is one
-einsum over h_{t−1} and the kernel's dpre. On a CPU tensor it runs
-`ref.slstm_fused_bwd`. It takes f32 or bf16 xg and r, returns dxg in xg's
-type and dr in r's (the rounding autograd gives a cast), and refuses what
-`slstm_fused` refuses.
+transposed, to a second source (csrc/slstm_bwd.cu), which runs the whole
+reverse sequence in one launch and also recomputes c, n, m into a scratch
+buffer; dr is one einsum over h_{t−1} and the kernel's dpre. Its plan
+(`_plan_bwd`, which the source's `bwd_plan` mirrors) takes, by shape alone:
+- `slstm_bwd_kernel_cluster` for dh ≤ 256 (the trained xlstm shapes among
+  them): the forward's cluster layout transposed, a cluster of Q CTAs per
+  head and group of RB rows, each lane holding its slice of R in
+  registers for the whole launch, the four gates' dpre of each step
+  handed to every peer with st.async counted on the peer's mbarrier;
+- `slstm_bwd_kernel`, the stream kernel, for the rest: one block per
+  (head, batch row), R read from device memory every step.
+A failed launch raises; neither falls back to the other or to the plain
+loop. On a CPU tensor it runs `ref.slstm_fused_bwd`. It takes f32 or bf16
+xg and r, returns dxg in xg's type and dr in r's (the rounding autograd
+gives a cast), and refuses what `slstm_fused` refuses.
 
 What it takes: xg (B, S, 4·d) f32 or bf16 with unit stride along 4·d; r
 (4, nh, dh, dh) f32 or bf16, contiguous, with d = nh·dh; the state (c, n,
@@ -42,7 +50,7 @@ Anything else raises, on either device.
 
 `LAUNCHES` counts kernel launches ("slstm_fused", "slstm_fused_bwd") and
 `INSTANCE_LAUNCHES` the launches of each kernel ("cluster", "stream",
-"bwd_stream"; all bumped only where a kernel is launched);
+"bwd_cluster", "bwd_stream"; all bumped only where a kernel is launched);
 `reset_launch_counts` zeroes both. `slstm_costs` and `slstm_bwd_costs`
 give the bytes and operations of one call for the bound.
 """
@@ -74,7 +82,7 @@ _CL_GPCS, _CL_GPC_SMS = 8, 14     # H100 SXM: GPCs, and the fewest SMs of one
 
 LAUNCHES: Dict[str, int] = {"slstm_fused": 0, "slstm_fused_bwd": 0}
 INSTANCE_LAUNCHES: Dict[str, int] = {"cluster": 0, "stream": 0,
-                                     "bwd_stream": 0}
+                                     "bwd_cluster": 0, "bwd_stream": 0}
 
 
 def reset_launch_counts() -> None:
@@ -85,9 +93,10 @@ def reset_launch_counts() -> None:
 
 
 class Plan(NamedTuple):
-    """How a shape runs: `instance` "cluster" or "stream"; for the cluster
-    kernel the cluster size `q` and the batch rows a CTA `rb` (0 for
-    stream); `smem` the dynamic shared memory of a block in bytes."""
+    """How a shape runs: `instance` "cluster" or "stream" (the backward's
+    "bwd_cluster" or "bwd_stream"); for a cluster kernel the cluster size
+    `q` and the batch rows a CTA `rb` (0 for stream); `smem` the dynamic
+    shared memory of a block in bytes."""
     instance: str
     q: int
     rb: int
@@ -134,6 +143,31 @@ def _plan(b: int, nh: int, dh: int) -> Plan:
     return Plan("stream", 0, 0, 8 * dh * 4)
 
 
+def _layout_bwd(dh: int, q: int, rb: int) -> Tuple[int, int, int]:
+    """The backward cluster kernel's (threads, shared-memory bytes, e a
+    lane) at head dim dh, cluster size q and rb rows a CTA
+    (csrc/slstm_bwd.cu's `bwd_layout`): the forward's warps and lanes with
+    k and e swapped, a warp per two rows k, eight lanes a gate each summing
+    an e-block of kp (a multiple of 4); two mbarriers, then two dpre
+    buffers of rb rows, each row eight e-blocks of kp columns' four gates
+    at a stride ≡ 4 (mod 32) floats."""
+    threads, _, kp = _layout(dh, q, rb)
+    eb = 4 * kp + (4 - 4 * kp) % 32
+    return threads, 16 + 4 * 2 * rb * 8 * eb, kp
+
+
+def _plan_bwd(b: int, nh: int, dh: int) -> Plan:
+    """The backward's kernel and geometry for xg (b, S, 4·nh·dh)
+    (csrc/slstm_bwd.cu's `bwd_plan`, which slstm_bwd_launch runs): the
+    cluster kernel for dh ≤ 256 with the forward's Q and RB, the stream
+    kernel everywhere else."""
+    fwd = _plan(b, nh, dh)
+    if fwd.instance == "cluster":
+        return Plan("bwd_cluster", fwd.q, fwd.rb,
+                    _layout_bwd(dh, fwd.q, fwd.rb)[1])
+    return Plan("bwd_stream", 0, 0, 12 * dh * 4)
+
+
 def build() -> Tuple[pathlib.Path, str]:
     """Compile csrc/slstm.cu for sm_90a (`kernels._build.build`)."""
     return _build.build(CSRC)
@@ -162,11 +196,21 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.POINTER(ctypes.c_int)]
 
 
+# slstm_bwd_launch's argument types (`_launch_bwd` marshals them)
+BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p])
+
+
 def _bind_bwd(lib: ctypes.CDLL) -> None:
-    lib.slstm_bwd_launch.restype = ctypes.c_int
-    lib.slstm_bwd_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17
-                                     + [ctypes.c_int] * 4
-                                     + [ctypes.c_void_p])
+    for name in ("slstm_bwd_launch", "slstm_bwd_stream_launch"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = BWD_ARGTYPES
+    lib.slstm_bwd_cluster_launch.restype = ctypes.c_int
+    lib.slstm_bwd_cluster_launch.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] + BWD_ARGTYPES)
+    lib.slstm_bwd_plan.restype = ctypes.c_int
+    lib.slstm_bwd_plan.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
 
 
 def _lib() -> ctypes.CDLL:
@@ -185,6 +229,14 @@ def _lib_plan(lib: ctypes.CDLL, b: int, nh: int, dh: int) -> Plan:
     out = (ctypes.c_int * 3)()
     cluster = lib.slstm_plan(b, nh, dh, out)
     return Plan("cluster" if cluster else "stream", *out)
+
+
+def _lib_plan_bwd(lib: ctypes.CDLL, b: int, nh: int, dh: int) -> Plan:
+    """The plan the backward library's `slstm_bwd_plan` gives (what
+    slstm_bwd_launch runs), to hold `_plan_bwd` to it on the card."""
+    out = (ctypes.c_int * 3)()
+    cluster = lib.slstm_bwd_plan(b, nh, dh, out)
+    return Plan("bwd_cluster" if cluster else "bwd_stream", *out)
 
 
 def _check(xg: torch.Tensor, r: torch.Tensor, state, nh: int) -> None:
@@ -285,32 +337,35 @@ def slstm_fused(xg: torch.Tensor, r: torch.Tensor, state, nh: int):
 def _launch_bwd(lib: ctypes.CDLL, pre: torch.Tensor, r_t: torch.Tensor,
                 hs: torch.Tensor, dhs: torch.Tensor, state, dstate,
                 cnm: torch.Tensor, dpre: torch.Tensor, dstate0,
-                nh: int, stream: int) -> int:
+                nh: int, stream: int, forced=None,
+                max_clusters: "ctypes.c_int | None" = None) -> int:
     """Marshal one call of `slstm_bwd_launch` (every tensor contiguous; r_t
     is R transposed, (4, nh, dh, dh) with [g, hd, e, k] = r[g, hd, k, e]);
-    returns its code."""
+    with ``forced`` "stream" of `slstm_bwd_stream_launch`, with a (q, rb)
+    of `slstm_bwd_cluster_launch` (which, given `max_clusters`, a
+    ctypes.c_int, launches nothing and sets it to how many such clusters
+    the card holds at once). Returns its code."""
     b, s, d4 = pre.shape
     dh = d4 // (4 * nh)
     c0, n0, _, m0 = state
-    return lib.slstm_bwd_launch(
-        _DTYPES[r_t.dtype], pre.data_ptr(), r_t.data_ptr(), hs.data_ptr(),
-        dhs.data_ptr(), c0.data_ptr(), n0.data_ptr(), m0.data_ptr(),
-        *(t.data_ptr() for t in dstate), cnm.data_ptr(), dpre.data_ptr(),
-        *(t.data_ptr() for t in dstate0), b, s, nh, dh, stream)
+    args = (_DTYPES[r_t.dtype], pre.data_ptr(), r_t.data_ptr(), hs.data_ptr(),
+            dhs.data_ptr(), c0.data_ptr(), n0.data_ptr(), m0.data_ptr(),
+            *(t.data_ptr() for t in dstate), cnm.data_ptr(), dpre.data_ptr(),
+            *(t.data_ptr() for t in dstate0), b, s, nh, dh, stream)
+    if forced is None:
+        return lib.slstm_bwd_launch(*args)
+    if forced == "stream":
+        return lib.slstm_bwd_stream_launch(*args)
+    ref_ = None if max_clusters is None else ctypes.byref(max_clusters)
+    return lib.slstm_bwd_cluster_launch(*forced, ref_, *args)
 
 
 def _f32c(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
 
-def slstm_fused_bwd(xg: torch.Tensor, r: torch.Tensor, state, nh: int,
-                    hs: torch.Tensor, dhs: torch.Tensor, dstate):
-    """The backward of `slstm_fused` at its inputs (xg, r, state) and its
-    hs (B, S, d) f32: given dhs (B, S, d) and the final state's
-    cotangents (dc, dn, dh, dm), each (B, d), returns (dxg in xg's type,
-    dr in r's type, (dc0, dn0, dh0, dm0) f32). One launch of the backward
-    kernel on a CUDA tensor (or a raise); `ref.slstm_fused_bwd` on a CPU
-    tensor."""
+def _check_bwd(xg: torch.Tensor, r: torch.Tensor, state, nh: int,
+               hs: torch.Tensor, dhs: torch.Tensor, dstate) -> None:
     _check(xg, r, state, nh)
     b, s, d4 = xg.shape
     for name, t, shape in (("hs", hs, (b, s, d4 // 4)),
@@ -320,10 +375,19 @@ def slstm_fused_bwd(xg: torch.Tensor, r: torch.Tensor, state, nh: int,
         if tuple(t.shape) != shape or t.device != xg.device:
             raise ValueError(f"{name} must be {shape} on {xg.device}, got "
                              f"{tuple(t.shape)} on {t.device}")
-    if not xg.is_cuda:
-        dxg, dr, dst = ref.slstm_fused_bwd(xg, r, state, nh, hs, dhs,
-                                           dstate)
-        return dxg.to(xg.dtype), dr.to(r.dtype), dst
+
+
+def _bwd_call(xg: torch.Tensor, r: torch.Tensor, state, nh: int,
+              hs: torch.Tensor, dhs: torch.Tensor, dstate, forced=None):
+    """The backward on a CUDA tensor: the recompute, one kernel launch
+    (the plan's, or ``forced``: "stream" or a cluster (q, rb)), dr's
+    einsum. Raises where the launch fails."""
+    b, s, d4 = xg.shape
+    dh = d4 // (4 * nh)
+    if forced is None:
+        instance = _plan_bwd(b, nh, dh).instance
+    else:
+        instance = "bwd_stream" if forced == "stream" else "bwd_cluster"
     with torch.no_grad():
         pre, h_prev = ref.recompute(xg, r, state, nh, hs)
         r_t = r.transpose(2, 3).contiguous()
@@ -337,18 +401,46 @@ def slstm_fused_bwd(xg: torch.Tensor, r: torch.Tensor, state, nh: int,
         with torch.cuda.device(xg.device):
             stream = torch.cuda.current_stream(xg.device).cuda_stream
             rc = _launch_bwd(lib, pre, r_t, hs_, dhs_, state, dst_in, cnm,
-                             dpre, dst0, nh, stream)
+                             dpre, dst0, nh, stream, forced)
         if rc != 0:
-            raise RuntimeError(f"slstm_fused_bwd: kernel launch failed with "
-                               f"code {rc}")
+            raise RuntimeError(f"slstm_fused_bwd: {instance} kernel launch "
+                               f"failed with code {rc}")
         LAUNCHES["slstm_fused_bwd"] += 1
-        INSTANCE_LAUNCHES["bwd_stream"] += 1
+        INSTANCE_LAUNCHES[instance] += 1
         del cnm, pre
-        dh = d4 // (4 * nh)
         dr = torch.einsum("bshk,bsghe->ghke",
                           h_prev.reshape(b, s, nh, dh),
                           dpre.reshape(b, s, 4, nh, dh))
         return dpre.to(xg.dtype), dr.to(r.dtype), dst0
+
+
+def slstm_fused_bwd(xg: torch.Tensor, r: torch.Tensor, state, nh: int,
+                    hs: torch.Tensor, dhs: torch.Tensor, dstate):
+    """The backward of `slstm_fused` at its inputs (xg, r, state) and its
+    hs (B, S, d) f32: given dhs (B, S, d) and the final state's
+    cotangents (dc, dn, dh, dm), each (B, d), returns (dxg in xg's type,
+    dr in r's type, (dc0, dn0, dh0, dm0) f32). One launch of the plan's
+    backward kernel on a CUDA tensor (or a raise); `ref.slstm_fused_bwd`
+    on a CPU tensor."""
+    _check_bwd(xg, r, state, nh, hs, dhs, dstate)
+    if not xg.is_cuda:
+        dxg, dr, dst = ref.slstm_fused_bwd(xg, r, state, nh, hs, dhs,
+                                           dstate)
+        return dxg.to(xg.dtype), dr.to(r.dtype), dst
+    return _bwd_call(xg, r, state, nh, hs, dhs, dstate)
+
+
+def _forced_bwd(forced, xg: torch.Tensor, r: torch.Tensor, state, nh: int,
+                hs: torch.Tensor, dhs: torch.Tensor, dstate):
+    """`slstm_fused_bwd` on a CUDA tensor with the kernel named, not
+    planned: "stream", or the cluster kernel at a (q, rb). For the card
+    tests, chip_smoke.py and the sweep, which hold the two designs against
+    each other; the model never calls it."""
+    if not xg.is_cuda:
+        raise ValueError(f"a forced {forced!r} backward needs a CUDA "
+                         f"tensor, got one on {xg.device}")
+    _check_bwd(xg, r, state, nh, hs, dhs, dstate)
+    return _bwd_call(xg, r, state, nh, hs, dhs, dstate, forced)
 
 
 def slstm_bwd_costs(b: int, s: int, nh: int, dh: int,

@@ -1,7 +1,8 @@
-"""Time the sLSTM cluster kernel's alternatives on the card.
+"""Time the sLSTM cluster kernels' alternatives on the card.
 
     PYTHONPATH=src python -m repro_torch.kernels.slstm.sweep \\
-        [--parent PATH/slstm.cu] [--out chiprun_out/slstm_sweep.json]
+        [--parent PATH/slstm.cu] [--parent-bwd PATH/slstm_bwd.cu] \\
+        [--out chiprun_out/slstm_sweep.json] [--arms fwd bwd]
 
 At xlstm-125m's served sLSTM shape (xg (4, 2048, 3072), r (4, 4, 192, 192),
 both bf16; random inputs from a seed, as chip_smoke.py's [10b] draws them)
@@ -28,8 +29,25 @@ it times, with CUDA events:
   earlier commit's), on the same inputs in the same process.
 Before timing it holds the plan's kernel and every alternative against the
 plain version at short sequences (atol 1e-4), and prints the -Xptxas -v
-lines of the cluster instances. The result is one JSON object, printed and
-written to --out. Needs a CUDA card; exits 2 without one.
+lines of the cluster instances.
+
+The backward arm (`bwd`) does the same for csrc/slstm_bwd.cu at
+xlstm-125m's trained shape (the same xg and r, a seeded cotangent of hs):
+the plan's kernel (`slstm._plan_bwd`) through `slstm_fused_bwd`, the
+cluster kernel at every other Q and RB that fit (with the clusters the
+card holds at once) and the stream kernel, each through `_forced_bwd`
+(the recompute and dr's einsum included, as the model calls it) and
+each launch alone (`_launch_bwd` on inputs prepared once); first each is
+held to `ref.slstm_fused_bwd` at short sequences (1e-4 · max(1, |want|)),
+and its registers and spills come from the build log (`ptxas_bwd`). Then
+ablations of the plan's kernel built from edited copies (`BWD_VARIANTS`,
+wrong results): phase 0 alone, the loop without phase 0, and the loop
+without the exchange between CTAs. With --parent-bwd, another
+copy of csrc/slstm_bwd.cu (an earlier commit's) is built and its planned
+launch timed in turns with this one's (parent, this, this, parent).
+
+The result is one JSON object, printed and written to --out. Needs a CUDA
+card; exits 2 without one.
 """
 from __future__ import annotations
 
@@ -38,6 +56,7 @@ import concurrent.futures
 import ctypes
 import json
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -292,22 +311,219 @@ def ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", type=pathlib.Path, default=None)
-    ap.add_argument("--out", type=pathlib.Path,
-                    default=pathlib.Path("chiprun_out/slstm_sweep.json"))
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("slstm sweep: no CUDA card available", file=sys.stderr)
-        return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    print(f"card: {card}", flush=True)
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
+BWD_CANDIDATES = [(q, rb) for q in (6, 7, 8, 12, 16) for rb in (1, 2, 4)]
+_BWD_WAIT = """        mbar_wait(&bars[u & 1], ((u - 1) >> 1) & 1);
+"""
+_BWD_ARM = """      if (threadIdx.x == 0) mbar_expect_tx(&bars[(u + 1) & 1], step_bytes);
+"""
+_BWD_STORE = """          st_async_v4(map_rank(dst, slot), dp, map_rank(bar, slot));
+"""
+_BWD_STORES = """            st_async_v4(map_rank(dst, peer), dp, map_rank(bar, peer));
+"""
+_BWD_LAST_WAIT = """  mbar_wait(&bars[S & 1], ((S - 1) >> 1) & 1);
+"""
+# ablations of the cluster backward (wrong results): what a launch is made
+# of. Each keeps the mbarrier protocol whole or drops all of it (every
+# store, arm and wait), so none can wait for a phase that never completes.
+BWD_VARIANTS = {
+    # phase 0 alone (and the prologue, R's loads, the epilogue's product)
+    "bwd_phase0_only": (("  for (int u0 = 0; u0 < S; u0 += PER) {\n",
+                         "  for (int u0 = 0; u0 < 0; u0 += PER) {\n"),
+                        (_BWD_LAST_WAIT, "")),
+    # no phase 0: the loop reads cnm as the allocator left it
+    "bwd_no_phase0": (("    for (int t0 = 0; t0 < S; t0 += 16) {\n",
+                       "    for (int t0 = 0; t0 < 0; t0 += 16) {\n"),),
+    # no exchange: no st.async, no arming, no wait (the carry reads zeros)
+    "bwd_no_exchange": ((_BWD_WAIT, ""), (_BWD_ARM, ""),
+                        (_BWD_STORE, "          ;\n"),
+                        (_BWD_STORES, "            ;\n"),
+                        (_BWD_LAST_WAIT, "")),
+}
+BWD_CHECK_SHAPES = ((4, 33, 4, 192), (5, 17, 4, 192), (2, 9, 2, 100),
+                    (1, 5, 2, 6), (2, 1, 4, 192), (2, 7, 1, 300))
 
+
+def ptxas_bwd(log: str) -> dict:
+    """Registers and spill bytes of each slstm_bwd_kernel_cluster instance
+    in an nvcc -Xptxas -v log, keyed "<r type> RB=<rb> KB=<kb>"."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(_Z\w+)", line)
+        if m:
+            k = re.search(r"slstm_bwd_kernel_clusterI(f|13__nv_bfloat16)Li"
+                          r"(\d)ELi(\d+)E", m.group(1))
+            key = (None if k is None else
+                   f"{'f32' if k.group(1) == 'f' else 'bf16'} "
+                   f"RB={k.group(2)} KB={k.group(3)}")
+        if key is None:
+            continue
+        s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if s:
+            out.setdefault(key, {})["spill_bytes"] = int(s.group(1)) + int(
+                s.group(2))
+        r = re.search(r"Used (\d+) registers", line)
+        if r:
+            out.setdefault(key, {})["registers"] = int(r.group(1))
+    return out
+
+
+def bwd_inputs(gen, b, s, nh, dh, dtype):
+    """The forward's inputs, hs from the forward kernel, a cotangent of hs
+    ~ N and zero final-state cotangents (what the model's loss gives)."""
+    xg, r, st = inputs(gen, b, s, nh, dh, dtype, dtype)
+    with torch.no_grad():
+        hs, _ = S.slstm_fused(xg, r, st, nh)
+    dhs = torch.randn(hs.shape, generator=gen, device=hs.device)
+    return xg, r, st, hs, dhs, tuple(torch.zeros_like(t) for t in st)
+
+
+def bwd_err(got, want) -> float:
+    """max |got − want| / max(1, max |want|) over dxg, dr and the four
+    initial-state cotangents."""
+    return max(float((a.float() - w.float()).abs().max())
+               / max(1.0, float(w.float().abs().max()))
+               for a, w in zip((got[0], got[1], *got[2]),
+                               (want[0], want[1], *want[2])))
+
+
+def bwd_arm(gen, card: str, parent=None) -> dict:
+    """The backward arm (see the module's docstring); with ``parent`` (a
+    path to another copy of csrc/slstm_bwd.cu) that copy's planned launch
+    too, on the same inputs, in turns with this one's."""
+    _, log = _build.build(S.CSRC_BWD)
+    lib = S._lib_bwd()
+    res = {"card": card, "ptxas": ptxas_bwd(log), "checked": []}
+    text = S.CSRC_BWD.read_text()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for header in S.CSRC_BWD.parent.glob("*.cuh"):     # beside the copies
+        shutil.copy(header, _build.BUILD_DIR / header.name)
+    sources = {}
+    for name, edits in BWD_VARIANTS.items():
+        variant = text
+        for old, new in edits:
+            if variant.count(old) != 1:
+                raise RuntimeError(f"variant {name}: {old!r} is not in the "
+                                   f"source once")
+            variant = variant.replace(old, new)
+        sources[name] = _build.BUILD_DIR / f"slstm_{name}.cu"
+        sources[name].write_text(variant)
+    if parent is not None:
+        sources["bwd_parent"] = _build.BUILD_DIR / "slstm_bwd_parent.cu"
+        sources["bwd_parent"].write_text(parent.read_text())
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        builds = dict(zip(sources, pool.map(_build.build,
+                                            sources.values())))
+    variants = {name: ctypes.CDLL(str(path))
+                for name, (path, _) in builds.items()}
+    for name, lib_v in variants.items():
+        if name == "bwd_parent":      # an older copy: its planned launch
+            lib_v.slstm_bwd_launch.restype = ctypes.c_int
+            lib_v.slstm_bwd_launch.argtypes = S.BWD_ARGTYPES
+        else:
+            S._bind_bwd(lib_v)
+    res["variants_ptxas"] = {name: ptxas_bwd(vlog).get("bf16 RB=1 KB=24")
+                             for name, (_, vlog) in builds.items()}
+    for case in BWD_CHECK_SHAPES:
+        b, s, nh, dh = case
+        for dt in (torch.float32, torch.bfloat16):
+            args = bwd_inputs(gen, *case, dt)
+            plan = S._plan_bwd(b, nh, dh)
+            if S._lib_plan_bwd(lib, b, nh, dh) != plan:
+                raise RuntimeError(f"{case}: the library's plan differs")
+            with torch.no_grad():
+                want = ref.slstm_fused_bwd(*args[:3], nh, *args[3:])
+            want = (want[0].to(dt), want[1].to(dt), want[2])
+            errs = [bwd_err(S.slstm_fused_bwd(*args[:3], nh, *args[3:]),
+                            want),
+                    bwd_err(S._forced_bwd("stream", *args[:3], nh,
+                                          *args[3:]), want)]
+            if plan.instance == "bwd_cluster" and dh == 192:
+                errs += [bwd_err(S._forced_bwd(c, *args[:3], nh, *args[3:]),
+                                 want)
+                         for c in BWD_CANDIDATES if S._fits(dh, *c)]
+            if max(errs) > 1e-4 + 2.0 ** -7 * (dt == torch.bfloat16):
+                raise RuntimeError(f"bwd {case} {dt}: {errs}")
+            res["checked"].append([list(case), str(dt), plan.instance,
+                                   max(errs)])
+    print(f"bwd checked vs plain: {len(res['checked'])} cases", flush=True)
+
+    b, s, nh, dh = SERVED
+    xg, r, st, hs, dhs, dfin = bwd_inputs(gen, b, s, nh, dh, torch.bfloat16)
+    plan = S._plan_bwd(b, nh, dh)
+    res.update(shape=list(SERVED), plan=plan._asdict(), candidates=[])
+    with torch.no_grad():
+        pre, _ = ref.recompute(xg, r, st, nh, hs)
+        r_t = r.transpose(2, 3).contiguous()
+    cnm = torch.empty((3, b, s, nh * dh), device=xg.device)
+    dpre = torch.empty_like(pre)
+    dst0 = tuple(torch.empty_like(t) for t in st)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(forced=None):
+        """The kernel alone on inputs prepared once."""
+        rc = S._launch_bwd(lib, pre, r_t, hs, dhs, st, dfin, cnm, dpre,
+                           dst0, nh, stream, forced)
+        if rc != 0:
+            raise RuntimeError(f"bwd launch {forced or 'plan'}: {rc}")
+
+    def call(forced=None):
+        """As the model calls it: the recompute, the launch, dr's einsum."""
+        with torch.no_grad():
+            if forced is None:
+                return S.slstm_fused_bwd(xg, r, st, nh, hs, dhs, dfin)
+            return S._forced_bwd(forced, xg, r, st, nh, hs, dhs, dfin)
+    res["plan_launch_ms"] = ms(launch, ITERS)
+    res["plan_call_ms"] = ms(call, ITERS)
+    res["stream_launch_ms"] = ms(lambda: launch("stream"), ITERS // 3,
+                                 warmup=1)
+    res["stream_call_ms"] = ms(lambda: call("stream"), ITERS // 3, warmup=1)
+    res["plan_launch_ms_again"] = ms(launch, ITERS)
+    res["plan_us_per_step"] = res["plan_launch_ms"] * 1e3 / s
+    res["stream_us_per_step"] = res["stream_launch_ms"] * 1e3 / s
+    print(f"  bwd plan {res['plan_launch_ms']} ms a launch, stream "
+          f"{res['stream_launch_ms']}", flush=True)
+    if parent is not None:         # parent, this, this, parent
+        plib = variants.pop("bwd_parent")
+        res["parent_launch_ms"] = ms(lambda: S._launch_bwd(
+            plib, pre, r_t, hs, dhs, st, dfin, cnm, dpre, dst0, nh, stream),
+            ITERS)
+        res["plan_launch_ms_vs_parent"] = [ms(launch, ITERS),
+                                           ms(launch, ITERS)]
+        res["parent_launch_ms_again"] = ms(lambda: S._launch_bwd(
+            plib, pre, r_t, hs, dhs, st, dfin, cnm, dpre, dst0, nh, stream),
+            ITERS)
+        print(f"  bwd parent {res['parent_launch_ms']} / "
+              f"{res['parent_launch_ms_again']} ms, this "
+              f"{res['plan_launch_ms_vs_parent']}", flush=True)
+    res["variants_ms"] = {}
+    for name, lib_v in variants.items():
+        res["variants_ms"][name] = ms(lambda: S._launch_bwd(
+            lib_v, pre, r_t, hs, dhs, st, dfin, cnm, dpre, dst0, nh, stream),
+            ITERS)
+        print(f"  bwd variant {name}: {res['variants_ms'][name]} ms",
+              flush=True)
+    for cand in BWD_CANDIDATES:
+        if not S._fits(dh, *cand):
+            continue
+        n = ctypes.c_int(-1)
+        rc = S._launch_bwd(lib, pre, r_t, hs, dhs, st, dfin, cnm, dpre, dst0,
+                           nh, 0, cand, n)
+        row = {"q": cand[0], "rb": cand[1],
+               "smem": S._layout_bwd(dh, *cand)[1],
+               "threads": S._layout_bwd(dh, *cand)[0],
+               "ctas": cand[0] * nh * -(-b // cand[1]),
+               "max_active_clusters": n.value if rc == 0 else rc}
+        row["launch_ms"] = ms(lambda: launch(cand), ITERS)
+        row["us_per_step"] = row["launch_ms"] * 1e3 / s
+        res["candidates"].append(row)
+        print(f"  bwd {row}", flush=True)
+    return res
+
+
+def fwd_arm(gen, card: str, parent) -> dict:
+    """The forward arm (see the module's docstring)."""
     _, log = _build.build(S.CSRC)
     lib = S._lib()
     ptxas = [ln.strip() for ln in log.splitlines()
@@ -328,9 +544,9 @@ def main(argv=None) -> int:
             variant = variant.replace(old, new)
         sources[name] = _build.BUILD_DIR / f"slstm_{name}.cu"
         sources[name].write_text(variant)
-    if args.parent is not None:
+    if parent is not None:
         sources["parent"] = _build.BUILD_DIR / "slstm_parent.cu"
-        sources["parent"].write_text(args.parent.read_text())
+        sources["parent"].write_text(parent.read_text())
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = dict(zip(sources, pool.map(
             lambda src: ctypes.CDLL(str(_build.build(src)[0])),
@@ -339,7 +555,6 @@ def main(argv=None) -> int:
         S._bind(built[name])
     ulib = built["unfused_mac"]
 
-    gen = torch.Generator(device=dev).manual_seed(3)
     checked = []
     for case in CHECK_SHAPES:
         b, s, nh, dh = case
@@ -394,7 +609,7 @@ def main(argv=None) -> int:
         row["err_vs_plain"] = max_err(call(lib, xg, r, st, cand), want)
         res["candidates"].append(row)
         print(f"  {row}", flush=True)
-    if args.parent is not None:
+    if parent is not None:
         plib = built["parent"]        # exports slstm_launch alone
         plib.slstm_launch.restype = ctypes.c_int
         plib.slstm_launch.argtypes = S.LAUNCH_ARGTYPES
@@ -402,6 +617,34 @@ def main(argv=None) -> int:
                               warmup=1)
         res["plan_ms_after_parent"] = ms(
             lambda: S.slstm_fused(xg, r, st, nh), ITERS)
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=pathlib.Path, default=None)
+    ap.add_argument("--out", type=pathlib.Path,
+                    default=pathlib.Path("chiprun_out/slstm_sweep.json"))
+    ap.add_argument("--parent-bwd", type=pathlib.Path, default=None)
+    ap.add_argument("--arms", nargs="+", choices=("fwd", "bwd"),
+                    default=["fwd", "bwd"])
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("slstm sweep: no CUDA card available", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    res = {"card": card}
+    if "fwd" in args.arms:
+        res.update(fwd_arm(gen, card, args.parent))
+    if "bwd" in args.arms:
+        res["bwd"] = bwd_arm(gen, card, args.parent_bwd)
     line = json.dumps(res)
     print(line)
     args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -18,9 +18,12 @@ becomes inf − inf.
 
 Training. `slstm_scan` is a `torch.autograd.Function` (`_SlstmScan`):
 its forward is the fused kernel (its plain version on a CPU tensor), its
-backward `kernels.slstm.slstm_fused_bwd`, the hand-written reverse-time
-kernel on a CUDA tensor and the plain reverse loop on a CPU tensor; it
-saves only its inputs and hs (the backward recomputes the gates). With
+backward `kernels.slstm.slstm_fused_bwd`, a hand-written reverse-time
+kernel on a CUDA tensor (`slstm_bwd_kernel_cluster` at the xlstm head
+dims, dh ≤ 256: the forward's cluster layout transposed, R in registers;
+the stream kernel `slstm_bwd_kernel` above) and the plain reverse loop on
+a CPU tensor; it saves only its inputs and hs (the backward recomputes
+the gates). With
 ``cfg.remat`` and grad enabled, `forward` runs each block under
 `torch.utils.checkpoint` (non-reentrant), where the reference wraps it in
 `jax.checkpoint`: a block's activations are dropped after the forward and

@@ -1533,6 +1533,7 @@ def test_reduced_xlstm_serving_launches_slstm_per_block_and_step(
     torch.cuda.synchronize()
     assert sl_kern.LAUNCHES["slstm_fused"] == n
     assert sl_kern.INSTANCE_LAUNCHES == {"cluster": n, "stream": 0,
+                                         "bwd_cluster": 0,
                                          "bwd_stream": 0}
     first = logits
     tok = logits.argmax(-1).to(torch.int32)[:, None]
@@ -1541,6 +1542,7 @@ def test_reduced_xlstm_serving_launches_slstm_per_block_and_step(
     torch.cuda.synchronize()
     assert sl_kern.LAUNCHES["slstm_fused"] == n * 5
     assert sl_kern.INSTANCE_LAUNCHES == {"cluster": n * 5, "stream": 0,
+                                         "bwd_cluster": 0,
                                          "bwd_stream": 0}
     assert all(v == 0 for v in fa.LAUNCHES.values())
     assert bool(torch.isfinite(logits).all())
@@ -1817,14 +1819,35 @@ def test_dtensor_checkpoint_over_gloo_on_card_saves_and_restores_bitwise(
         assert (dt / p.name).read_bytes() == p.read_bytes(), p.name
 
 
-# (b, s, nh, dh): heads of the cluster kernel's range (dh <= 256) and of
-# the stream kernel's (the forward's); the backward kernel is one design
-SLSTM_BWD_GRID = [(2, 33, 2, 16), (3, 65, 4, 192), (1, 17, 1, 300)]
+# (b, s, nh, dh[, "tie"]): the backward's plan takes the cluster kernel for
+# dh <= 256 and the stream kernel above; the cluster kernel's edges: dh = 99
+# over Q = 4 (24 and 25 columns), B = 5 and 9 at the trained heads (RB = 2
+# and 4, a last group of one row), S = 1, dh = 256 (32 registers of R a
+# row), and a tie in the stabilizer's max at t = 0
+SLSTM_BWD_GRID = [(2, 33, 2, 16), (3, 65, 4, 192), (1, 17, 1, 300),
+                  (3, 17, 4, 99), (5, 17, 4, 192), (9, 9, 4, 192),
+                  (2, 1, 4, 192), (2, 19, 1, 256), (2, 9, 2, 16, "tie")]
+# a kernel named, not planned: the cluster kernel at a (Q, RB) the plan does
+# not take (dh = 8 over Q = 16 leaves eight CTAs with no column; dh = 100
+# over Q = 8 gives 12 and 13), and the stream kernel at cluster shapes
+SLSTM_BWD_FORCED = [((2, 9, 2, 8), (16, 1)), ((3, 9, 4, 100), (8, 2)),
+                    ((5, 9, 2, 40), (8, 4)), ((2, 9, 4, 192), (16, 1)),
+                    ((3, 33, 4, 192), "stream"), ((2, 17, 2, 16), "stream")]
 
 
 def _slstm_bwd_case(case, dtype, dev):
-    xg, r, st = _slstm_inputs(case, dtype, dev, seed=5)
-    b, s, nh, dh = case
+    """The forward's inputs with seed 5, cotangents of hs and of the final
+    state ~ N, and hs from the forward kernel; with "tie", h0 = 0, m0 = 0.5
+    and xg's ĩ = 1.5, f̃ = 1.0 at t = 0, so f̃ + m0 == ĩ exactly (pre = xg
+    at t = 0)."""
+    b, s, nh, dh = case[:4]
+    xg, r, st = _slstm_inputs(case[:4], dtype, dev, seed=5)
+    if case[4:] == ("tie",):
+        d = nh * dh
+        st[2].zero_()
+        st[3].fill_(0.5)
+        xg[:, 0, d:2 * d] = 1.5
+        xg[:, 0, 2 * d:3 * d] = 1.0
     g = torch.Generator().manual_seed(17)
     dhs = torch.randn((b, s, nh * dh), generator=g).to(dev)
     dfin = tuple(torch.randn((b, nh * dh), generator=g).to(dev)
@@ -1834,25 +1857,12 @@ def _slstm_bwd_case(case, dtype, dev):
     return xg, r, st, hs, dhs, dfin
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", SLSTM_BWD_GRID)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_slstm_bwd_kernel_agrees_with_plain_on_card(cuda_device, case,
-                                                    dtype):
-    """The backward kernel against `ref.slstm_fused_bwd` on the card (TF32
-    off) on the same inputs and hs: dpre's f32 sums in another order, so
-    each output within 1e-4 · max(1, max|want|); dxg and dr in bf16 also
-    within one bf16 rounding (2^-7 · |want|). One launch counted."""
-    nh = case[2]
-    xg, r, st, hs, dhs, dfin = _slstm_bwd_case(case, dtype, cuda_device)
-    before = sl_kern.LAUNCHES["slstm_fused_bwd"]
-    with fp32_exact():
-        got = sl_kern.slstm_fused_bwd(xg, r, st, nh, hs, dhs, dfin)
-        want = sl_ref.slstm_fused_bwd(xg, r, st, nh, hs, dhs, dfin)
-    torch.cuda.synchronize()
-    assert sl_kern.LAUNCHES["slstm_fused_bwd"] == before + 1
+def _bwd_agrees(got, want, xg, r):
+    """dpre's f32 sums in another order than the plain version's: each
+    output within 1e-4 · max(1, max|want|); dxg and dr in bf16 also within
+    one bf16 rounding (2^-7 · |want|)."""
     assert got[0].dtype == xg.dtype and got[1].dtype == r.dtype
-    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    rel = 2.0 ** -7 if xg.dtype == torch.bfloat16 else 0.0
     for name, a, w in zip(("dxg", "dr", "dc0", "dn0", "dh0", "dm0"),
                           (got[0], got[1], *got[2]),
                           (want[0].to(xg.dtype), want[1].to(r.dtype),
@@ -1864,15 +1874,75 @@ def test_slstm_bwd_kernel_agrees_with_plain_on_card(cuda_device, case,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", SLSTM_BWD_GRID)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_bwd_kernel_agrees_with_plain_on_card(cuda_device, case,
+                                                    dtype):
+    """The backward's planned kernel against `ref.slstm_fused_bwd` on the
+    card (TF32 off) on the same inputs and hs, within `_bwd_agrees`'s
+    bound. One launch counted, of the kernel the plan names, and the plan
+    is the library's own."""
+    b, nh, dh = case[0], case[2], case[3]
+    xg, r, st, hs, dhs, dfin = _slstm_bwd_case(case, dtype, cuda_device)
+    plan = sl_kern._plan_bwd(b, nh, dh)
+    assert sl_kern._lib_plan_bwd(sl_kern._lib_bwd(), b, nh, dh) == plan
+    assert plan.instance == ("bwd_stream" if dh > 256 else "bwd_cluster")
+    if b in (5, 9):
+        assert plan.rb == (2 if b == 5 else 4) and b % plan.rb == 1
+    before = sl_kern.LAUNCHES["slstm_fused_bwd"]
+    before_inst = dict(sl_kern.INSTANCE_LAUNCHES)
+    with fp32_exact():
+        got = sl_kern.slstm_fused_bwd(xg, r, st, nh, hs, dhs, dfin)
+        want = sl_ref.slstm_fused_bwd(xg, r, st, nh, hs, dhs, dfin)
+    torch.cuda.synchronize()
+    assert sl_kern.LAUNCHES["slstm_fused_bwd"] == before + 1
+    before_inst[plan.instance] += 1
+    assert sl_kern.INSTANCE_LAUNCHES == before_inst
+    _bwd_agrees(got, want, xg, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,forced", SLSTM_BWD_FORCED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_bwd_forced_kernel_agrees_with_plain_on_card(cuda_device, case,
+                                                           forced, dtype):
+    """Each design named, not planned (`_forced_bwd`): the cluster kernel
+    at a (Q, RB) the plan does not take, where every CTA must reach every
+    mbarrier phase (CTAs with no column, rows past B), and the stream
+    kernel at cluster shapes; within `_bwd_agrees`'s bound, one launch of
+    the named kernel counted."""
+    nh, dh = case[2], case[3]
+    if forced != "stream" and dh < forced[0]:
+        assert any(n == 0 for _, n in sl_kern._columns(dh, forced[0]))
+    xg, r, st, hs, dhs, dfin = _slstm_bwd_case(case, dtype, cuda_device)
+    name = "bwd_stream" if forced == "stream" else "bwd_cluster"
+    before = sl_kern.INSTANCE_LAUNCHES[name]
+    with fp32_exact():
+        got = sl_kern._forced_bwd(forced, xg, r, st, nh, hs, dhs, dfin)
+        want = sl_ref.slstm_fused_bwd(xg, r, st, nh, hs, dhs, dfin)
+    torch.cuda.synchronize()
+    assert sl_kern.INSTANCE_LAUNCHES[name] == before + 1
+    _bwd_agrees(got, want, xg, r)
+
+
+@pytest.mark.cuda
 def test_slstm_bwd_kernel_repeats_bitwise_on_card(cuda_device):
+    """Two launches of the cluster backward on the same inputs give the
+    same bits (fixed orders of sums, no atomics), as do two of the stream
+    backward."""
     case = SLSTM_BWD_GRID[1]
     xg, r, st, hs, dhs, dfin = _slstm_bwd_case(case, torch.bfloat16,
                                                cuda_device)
-    a = sl_kern.slstm_fused_bwd(xg, r, st, case[2], hs, dhs, dfin)
-    b = sl_kern.slstm_fused_bwd(xg, r, st, case[2], hs, dhs, dfin)
-    torch.cuda.synchronize()
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+    assert sl_kern._plan_bwd(case[0], case[2], case[3]).instance == \
+        "bwd_cluster"
+    for run in (lambda: sl_kern.slstm_fused_bwd(xg, r, st, case[2], hs, dhs,
+                                                dfin),
+                lambda: sl_kern._forced_bwd("stream", xg, r, st, case[2],
+                                            hs, dhs, dfin)):
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
 
 
 @pytest.mark.cuda
@@ -1903,6 +1973,7 @@ def test_reduced_xlstm_gradients_on_card_equal_the_plain_path(cuda_device):
     torch.cuda.synchronize()
     n = len(cfg.slstm_at)
     assert sl_kern.LAUNCHES == {"slstm_fused": 2 * n, "slstm_fused_bwd": n}
+    assert sl_kern.INSTANCE_LAUNCHES["bwd_cluster"] == n
     want_loss, want = grads(host, "cpu")
     assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
     names = [p for p, _ in interop.tree_named_leaves(host)]
@@ -1926,6 +1997,7 @@ def test_train_build_trains_xlstm_on_card(cuda_device):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(met["loss"]))
     assert sl_kern.LAUNCHES["slstm_fused_bwd"] == 2 * len(cfg.slstm_at)
+    assert sl_kern.INSTANCE_LAUNCHES["bwd_cluster"] == 2 * len(cfg.slstm_at)
 
 
 NEW_FAMILIES = ("llava-next-34b", "zamba2-1.2b", "whisper-large-v3")

@@ -12,7 +12,9 @@ kernels themselves run only on a card (tests/test_torch_cuda.py); here the
 plan that picks one of them is checked: the served shape takes the
 cluster kernel in every type pair, wide heads the stream kernel, the
 cluster kernel's column ranges cover a head once, and its plans fit the
-card (threads, shared memory, registers, clusters at once).
+card (threads, shared memory, registers, clusters at once); likewise the
+backward's plan (`_plan_bwd`: its cluster kernel at the train shape with
+the forward's geometry, the stream kernel past dh = 256).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -308,11 +310,103 @@ def test_cluster_plans_fit_the_card():
                     assert nh * -(-b // (plan.rb // 2)) > fit
 
 
+TRAINED = (4, 4, 192)     # b, nh, dh: xlstm-125m's trained sLSTM micro-batch
+
+
+def test_train_shape_plans_the_bwd_cluster_kernel():
+    """The backward at the train shape runs the cluster kernel with the
+    forward's geometry: Q = 6, RB = 1, two 8-byte mbarriers and two dpre
+    buffers of one row, eight e-blocks of 24 columns' four gates at a
+    stride of 100 floats (≡ 4 mod 32)."""
+    b, nh, dh = TRAINED
+    plan = tkern._plan_bwd(b, nh, dh)
+    assert plan == tkern.Plan("bwd_cluster", 6, 1, 16 + 4 * 2 * 8 * 100)
+    assert (plan.q, plan.rb) == tkern._plan(b, nh, dh)[1:3]
+    assert tkern._layout_bwd(dh, 6, 1) == (512, plan.smem, 24)
+
+
+@pytest.mark.parametrize("dh", [257, 300, 512, 1024])
+def test_wide_heads_plan_the_bwd_stream_kernel(dh):
+    """Past dh = 256 a lane's e-block no longer fits its 32 registers of
+    R: the stream backward takes the shape (12·dh floats of shared
+    memory), as the stream forward does."""
+    assert tkern._plan_bwd(4, 1, dh) == tkern.Plan("bwd_stream", 0, 0,
+                                                   12 * dh * 4)
+    assert tkern._plan_bwd(4, 1, 256).instance == "bwd_cluster"
+
+
+def test_bwd_cluster_plans_fit_the_card():
+    """Wherever the backward takes the cluster kernel: the forward's Q and
+    RB, at most 512 threads and 32 e a lane, and its dpre buffers within
+    the 48 KB of dynamic shared memory a kernel gets without opting in
+    (the launcher sets no larger limit); each e-block stride ≡ 4 (mod 32)
+    floats and a multiple of 4 (16-byte stores)."""
+    for b in (1, 2, 3, 4, 5, 8, 9, 17, 33, 64):
+        for nh in (1, 2, 3, 4, 8, 16):
+            for dh in range(1, 300, 7):
+                plan = tkern._plan_bwd(b, nh, dh)
+                if dh > 256:
+                    assert plan.instance == "bwd_stream"
+                    continue
+                fwd = tkern._plan(b, nh, dh)
+                threads, smem, kp = tkern._layout_bwd(dh, plan.q, plan.rb)
+                assert plan.instance == "bwd_cluster" and smem == plan.smem
+                assert (plan.q, plan.rb) == (fwd.q, fwd.rb)
+                assert threads <= 512 and kp <= 32 and smem <= 49_152
+                eb = (smem - 16) // (4 * 2 * plan.rb * 8)
+                assert eb % 32 == 4 and eb >= 4 * kp
+
+
+@pytest.mark.parametrize("q", range(1, 17))
+def test_bwd_cluster_rows_and_columns_cover_the_head_once(q):
+    """The backward's CTA i owns the same [i·dh/q, (i+1)·dh/q) as rows k of
+    dh_carry and as columns e of the gate backward, so a column finds its
+    carried dh in its own CTA: each split covers the head once, and each
+    column's e-block (e // kp, eight a head) holds it at one place."""
+    for dh in range(1, 257):
+        _, _, kp = tkern._layout_bwd(dh, q, 1)
+        cols = tkern._columns(dh, q)
+        assert sorted(e for e0, n in cols for e in range(e0, e0 + n)) == \
+            list(range(dh))
+        assert 8 * kp >= dh
+        slots = {(e // kp, e % kp) for e in range(dh)}
+        assert len(slots) == dh and max(b for b, _ in slots) < 8
+
+
+def test_ragged_splits_at_the_bwd_test_shapes():
+    """The card tests' backward edges: dh = 99 planned over 4 CTAs (24 and
+    25 columns), B = 5 and 9 at the trained heads take RB = 2 and 4 with a
+    last group of one row, and dh = 8 forced over 16 CTAs leaves eight with
+    none."""
+    assert sorted({n for _, n in tkern._columns(99, 4)}) == [24, 25]
+    assert tkern._plan_bwd(3, 4, 99).q == 4
+    for b, rb in ((5, 2), (9, 4)):
+        plan = tkern._plan_bwd(b, 4, 192)
+        assert plan.instance == "bwd_cluster" and plan.rb == rb
+        assert b % rb == 1
+    assert sum(n == 0 for _, n in tkern._columns(8, 16)) == 8
+
+
+def test_forced_backward_needs_a_cuda_tensor():
+    """`_forced_bwd` names a kernel: on CPU tensors there is none to run,
+    so it raises rather than running the plain loop, and counts nothing."""
+    xg, r, st, dhs, dfin = _bwd_inputs(BWD_CASES[0])
+    nh = BWD_CASES[0][2]
+    hs, _ = tref.slstm_fused(_t(xg), _t(r), tuple(map(_t, st)), nh)
+    tkern.reset_launch_counts()
+    for forced in ("stream", (6, 1)):
+        with pytest.raises(ValueError, match="needs a CUDA tensor"):
+            tkern._forced_bwd(forced, _t(xg), _t(r), tuple(map(_t, st)), nh,
+                              hs, _t(dhs), tuple(map(_t, dfin)))
+    assert tkern.LAUNCHES["slstm_fused_bwd"] == 0
+
+
 def test_reset_zeroes_the_instance_counts_and_cpu_counts_none():
     tkern.INSTANCE_LAUNCHES["cluster"] = 3
     tkern.INSTANCE_LAUNCHES["bwd_stream"] = 2
+    tkern.INSTANCE_LAUNCHES["bwd_cluster"] = 1
     tkern.reset_launch_counts()
-    none = {"cluster": 0, "stream": 0, "bwd_stream": 0}
+    none = {"cluster": 0, "stream": 0, "bwd_cluster": 0, "bwd_stream": 0}
     assert tkern.INSTANCE_LAUNCHES == none
     xg, r, st = _valid()
     tkern.slstm_fused(xg, r, st, 2)
