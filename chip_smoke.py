@@ -382,15 +382,43 @@ result line), in the order they run:
      at full width, 12 layers, 1 × 512 tokens: the shared block's attn
      and mlp gradients and mamba layer 7's in_proj and A_log, fused
      against plain attention, nonzero and within 1e-3 · max|leaf|;
-  9d (last): one full-width LM train step under torch.profiler, after a
-     warm-up step inside the profiler's schedule: idle share and the top
-     device activities.
+  9d: one full-width LM train step under torch.profiler, after a warm-up
+     step inside the profiler's schedule (the last profiled phase): idle
+     share and the top device activities;
+  17. the sharded launch on a one-rank NCCL world's (1, 1) DeviceMesh
+     ("data", "model") on the card: qwen3-0.6b at full width and depth
+     (tp=1, fused_attention) through `launch.steps.make_lowerable`, its
+     params, AdamW state, batch and serve state DTensors, the flash
+     kernels reached through `local_map`: one train step on [9]'s 2 × (4
+     × 2048) tokens (the train_4k cell cut in batch), the prefill of [8]'s
+     4 × 2048 tokens and 32 greedy decode steps, each against the
+     unsharded path (`launch.train.build`, `launch.serve.serve_session`)
+     on the same seeded weights and inputs: the flash counts, zeroed
+     before each path, equal both ways (112 / 56 / 56 a step, 28 a
+     prefill, 0 a decode); bitwise where it is, else the loss and logits
+     within 2e-3 × their largest magnitude and every parameter after the
+     step within 1e-3 · max|leaf|; the step, prefill and decode ms both
+     ways; 17b. one sharded xlstm-125m train step on the same mesh against
+     `launch.train.build`: 8 slstm_fused "cluster" and 4 slstm_fused_bwd
+     "bwd_cluster" launches both ways, the same bounds. Multi-rank
+     sharding cannot run on one card (NCCL refuses two ranks on one GPU;
+     gloo's all-gather of CUDA tensors segfaults on the card): the tests hold
+     a 2 × 2 gloo CPU mesh against the reference; 17c. the dry run
+     (`launch.dryrun`, one process a cell, all together, CPU only):
+     qwen3-0.6b × train_4k / prefill_32k / decode_32k (fused_attention)
+     on the 16 × 16 and 2 × 16 × 16 fake worlds, xlstm-125m × long_500k,
+     qwen3-0.6b × long_500k (skipped with the policy's reason) and
+     mixtral-8x22b × decode_32k with int8 weight gathers; each ok cell's
+     roofline terms, bottleneck, MFU at the roofline and bytes per rank;
+     a failed cell fails the script.
 The line before the last is the `kernels` JSON (twelve kernels; the
 three cnn_eq rows also carry their launches on each path, `path_launches`:
 [4], [11], [12], [13], [14], [15] and [16], the last summed over ranks;
-the flash forward's row its launches in the [8], [8v], [8h] and [8w]
-prefills and its head-dim-64 readings, the training kernels' rows their
-launches over [9]'s and [9h]'s timed steps; the sLSTM backward's row the
+the flash forward's row its launches in the [8], [8v], [8h], [8w] and
+[17] prefills and its head-dim-64 readings, the training kernels' rows
+their launches over [9]'s and [9h]'s timed steps and [17]'s sharded
+step; the sLSTM rows theirs in [10] / [9x] and [17b]'s sharded step; the
+sLSTM backward's row the
 cluster kernel's Q, RB, registers and µs a step beside the stream
 kernel's times forced in the same call);
 the last line is
@@ -470,8 +498,11 @@ from repro_torch.kernels.slstm import sweep as SL_sweep  # noqa: E402
 from repro_torch.kernels.volterra import volterra as V  # noqa: E402
 from repro_torch.interop import (tree_leaves,  # noqa: E402
                                  tree_named_leaves, tree_unflatten)
+from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
 from repro_torch.launch import serve as LM_serve  # noqa: E402
+from repro_torch.launch import steps as LM_steps  # noqa: E402
 from repro_torch.launch import train as LM_train  # noqa: E402
+from repro_torch.launch.roofline import HBM_BYTES_S, PEAK_OPS_S  # noqa: E402
 from repro_torch.models import attention as LM_attn  # noqa: E402
 from repro_torch.models import registry as LM_registry  # noqa: E402
 from repro_torch.models import transformer as LM_tr  # noqa: E402
@@ -517,9 +548,8 @@ FORMATS = {
     "ht": {"w_int": 2, "w_frac": 5, "a_int": 3, "a_frac": 4},   # → int8
     "lp": {"w_int": 3, "w_frac": 8, "a_int": 3, "a_frac": 8},   # → bf16
 }
-# H100 SXM published peaks (dense): bytes/s, and operations/s per type
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# the H100 SXM's published peaks (dense), bytes/s and operations/s per
+# type, are HBM_BYTES_S and PEAK_OPS_S of repro_torch.launch.roofline
 SOURCE = "src/repro_torch/kernels/cnn_eq/csrc/cnn_eq.cu"
 KERNELS = {   # datapath → (wrapper name, TPU kernel it replaces)
     "fp32": ("cnn_eq_fused", "src/repro/kernels/cnn_eq/cnn_eq.py:268"),
@@ -794,6 +824,33 @@ HALO_RANKS, HALO_ITERS = 4, 20
 # COMP_ITERS calls after one warm-up; [16c] saves and restores the same tree
 COMP_ARCH, COMP_ITERS = "smollm-135m", 3
 RANK_TIMEOUT_S = 600
+# [17] the sharded cells: qwen3-0.6b at full width and depth through
+# launch.steps.make_lowerable on a one-rank NCCL DeviceMesh (1, 1): the
+# train cell cut from train_4k's 256 x 4096 to [9]'s 2 x (4 x 2048) tokens,
+# a serving cell of LM_BATCH rows and LM_PROMPT + LM_GEN positions (the
+# prefill of LM_BATCH x LM_PROMPT tokens, then LM_GEN decode steps), both
+# at [8]/[9]'s tp = 1 with the flash kernels; each held against the
+# unsharded path on the same weights and inputs: bitwise where it is,
+# else the loss and logits within LM_LOGIT_TOL x their largest magnitude
+# and every parameter after the step within SHARD_PARAM_TOL x max|leaf|
+SHARD_TRAIN = ShapeSpec("train_2x4x2048", LM_TRAIN_SEQ,
+                        LM_TRAIN_MB * LM_TRAIN_ACCUM, "train")
+SHARD_SERVE = ShapeSpec("decode_4x2080", LM_PROMPT + LM_GEN, LM_BATCH,
+                        "decode")
+SHARD_OVERRIDES = {"tp": 1, "fused_attention": True}
+SHARD_PARAM_TOL = 1e-3
+# [17c] the dry run's cells on fake production worlds: (arch, shape,
+# multi_pod, overrides); qwen3 with the flash kernels (its path here),
+# mixtral serving 2-D sharded with int8 weight gathers; each cell one
+# process, all started together
+DRYRUN_CELLS = tuple(
+    [("qwen3-0.6b", s, mp, {"fused_attention": True})
+     for s in ("train_4k", "prefill_32k", "decode_32k")
+     for mp in (False, True)]
+    + [("xlstm-125m", "long_500k", False, {}),
+       ("qwen3-0.6b", "long_500k", False, {}),
+       ("mixtral-8x22b", "decode_32k", False, {"serve_int8_weights": True})])
+DRYRUN_TIMEOUT_S = 420
 
 
 def require(cond: bool, msg: str) -> None:
@@ -2709,6 +2766,21 @@ def _device_ms(fn, name: str, calls: int = 20, warm: bool = False):
                         warmup=fn if warm else None)
     ms = [v["mean_ms"] for k, v in prof["by_kind_ms"].items()
           if k.startswith(name)]
+    if ms or not warm:
+        return ms[0] if ms else None
+    # late in a long process a short scheduled session can come back
+    # with no device events at all (a padded window does not help): say
+    # so, then take one unscheduled session, the kernel warmed outside it
+    seen = {k: v["count"] for k, v in prof["by_kind_ms"].items()}
+    fn()
+    prof = device_trace(lambda: [fn() for _ in range(calls)])
+    ms = [v["mean_ms"] for k, v in prof["by_kind_ms"].items()
+          if k.startswith(name)]
+    print(f"    profiler: no {name} events in a scheduled session of "
+          f"{calls} calls (device kinds seen: {seen}); an unscheduled one "
+          f"read {ms[0] if ms else None} ms (device kinds seen: "
+          f"{ {k: v['count'] for k, v in prof['by_kind_ms'].items()} })",
+          flush=True)
     return ms[0] if ms else None
 
 
@@ -3414,6 +3486,22 @@ def time_train_kernels(q, k, v, do, iters: int) -> dict:
                                           f32_name))
     out["library_bwd_max_abs_diff"] = lib_diff
     return out
+
+
+def fill_device_ms(row: dict, trace: dict, kernel: str, what: str) -> None:
+    """A timing row whose own profiler session read nothing takes its
+    kernel's mean device time from a profiled run of the main path at the
+    same shape (``trace``, a `device_trace`), and says so."""
+    if row["device_ms"] is not None:
+        return
+    hits = [v for k, v in trace["by_kind_ms"].items() if k.startswith(kernel)]
+    if not hits:
+        return
+    row["device_ms"] = hits[0]["mean_ms"]
+    row["device_ms_from"] = f"{what}: {hits[0]['count']} launches"
+    if "tflops" in row:
+        row["tflops"] = row["flops"] / row["device_ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
 
 
 def trace_train_step(run: dict) -> dict:
@@ -4672,6 +4760,286 @@ def time_flash_hd64(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [17] the sharded launch on the card
+# ---------------------------------------------------------------------------
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _leaf_gap(got, want) -> dict:
+    """Leaf by leaf: whether two trees are bitwise equal, and the worst
+    max |Δ| / max |leaf|."""
+    worst, bitwise = 0.0, True
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g = _whole(g)
+        bitwise &= bool(torch.equal(g, w))
+        scale = float(w.float().abs().max()) or 1.0
+        worst = max(worst, float((g.float() - w.float()).abs().max())
+                    / scale)
+    return {"bitwise": bitwise, "max_diff_over_max_leaf": worst}
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def sharded_train(dev, mesh) -> dict:
+    """[17] the train cell: one step of make_lowerable's sharded train
+    step and one of launch.train.build's, from the same seeded weights,
+    AdamW state and micro-batches, each called twice (the second timed
+    again); the flash counts zeroed before each path's first call."""
+    low = LM_steps.make_lowerable(LM_ARCH, SHARD_TRAIN, mesh,
+                                  lr=LM_TRAIN_LR,
+                                  cfg_overrides=SHARD_OVERRIDES)
+    cfg = low.cfg
+    require((cfg.n_layers, cfg.d_model, cfg.train_accum, cfg.tp,
+             cfg.fused_attention) == (28, 1024, LM_TRAIN_ACCUM, 1, True),
+            f"[17] {LM_ARCH} train cell not at full width: {cfg}")
+    init_state, step = LM_train.build(cfg, LM_TRAIN_LR, LM_TRAIN_ACCUM, dev)
+    params, opt = init_state()
+    batch = next(lm_batches(PipelineConfig(
+        seq_len=LM_TRAIN_SEQ, global_batch=LM_TRAIN_MB * LM_TRAIN_ACCUM,
+        accum=LM_TRAIN_ACCUM), cfg, dev))
+    dbatch = low.place(2, batch)
+    runs = {"unsharded": lambda: step(params, opt, batch),
+            "sharded": lambda: low.fn(low.args[0], low.args[1], dbatch)}
+    out, launches, ms = {}, {}, {}
+    for name, fn in runs.items():
+        FA.reset_launch_counts()
+        out[name], first = _timed(fn)
+        launches[name] = dict(FA.LAUNCHES)
+        ms[name] = {"first": first, "again": _timed(fn)[1]}
+        torch.cuda.empty_cache()
+    n = cfg.n_layers
+    want = {"flash_attention": 0,
+            "flash_attention_fwd": 2 * n * LM_TRAIN_ACCUM,
+            "flash_attention_bwd_dkv": n * LM_TRAIN_ACCUM,
+            "flash_attention_bwd_dq": n * LM_TRAIN_ACCUM}
+    require(launches["sharded"] == launches["unsharded"] == want,
+            f"[17] train launches {launches}, each should be {want}")
+    (p1, o1, m1), (p2, o2, m2) = out["unsharded"], out["sharded"]
+    loss1, loss2 = float(m1["loss"]), float(_whole(m2["loss"]))
+    gap = _leaf_gap(p2, p1)
+    require(abs(loss2 - loss1) <= LM_LOGIT_TOL * abs(loss1)
+            and gap["max_diff_over_max_leaf"] <= SHARD_PARAM_TOL,
+            f"[17] sharded train step differs: loss {loss2} vs {loss1}, "
+            f"{gap}")
+    opt_gap = _leaf_gap(o2.mu, o1.mu)
+    return {"ms": ms, "launches": launches,
+            "loss": {"unsharded": loss1, "sharded": loss2},
+            "params_after_step": gap, "adam_mu_after_step": opt_gap,
+            "tokens": SHARD_TRAIN.global_batch * SHARD_TRAIN.seq_len}
+
+
+def sharded_serve(dev, mesh) -> dict:
+    """[17] the serving cell: make_lowerable's decode cell (its params and
+    its LM_PROMPT + LM_GEN-position state) runs a prefill of [8]'s
+    tokens, then LM_GEN greedy decode steps; launch.serve.serve_session
+    does the same unsharded from the same seeded weights. The sharded
+    decode is fed the unsharded path's tokens, so each step compares one
+    function on the same inputs."""
+    low = LM_steps.make_lowerable(LM_ARCH, SHARD_SERVE, mesh,
+                                  cfg_overrides=SHARD_OVERRIDES)
+    cfg = low.cfg
+    dparams, _, _, dstate = low.args
+    prefill = LM_steps.build_prefill_step(LM_registry.build(cfg))
+    _, params, state, p_prefill, p_decode = LM_serve.serve_session(
+        cfg, LM_BATCH, LM_PROMPT, LM_PROMPT + LM_GEN, device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=dev)
+    dtokens = LM_steps.place({"tokens": tokens},
+                             {"tokens": low.specs[1]}, mesh)
+    res = {"ms": {}, "launches": {}}
+    FA.reset_launch_counts()
+    (l1, state), res["ms"]["prefill_unsharded"] = _timed(
+        lambda: p_prefill(params, {"tokens": tokens}, state))
+    res["launches"]["prefill_unsharded"] = FA.LAUNCHES["flash_attention"]
+    FA.reset_launch_counts()
+    (l2, dstate), res["ms"]["prefill_sharded"] = _timed(
+        lambda: prefill(dparams, dtokens, dstate))
+    res["launches"]["prefill_sharded"] = FA.LAUNCHES["flash_attention"]
+    # each prefill again (the caches are rewritten with the same values):
+    # a first call pays one-time costs (DTensor's sharding rules, cuBLAS)
+    for name, fn in (("unsharded", lambda: p_prefill(
+            params, {"tokens": tokens}, state)), ("sharded", lambda: prefill(
+                dparams, dtokens, dstate))):
+        res["ms"][f"prefill_{name}_again"] = _timed(fn)[1]
+    require(res["launches"]["prefill_sharded"]
+            == res["launches"]["prefill_unsharded"] == cfg.n_layers,
+            f"[17] prefill flash launches {res['launches']}, each should "
+            f"be {cfg.n_layers}")
+    l2 = _whole(l2)
+    scale = float(l1.float().abs().max())
+    res["prefill"] = {"bitwise": bool(torch.equal(l1, l2)),
+                      "max_abs_diff": float((l1.float() - l2.float())
+                                            .abs().max()),
+                      "bound": LM_LOGIT_TOL * scale}
+    require(res["prefill"]["max_abs_diff"] <= res["prefill"]["bound"],
+            f"[17] sharded prefill logits differ: {res['prefill']}")
+    tok = torch.argmax(l1, dim=-1).to(torch.int32)[:, None]
+    toks, worst, bitwise = [tok], 0.0, True
+    FA.reset_launch_counts()
+    t_plain = t_shard = 0.0
+    for i in range(LM_GEN):
+        (nxt, lp, state), ms1 = _timed(
+            lambda: p_decode(params, tok, LM_PROMPT + i, state))
+        dtok = LM_steps.place(tok, low.specs[1], mesh)
+        (_, ls, dstate), ms2 = _timed(
+            lambda: low.fn(dparams, dtok, LM_PROMPT + i, dstate))
+        t_plain, t_shard = t_plain + ms1, t_shard + ms2
+        ls = _whole(ls)
+        bitwise &= bool(torch.equal(lp, ls))
+        worst = max(worst, float((lp.float() - ls.float()).abs().max())
+                    / float(lp.float().abs().max()))
+        tok = nxt
+        toks.append(tok)
+    require(FA.LAUNCHES["flash_attention"] == 0,
+            f"[17] decode launched flash_attention {FA.LAUNCHES}")
+    require(worst <= LM_LOGIT_TOL, f"[17] sharded decode logits differ: "
+                                   f"{worst} x max|logits|")
+    res["decode"] = {"bitwise": bitwise, "max_diff_over_max": worst}
+    res["ms"]["decode_per_step_unsharded"] = t_plain / LM_GEN
+    res["ms"]["decode_per_step_sharded"] = t_shard / LM_GEN
+    return res
+
+
+def sharded_xlstm(dev, mesh) -> dict:
+    """[17b] one sharded xlstm-125m train step (make_lowerable, [17]'s
+    train cell) against one of launch.train.build's from the same weights
+    and micro-batches; the sLSTM counts zeroed before each: [9x]'s per
+    step, all the cluster kernels."""
+    over = {"tp": 1}
+    low = LM_steps.make_lowerable(XL_ARCH, SHARD_TRAIN, mesh,
+                                  lr=LM_TRAIN_LR, cfg_overrides=over)
+    cfg = low.cfg
+    init_state, step = LM_train.build(cfg, LM_TRAIN_LR, LM_TRAIN_ACCUM, dev)
+    params, opt = init_state()
+    batch = next(lm_batches(PipelineConfig(
+        seq_len=LM_TRAIN_SEQ, global_batch=LM_TRAIN_MB * LM_TRAIN_ACCUM,
+        accum=LM_TRAIN_ACCUM), cfg, dev))
+    dbatch = low.place(2, batch)
+    n = len(cfg.slstm_at)
+    want = {"slstm_fused": 2 * n * LM_TRAIN_ACCUM,
+            "slstm_fused_bwd": n * LM_TRAIN_ACCUM}
+    want_inst = {"cluster": want["slstm_fused"], "stream": 0,
+                 "bwd_cluster": want["slstm_fused_bwd"], "bwd_stream": 0}
+    out, launches, ms = {}, {}, {}
+    for name, fn in (("unsharded", lambda: step(params, opt, batch)),
+                     ("sharded", lambda: low.fn(low.args[0], low.args[1],
+                                                dbatch))):
+        SL.reset_launch_counts()
+        out[name], ms[name] = _timed(fn)
+        launches[name] = {**SL.LAUNCHES, **SL.INSTANCE_LAUNCHES}
+        require(dict(SL.LAUNCHES) == want
+                and dict(SL.INSTANCE_LAUNCHES) == want_inst,
+                f"[17b] {name} xlstm step launched {launches[name]}, "
+                f"expected {want} {want_inst}")
+    (p1, _, m1), (p2, _, m2) = out["unsharded"], out["sharded"]
+    loss1, loss2 = float(m1["loss"]), float(_whole(m2["loss"]))
+    gap = _leaf_gap(p2, p1)
+    require(abs(loss2 - loss1) <= LM_LOGIT_TOL * abs(loss1)
+            and gap["max_diff_over_max_leaf"] <= SHARD_PARAM_TOL,
+            f"[17b] sharded xlstm step differs: loss {loss2} vs {loss1}, "
+            f"{gap}")
+    return {"ms": ms, "launches": launches,
+            "loss": {"unsharded": loss1, "sharded": loss2},
+            "params_after_step": gap}
+
+
+def sharded_lm(dev) -> dict:
+    """[17] and [17b] on a one-rank NCCL world and its (1, 1) DeviceMesh
+    ("data", "model") on the card, torn down after. Multi-rank sharding
+    cannot run here: NCCL refuses two ranks on one GPU, and gloo's
+    all-gather of CUDA tensors segfaults every rank on the card (the
+    checkpoints gather through the host for that reason); it is held
+    against the reference on a 2 x 2 gloo CPU mesh by
+    tests/test_torch_launch_steps.py."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+            out["train"] = sharded_train(dev, mesh)
+            torch.cuda.empty_cache()
+            out["serve"] = sharded_serve(dev, mesh)
+            torch.cuda.empty_cache()
+            out["xlstm"] = sharded_xlstm(dev, mesh)
+        finally:
+            SHARD.set_mesh(None)
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_cells() -> dict:
+    """[17c] `python -m repro_torch.launch.dryrun`, one process a cell of
+    DRYRUN_CELLS, all started together (CPU only: fake worlds of 256 or
+    512 ranks, fake tensors); every process ended before this returns.
+    Each cell's JSON result by "arch shape mesh"."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    results, procs = {}, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        t0 = time.perf_counter()
+        for i, (arch, shape, mp, over) in enumerate(DRYRUN_CELLS):
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape,
+                   "--out", os.path.join(tmp, str(i))]
+            cmd += ["--multi-pod"] if mp else []
+            cmd += [f"--override={k}={json.dumps(v)}"
+                    for k, v in over.items()]
+            procs.append(subprocess.Popen(
+                cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(
+                    timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                - (time.perf_counter() - t0)))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for i, (arch, shape, mp, over) in enumerate(DRYRUN_CELLS):
+            files = list(pathlib.Path(tmp, str(i)).glob("*.json"))
+            require(len(files) == 1, f"[17c] {arch} x {shape}: no result "
+                                     f"({procs[i].returncode}):\n{logs[i]}")
+            res = json.loads(files[0].read_text())
+            res["overrides"] = over
+            results[f"{arch} {shape} {'2x16x16' if mp else '16x16'}"] = res
+    return {"wall_s": wall, "cells": results}
+
+
+def check_dryrun(dry: dict) -> None:
+    """[17c] every cell "ok", or "skipped" with the port's reason for
+    exactly the cells the long-context policy skips."""
+    for key, res in dry["cells"].items():
+        arch, shape, _ = key.split()
+        ok, reason = LM_steps.cell_supported(arch, LM_configs.SHAPES[shape])
+        if ok:
+            require(res["status"] == "ok",
+                    f"[17c] {key}: {res.get('status')} "
+                    f"{res.get('error', '')}")
+        else:
+            require(res == {"arch": arch, "shape": shape,
+                            "status": "skipped", "reason": reason,
+                            "overrides": res["overrides"]},
+                    f"[17c] {key} not skipped with the policy's reason: "
+                    f"{res}")
+
+
 def new_families(dev, card: str) -> dict:
     """[8v], [8h], [8w] and [9h], each phase's objects freed before the
     next; returns the flash launches of each path and the head-dim-64
@@ -5184,10 +5552,13 @@ def main() -> int:
     print(f"[8c] {LM_ARCH} f32 at full width, 1 x {LM_PROMPT} tokens (TF32 "
           f"off), bound {LM_LOGIT_TOL}: {json.dumps(f32)}", flush=True)
     ftimes = time_flash(q0, k0, v0, iters=50)
+    lm_trace = trace_lm(lm)
+    fill_device_ms(ftimes, lm_trace["prefill"], FLASH_KERNEL[torch.bfloat16],
+                   "the profiled prefill below")
     print(f"[8d] flash_attention times (ms; CUDA events, mean of 50 calls; "
           f"device_ms from torch.profiler over 10 calls): "
           f"{json.dumps(ftimes)}; profiled prefill and decode steps: "
-          f"{json.dumps(trace_lm(lm))}", flush=True)
+          f"{json.dumps(lm_trace)}", flush=True)
     flash_launches = lm["launches"]
     del lm, q0, k0, v0
     torch.cuda.empty_cache()
@@ -5344,10 +5715,74 @@ def main() -> int:
     torch.cuda.empty_cache()
     family_launches = new_families(dev, card)
 
+    step_trace = trace_train_step(tr)
+    for name in TRAIN_KERNELS:
+        fill_device_ms(ttimes[name], step_trace, TRAIN_KERNEL_NAMES[name][0],
+                       "the profiled train step, [9d] below")
+    filled = {n: (ttimes[n]["device_ms"], ttimes[n].get("device_ms_from"))
+              for n in TRAIN_KERNELS}
     print(f"[9d] one full-width LM train step under torch.profiler (after "
           f"a warm-up step in the profiler's schedule): "
-          f"{json.dumps(trace_train_step(tr))}", flush=True)
+          f"{json.dumps(step_trace)}; the training kernels' device_ms: "
+          f"{json.dumps(filled)}", flush=True)
     del tr
+    torch.cuda.empty_cache()
+
+    shard = sharded_lm(dev)
+    st, ss, sx = shard["train"], shard["serve"], shard["xlstm"]
+    print(f"[17] sharded {LM_ARCH} train step through launch.steps."
+          f"make_lowerable on a one-rank NCCL DeviceMesh (1, 1) (data, "
+          f"model), full width and depth, tp=1, fused_attention, "
+          f"{LM_TRAIN_ACCUM} x ({LM_TRAIN_MB} x {LM_TRAIN_SEQ}) tokens (the "
+          f"train_4k cell cut in batch), against launch.train.build on the "
+          f"same weights and micro-batches: ms {json.dumps(st['ms'])}; "
+          f"flash launches {json.dumps(st['launches'])}; loss "
+          f"{json.dumps(st['loss'])}; params after the step "
+          f"{json.dumps(st['params_after_step'])} (bound "
+          f"{SHARD_PARAM_TOL} x max|leaf|), Adam mu "
+          f"{json.dumps(st['adam_mu_after_step'])}; {card}", flush=True)
+    print(f"[17] sharded {LM_ARCH} serving (make_lowerable's decode cell, "
+          f"{LM_BATCH} x {LM_PROMPT + LM_GEN} positions): prefill of "
+          f"{LM_BATCH} x {LM_PROMPT} tokens and {LM_GEN} decode steps "
+          f"against serve_session on the same weights and tokens: ms "
+          f"{json.dumps(ss['ms'])}; flash launches "
+          f"{json.dumps(ss['launches'])}, 0 in decode both ways; prefill "
+          f"logits {json.dumps(ss['prefill'])}; decode logits "
+          f"{json.dumps(ss['decode'])} (bound {LM_LOGIT_TOL} x "
+          f"max|logits|); {card}", flush=True)
+    print(f"[17b] sharded {XL_ARCH} train step on the same mesh against "
+          f"launch.train.build: ms {json.dumps(sx['ms'])}; sLSTM launches "
+          f"{json.dumps(sx['launches'])}; loss {json.dumps(sx['loss'])}; "
+          f"params after the step {json.dumps(sx['params_after_step'])}; "
+          f"{card}", flush=True)
+    dry = dryrun_cells()
+    for key, res in dry["cells"].items():
+        if res["status"] != "ok":
+            print(f"[17c] {key}: {res['status']} "
+                  f"{res.get('reason', res.get('error', ''))}", flush=True)
+            continue
+        r, m = res["roofline"], res["memory"]
+        print(f"[17c] {key} {json.dumps(res['overrides'])} "
+              f"({res['chips']} ranks): compute "
+              f"{r['t_compute_s'] * 1e3:.3f} ms, memory "
+              f"{r['t_memory_s'] * 1e3:.3f} ms, collective "
+              f"{r['t_collective_s'] * 1e3:.3f} ms -> {r['bottleneck']}"
+              f"-bound, MFU at the roofline {r['mfu_at_roofline']:.4f}; "
+              f"per rank: flops {r['flops_per_chip']:.4g}, HBM bytes "
+              f"{r['hbm_bytes_per_chip']:.4g}, collective ring bytes "
+              f"{r['collective_ring_bytes']:.4g} "
+              f"{json.dumps(r['collective_ops'])}, kernel flops "
+              f"{json.dumps(res['kernel_flops'])} (expected "
+              f"{res['kernel_flops_expected']:.4g}); arguments "
+              f"{m['argument_bytes']} B + temporaries {m['temp_bytes']} B a "
+              f"rank, fits 80 GB: {m['fits_hbm']}; build "
+              f"{res['t_build_s']} s, count {res['t_count_s']} s, "
+              f"{res['ops_per_chip']} ops", flush=True)
+    check_dryrun(dry)
+    print(f"[17c] {len(dry['cells'])} dry-run cells on torch "
+          f"{torch.__version__}, one process each, all together: "
+          f"{dry['wall_s']:.1f} s", flush=True)
+
 
     library = {"fp32": "F.conv1d x3 + ReLU x2, fp32, TF32 off, grouped "
                        "per row",
@@ -5390,8 +5825,11 @@ def main() -> int:
         "bound_by": ftimes["bound_by"], "library_ms": ftimes["library_ms"],
         "device_ms": ftimes["device_ms"], "library": ftimes["library"],
         "shape": ftimes["shape"], "card": card,
+        **{k: ftimes[k] for k in ("device_ms_from",) if k in ftimes},
         "path_launches": {"8": flash_launches,
-                          **family_launches["flash_attention"]},
+                          **family_launches["flash_attention"],
+                          "17 sharded prefill":
+                              ss["launches"]["prefill_sharded"]},
         "head_dim_64": family_launches["head_dim_64"]})
     for name, (source, replaces, _) in TRAIN_KERNELS.items():
         t = ttimes[name]
@@ -5405,8 +5843,11 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
             "library": t["library"], "shape": t["shape"], "card": card,
+            **{k: t[k] for k in ("device_ms_from",) if k in t},
             "path_launches": {"9": tr_launches[name],
-                              "9h": family_launches["9h"][name]}})
+                              "9h": family_launches["9h"][name],
+                              "17 sharded step":
+                                  st["launches"]["sharded"][name]}})
     kernels.append({
         "name": SLSTM[0], "route": "cuda", "source": SLSTM[1],
         "replaces": SLSTM[2], "launches": slstm_launches,
@@ -5417,6 +5858,8 @@ def main() -> int:
         "device_ms": stimes["device_ms"], "library": stimes["library"],
         "instance": stimes["instance"], "q": stimes["q"],
         "rb": stimes["rb"], "us_per_step": stimes["us_per_step"],
+        "path_launches": {"10": slstm_launches, "17b sharded step":
+                          sx["launches"]["sharded"]["slstm_fused"]},
         "shape": stimes["shape"], "card": card})
     kernels.append({
         "name": SLSTM_BWD[0], "route": "cuda", "source": SLSTM_BWD[1],
@@ -5434,6 +5877,9 @@ def main() -> int:
         "stream_device_ms": btimes["stream_device_ms"],
         "stream_us_per_step": btimes["stream_us_per_step"],
         "stream_max_abs_err": bchecks["stream"]["dxg"]["kernel_vs_plain"],
+        "path_launches": {"9x": xt_launches["slstm_fused_bwd"],
+                          "17b sharded step":
+                              sx["launches"]["sharded"]["slstm_fused_bwd"]},
         "shape": btimes["shape"], "card": card})
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -9,6 +9,7 @@ reused);
 `load` builds at first use, opens the library with ctypes, declares its
 functions' types and caches it for the process. Nothing here falls back:
 a missing nvcc, a failed build or a library that does not load raises.
+`device_ptr` is the launchers' one way from a tensor to a pointer.
 
 The flags keep ``--fmad=false``: every kernel fixes a scalar order of
 operations that its plain PyTorch version repeats, and an FMA contraction
@@ -25,6 +26,8 @@ import shutil
 import subprocess
 import threading
 from typing import Callable, Dict, Tuple
+
+import torch
 
 from ..device import FLOAT_DTYPES
 
@@ -110,3 +113,22 @@ def load(csrc: pathlib.Path,
             bind(lib)
             _libs[csrc] = lib
         return lib
+
+
+def device_ptr(name: str, t: torch.Tensor) -> int:
+    """``t``'s device address for a ctypes launch. Raises TypeError for a
+    tensor without device memory of its own: a DTensor or a FakeTensor
+    (whose `data_ptr()` is 0, which a kernel would read as a null
+    pointer), a meta tensor, or any other subclass. The flash-attention
+    and sLSTM launchers, whose inputs a sharded model can hand over, read
+    every pointer through here."""
+    if type(t) not in (torch.Tensor, torch.nn.Parameter) or t.is_meta:
+        raise TypeError(f"{name}: a {type(t).__name__} on {t.device} has no "
+                        f"device memory of its own; a kernel launches only "
+                        f"from plain CUDA tensors (DTensors reach the "
+                        f"kernels as local shards through local_map)")
+    ptr = t.data_ptr()
+    if ptr == 0 and t.numel():
+        raise TypeError(f"{name}: a tensor of {t.numel()} elements has a "
+                        f"null data pointer")
+    return ptr

@@ -29,6 +29,20 @@ stride of a dimension longer than 1 to be a multiple of 8 elements
 (`rows_aligned`); otherwise it raises ValueError naming the tensor (no
 copy, no fallback).
 
+Opaque ops. Each kernel entry point is a `torch.library.custom_op`
+(``torch.ops.repro_torch.flash_attention``, ``flash_attention_fwd``,
+``flash_attention_bwd_dkv``, ``flash_attention_bwd_dq``), so a tracer or
+a dispatch mode sees one op where the kernel runs: its fake kernel gives
+the outputs' shapes and types and launches nothing (the dry run's fake
+tensors stop there), and its flop formula (registered with
+`torch.utils.flop_counter`) is the kernel's own work from
+`attention_costs`: causal where it is causal, the forward's two products,
+dK/dV's four and dQ's three. A DTensor reaching an op raises (it has no
+sharding rule: the models hand the kernels local shards through
+`local_map`), and `_launch` / `_launch_bwd` refuse any tensor without
+device memory of its own (a DTensor or a FakeTensor, whose `data_ptr()`
+is 0): nothing launches from one.
+
 `LAUNCHES` counts kernel launches, one key per kernel (bumped only where
 that kernel is launched): ``flash_attention`` (serving), and the training
 path's ``flash_attention_fwd``, ``flash_attention_bwd_dkv`` and
@@ -44,6 +58,7 @@ import pathlib
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from . import ref
@@ -199,15 +214,16 @@ def _launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
             q_offset: int, stream: int, lse=None) -> int:
     """Marshal one call of `flash_attn_launch` (or, with ``lse``, of
     `flash_attn_fwd_lse_launch`); returns its code."""
+    ptrs = tuple(_build.device_ptr(n, t) for n, t in
+                 (("q", q), ("k", k), ("v", v), ("out", out)))
     tail = (_strides(q, k, v), int(bool(causal)), window, q_offset,
             1.0 / math.sqrt(q.shape[-1]), stream)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     if lse is None:
         return lib.flash_attn_launch(_DTYPES[q.dtype], *ptrs,
                                      *_shape_args(q, k), *tail)
     return lib.flash_attn_fwd_lse_launch(_DTYPES[q.dtype], *ptrs,
-                                         lse.data_ptr(), *_shape_args(q, k),
-                                         *tail)
+                                         _build.device_ptr("lse", lse),
+                                         *_shape_args(q, k), *tail)
 
 
 def _launch_bwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
@@ -219,9 +235,10 @@ def _launch_bwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
     code."""
     fn = (lib.flash_attn_bwd_dq_launch if len(outs) == 1
           else lib.flash_attn_bwd_dkv_launch)
-    return fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-              *(t.data_ptr() for t in outs), *_shape_args(q, k),
+    ptrs = [_build.device_ptr(n, t) for n, t in
+            (("q", q), ("k", k), ("v", v), ("do", do), ("lse", lse),
+             ("delta", delta), *((f"out{i}", t) for i, t in enumerate(outs)))]
+    return fn(_DTYPES[q.dtype], *ptrs, *_shape_args(q, k),
               _strides(q, k, v, do), int(bool(causal)), window, q_offset,
               1.0 / math.sqrt(q.shape[-1]), stream)
 
@@ -231,6 +248,140 @@ def _raise_on(rc: int, name: str, d: int) -> None:
         raise ValueError(f"{name}: head dim {d} has no kernel instance")
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with code {rc}")
+
+
+_OPS = "repro_torch::"
+_ATTN_ARGS = "Tensor q, Tensor k, Tensor v"
+_MASK_ARGS = "bool causal, int window, int q_offset"
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@torch.library.custom_op(_OPS + "flash_attention", mutates_args=(),
+                         schema=f"({_ATTN_ARGS}, {_MASK_ARGS}) -> Tensor")
+def _flash_attention_op(q, k, v, causal, window, q_offset):
+    if not q.is_cuda:
+        return ref.flash_attention(q, k, v, causal, window, q_offset)
+    _check_rows_aligned("flash_attention", q, k, v)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lib = _build.load(CSRC, _bind)
+    with torch.cuda.device(q.device):
+        rc = _launch(lib, q, k, v, out, causal, window, q_offset, _stream(q))
+    _raise_on(rc, "flash_attention", q.shape[-1])
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+@torch.library.custom_op(
+    _OPS + "flash_attention_fwd", mutates_args=(),
+    schema=f"({_ATTN_ARGS}, {_MASK_ARGS}) -> (Tensor, Tensor)")
+def _flash_attention_fwd_op(q, k, v, causal, window, q_offset):
+    if not q.is_cuda:
+        return ref.flash_attention_fwd(q, k, v, causal, window, q_offset)
+    _check_rows_aligned("flash_attention_fwd", q, k, v)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    lib = _build.load(CSRC, _bind)
+    with torch.cuda.device(q.device):
+        rc = _launch(lib, q, k, v, out, causal, window, q_offset, _stream(q),
+                     lse=lse)
+    _raise_on(rc, "flash_attention_fwd", q.shape[-1])
+    LAUNCHES["flash_attention_fwd"] += 1
+    return out, lse
+
+
+_BWD_SCHEMA = (f"({_ATTN_ARGS}, Tensor do, Tensor lse, Tensor delta, "
+               f"{_MASK_ARGS})")
+
+
+@torch.library.custom_op(_OPS + "flash_attention_bwd_dkv", mutates_args=(),
+                         schema=_BWD_SCHEMA + " -> (Tensor, Tensor)")
+def _flash_attention_bwd_dkv_op(q, k, v, do, lse, delta, causal, window,
+                                q_offset):
+    if not q.is_cuda:
+        return ref.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                           window, q_offset)
+    _check_rows_aligned("flash_attention_bwd_dkv", q, k, v, do)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    lib = _build.load(CSRC_BWD, _bind_bwd)
+    with torch.cuda.device(q.device):
+        rc = _launch_bwd(lib, q, k, v, do, lse, delta, (dk, dv), causal,
+                         window, q_offset, _stream(q))
+    _raise_on(rc, "flash_attention_bwd_dkv", q.shape[-1])
+    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+@torch.library.custom_op(_OPS + "flash_attention_bwd_dq", mutates_args=(),
+                         schema=_BWD_SCHEMA + " -> Tensor")
+def _flash_attention_bwd_dq_op(q, k, v, do, lse, delta, causal, window,
+                               q_offset):
+    if not q.is_cuda:
+        return ref.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal,
+                                          window, q_offset)
+    _check_rows_aligned("flash_attention_bwd_dq", q, k, v, do)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lib = _build.load(CSRC_BWD, _bind_bwd)
+    with torch.cuda.device(q.device):
+        rc = _launch_bwd(lib, q, k, v, do, lse, delta, (dq,), causal,
+                         window, q_offset, _stream(q))
+    _raise_on(rc, "flash_attention_bwd_dq", q.shape[-1])
+    LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal, window, q_offset):
+    return q.new_empty(q.shape)
+
+
+@_flash_attention_fwd_op.register_fake
+def _(q, k, v, causal, window, q_offset):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:3],
+                                             dtype=torch.float32)
+
+
+@_flash_attention_bwd_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, causal, window, q_offset):
+    return q.new_empty(k.shape), q.new_empty(k.shape)
+
+
+@_flash_attention_bwd_dq_op.register_fake
+def _(q, k, v, do, lse, delta, causal, window, q_offset):
+    return q.new_empty(q.shape)
+
+
+def _forward_flops(q_shape, k_shape, causal, window) -> float:
+    b, sq, h, d = q_shape
+    return attention_costs(b, sq, k_shape[1], h, d, causal,
+                           window)["flops"]
+
+
+def _register_flops(op, products: int) -> None:
+    """The kernel's flops for `FlopCounterMode` (and the dry run):
+    ``products`` / 2 times `attention_costs`' two-product forward count
+    (registered once per process)."""
+    from torch.utils.flop_counter import flop_registry
+    if op in flop_registry:
+        return
+
+    def flops(q_shape, k_shape, v_shape, *rest, out_shape=None, **kw):
+        causal, window = rest[-3], rest[-2]
+        return int(products / 2 * _forward_flops(q_shape, k_shape, causal,
+                                                 window))
+    register_flop_formula(op)(flops)
+
+
+# forward QKᵀ, PV; dK/dV: recomputed QKᵀ, dV = Pᵀ·dO, dP = dO·Vᵀ, dK = dSᵀ·Q;
+# dQ: recomputed QKᵀ, dP, dQ = dS·K
+for _op, _products in ((torch.ops.repro_torch.flash_attention, 2),
+                       (torch.ops.repro_torch.flash_attention_fwd, 2),
+                       (torch.ops.repro_torch.flash_attention_bwd_dkv, 4),
+                       (torch.ops.repro_torch.flash_attention_bwd_dq, 3)):
+    _register_flops(_op, _products)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -243,17 +394,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     keys j > q_offset + i − window. A row with no valid key is 0.
     """
     _check(q, k, v, window, q_offset)
-    if not q.is_cuda:
-        return ref.flash_attention(q, k, v, causal, window, q_offset)
-    _check_rows_aligned("flash_attention", q, k, v)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lib = _build.load(CSRC, _bind)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _launch(lib, q, k, v, out, causal, window, q_offset, stream)
-    _raise_on(rc, "flash_attention", q.shape[-1])
-    LAUNCHES["flash_attention"] += 1
-    return out
+    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal),
+                                                 window, q_offset)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -264,19 +406,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores: (o (B, Sq, H, D) in q.dtype, lse (B, Sq, H) f32), lse NEG_INF
     (−1e30) for a row with no valid key. The training forward."""
     _check(q, k, v, window, q_offset)
-    if not q.is_cuda:
-        return ref.flash_attention_fwd(q, k, v, causal, window, q_offset)
-    _check_rows_aligned("flash_attention_fwd", q, k, v)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    lib = _build.load(CSRC, _bind)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _launch(lib, q, k, v, out, causal, window, q_offset, stream,
-                     lse=lse)
-    _raise_on(rc, "flash_attention_fwd", q.shape[-1])
-    LAUNCHES["flash_attention_fwd"] += 1
-    return out, lse
+    return torch.ops.repro_torch.flash_attention_fwd(q, k, v, bool(causal),
+                                                     window, q_offset)
 
 
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
@@ -289,20 +420,8 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     f32: the dK/dV kernel. ``delta`` is rowsum(do ⊙ o) (B, Sq, H) f32."""
     _check(q, k, v, window, q_offset)
     _check_bwd(q, do, lse, delta)
-    if not q.is_cuda:
-        return ref.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
-                                           window, q_offset)
-    _check_rows_aligned("flash_attention_bwd_dkv", q, k, v, do)
-    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
-    lib = _build.load(CSRC_BWD, _bind_bwd)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _launch_bwd(lib, q, k, v, do, lse, delta, (dk, dv), causal,
-                         window, q_offset, stream)
-    _raise_on(rc, "flash_attention_bwd_dkv", q.shape[-1])
-    LAUNCHES["flash_attention_bwd_dkv"] += 1
-    return dk, dv
+    return torch.ops.repro_torch.flash_attention_bwd_dkv(
+        q, k, v, do, lse, delta, bool(causal), window, q_offset)
 
 
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
@@ -313,19 +432,8 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
     """dq (B, Sq, H, D) in q.dtype: the dQ kernel."""
     _check(q, k, v, window, q_offset)
     _check_bwd(q, do, lse, delta)
-    if not q.is_cuda:
-        return ref.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal,
-                                          window, q_offset)
-    _check_rows_aligned("flash_attention_bwd_dq", q, k, v, do)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lib = _build.load(CSRC_BWD, _bind_bwd)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _launch_bwd(lib, q, k, v, do, lse, delta, (dq,), causal,
-                         window, q_offset, stream)
-    _raise_on(rc, "flash_attention_bwd_dq", q.shape[-1])
-    LAUNCHES["flash_attention_bwd_dq"] += 1
-    return dq
+    return torch.ops.repro_torch.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, bool(causal), window, q_offset)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

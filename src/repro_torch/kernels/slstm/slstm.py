@@ -48,6 +48,16 @@ What it takes: xg (B, S, 4·d) f32 or bf16 with unit stride along 4·d; r
 h, m), each a contiguous (B, d) f32 tensor; S ≥ 1, B ≤ 65535, dh ≤ 1024.
 Anything else raises, on either device.
 
+Opaque ops. `slstm_fused` and `slstm_fused_bwd` run through
+`torch.library.custom_op`s (``torch.ops.repro_torch.slstm_fused`` and
+``slstm_fused_bwd``): a fake kernel gives their outputs' shapes and types
+and launches nothing, and a flop formula (`torch.utils.flop_counter`)
+counts the work of the call, from `slstm_costs` (the forward) and from
+`slstm_bwd_costs` plus the backward's two batched products (the
+recompute of pre and dr's einsum). A DTensor reaching an op raises, and
+the launchers refuse any tensor without device memory of its own (a
+DTensor or a FakeTensor): nothing launches from one.
+
 `LAUNCHES` counts kernel launches ("slstm_fused", "slstm_fused_bwd") and
 `INSTANCE_LAUNCHES` the launches of each kernel ("cluster", "stream",
 "bwd_cluster", "bwd_stream"; all bumped only where a kernel is launched);
@@ -61,6 +71,7 @@ import pathlib
 from typing import Dict, List, NamedTuple, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from . import ref
@@ -281,9 +292,12 @@ def _args(xg: torch.Tensor, r: torch.Tensor, state, hs: torch.Tensor, out,
           stream: int) -> tuple:
     b, s, _ = xg.shape
     _, nh, dh, _ = r.shape
-    return (_DTYPES[xg.dtype], _DTYPES[r.dtype], xg.data_ptr(), xg.stride(0),
-            xg.stride(1), r.data_ptr(), *(t.data_ptr() for t in state),
-            hs.data_ptr(), *(t.data_ptr() for t in out), b, s, nh, dh, stream)
+    ptr = _build.device_ptr
+    return (_DTYPES[xg.dtype], _DTYPES[r.dtype], ptr("xg", xg),
+            xg.stride(0), xg.stride(1), ptr("r", r),
+            *(ptr(f"state {n}", t) for n, t in zip("cnhm", state)),
+            ptr("hs", hs), *(ptr(f"out {n}", t) for n, t in zip("cnhm", out)),
+            b, s, nh, dh, stream)
 
 
 def _launch(lib: ctypes.CDLL, xg: torch.Tensor, r: torch.Tensor, state,
@@ -311,13 +325,27 @@ def slstm_fused(xg: torch.Tensor, r: torch.Tensor, state, nh: int):
     state: (c, n, h, m) each (B, d) f32. Returns (hs (B, S, d) f32,
     (c, n, h, m)), each state tensor new."""
     _check(xg, r, state, nh)
-    if not xg.is_cuda:
-        return ref.slstm_fused(xg, r, state, nh)
-    if torch.is_grad_enabled() and any(
+    if xg.is_cuda and torch.is_grad_enabled() and any(
             t.requires_grad for t in (xg, r, *state)):
         raise NotImplementedError(
             "slstm_fused has no backward of its own: differentiate through "
             "models.xlstm.slstm_scan, whose backward is slstm_fused_bwd")
+    hs, *out = torch.ops.repro_torch.slstm_fused(xg, r, *state, nh)
+    return hs, tuple(out)
+
+
+_STATE_ARGS = "Tensor c, Tensor n, Tensor h, Tensor m"
+
+
+@torch.library.custom_op(
+    "repro_torch::slstm_fused", mutates_args=(),
+    schema=f"(Tensor xg, Tensor r, {_STATE_ARGS}, int nh) -> "
+           f"(Tensor, Tensor, Tensor, Tensor, Tensor)")
+def _slstm_fused_op(xg, r, c, n, h, m, nh):
+    state = (c, n, h, m)
+    if not xg.is_cuda:
+        hs, out = ref.slstm_fused(xg, r, state, nh)
+        return (hs, *out)
     b, s, d4 = xg.shape
     plan = _plan(b, nh, d4 // (4 * nh))
     hs = torch.empty((b, s, d4 // 4), dtype=torch.float32, device=xg.device)
@@ -331,7 +359,14 @@ def slstm_fused(xg: torch.Tensor, r: torch.Tensor, state, nh: int):
                            f"{rc}")
     LAUNCHES["slstm_fused"] += 1
     INSTANCE_LAUNCHES[plan.instance] += 1
-    return hs, out
+    return (hs, *out)
+
+
+@_slstm_fused_op.register_fake
+def _(xg, r, c, n, h, m, nh):
+    b, s, d4 = xg.shape
+    return (xg.new_empty((b, s, d4 // 4), dtype=torch.float32),
+            *(t.new_empty(t.shape) for t in (c, n, h, m)))
 
 
 def _launch_bwd(lib: ctypes.CDLL, pre: torch.Tensor, r_t: torch.Tensor,
@@ -348,10 +383,13 @@ def _launch_bwd(lib: ctypes.CDLL, pre: torch.Tensor, r_t: torch.Tensor,
     b, s, d4 = pre.shape
     dh = d4 // (4 * nh)
     c0, n0, _, m0 = state
-    args = (_DTYPES[r_t.dtype], pre.data_ptr(), r_t.data_ptr(), hs.data_ptr(),
-            dhs.data_ptr(), c0.data_ptr(), n0.data_ptr(), m0.data_ptr(),
-            *(t.data_ptr() for t in dstate), cnm.data_ptr(), dpre.data_ptr(),
-            *(t.data_ptr() for t in dstate0), b, s, nh, dh, stream)
+    ptrs = [_build.device_ptr(n, t) for n, t in (
+        ("pre", pre), ("r_t", r_t), ("hs", hs), ("dhs", dhs), ("c0", c0),
+        ("n0", n0), ("m0", m0), *((f"dstate {k}", t)
+                                  for k, t in zip("cnhm", dstate)),
+        ("cnm", cnm), ("dpre", dpre),
+        *((f"dstate0 {k}", t) for k, t in zip("cnhm", dstate0)))]
+    args = (_DTYPES[r_t.dtype], *ptrs, b, s, nh, dh, stream)
     if forced is None:
         return lib.slstm_bwd_launch(*args)
     if forced == "stream":
@@ -423,11 +461,60 @@ def slstm_fused_bwd(xg: torch.Tensor, r: torch.Tensor, state, nh: int,
     backward kernel on a CUDA tensor (or a raise); `ref.slstm_fused_bwd`
     on a CPU tensor."""
     _check_bwd(xg, r, state, nh, hs, dhs, dstate)
+    dxg, dr, *dst = torch.ops.repro_torch.slstm_fused_bwd(
+        xg, r, *state, hs, dhs, *dstate, nh)
+    return dxg, dr, tuple(dst)
+
+
+@torch.library.custom_op(
+    "repro_torch::slstm_fused_bwd", mutates_args=(),
+    schema=f"(Tensor xg, Tensor r, {_STATE_ARGS}, Tensor hs, Tensor dhs, "
+           f"Tensor dc, Tensor dn, Tensor dh, Tensor dm, int nh) -> "
+           f"(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
+def _slstm_fused_bwd_op(xg, r, c, n, h, m, hs, dhs, dc, dn, dh, dm, nh):
+    state, dstate = (c, n, h, m), (dc, dn, dh, dm)
     if not xg.is_cuda:
         dxg, dr, dst = ref.slstm_fused_bwd(xg, r, state, nh, hs, dhs,
                                            dstate)
-        return dxg.to(xg.dtype), dr.to(r.dtype), dst
-    return _bwd_call(xg, r, state, nh, hs, dhs, dstate)
+        return (dxg.to(xg.dtype), dr.to(r.dtype), *dst)
+    dxg, dr, dst = _bwd_call(xg, r, state, nh, hs, dhs, dstate)
+    return (dxg, dr, *dst)
+
+
+@_slstm_fused_bwd_op.register_fake
+def _(xg, r, c, n, h, m, hs, dhs, dc, dn, dh, dm, nh):
+    return (xg.new_empty(xg.shape), r.new_empty(r.shape),
+            *(t.new_empty(t.shape, dtype=torch.float32)
+              for t in (c, n, h, m)))
+
+
+def _slstm_shape(xg_shape, r_shape):
+    b, s, _ = xg_shape
+    _, nh, dh, _ = r_shape
+    return b, s, nh, dh
+
+
+def _register_flops() -> None:
+    """The calls' work for `FlopCounterMode` (and the dry run): the
+    forward's recurrent product (`slstm_costs`); the backward's transpose
+    product (`slstm_bwd_costs`) plus its recompute of pre and dr's einsum,
+    each as many operations again. Registered once per process."""
+    from torch.utils.flop_counter import flop_registry
+    fwd = torch.ops.repro_torch.slstm_fused
+    bwd = torch.ops.repro_torch.slstm_fused_bwd
+    if fwd not in flop_registry:
+        @register_flop_formula(fwd)
+        def _fwd(xg_shape, r_shape, *rest, out_shape=None, **kw):
+            return int(slstm_costs(*_slstm_shape(xg_shape,
+                                                 r_shape))["flops"])
+    if bwd not in flop_registry:
+        @register_flop_formula(bwd)
+        def _bwd(xg_shape, r_shape, *rest, out_shape=None, **kw):
+            return int(3 * slstm_bwd_costs(*_slstm_shape(
+                xg_shape, r_shape))["flops"])
+
+
+_register_flops()
 
 
 def _forced_bwd(forced, xg: torch.Tensor, r: torch.Tensor, state, nh: int,

@@ -13,6 +13,12 @@ so an `AbstractMesh` (names and sizes, no ranks) stands in for a
 production mesh: the specs of a 16×16 or 2×16×16 mesh are computed without
 a world of 256 processes.
 
+`init_fake_world` stands a world of 256 or 512 ranks up in one process (torch's
+fake process group: collectives return at once and move nothing), so that
+`make_production_mesh(fake=True)` is a real `DeviceMesh` of the production
+shape whose DTensors, under `FakeTensorMode`, hold no memory: what
+`launch.dryrun` runs a cell on.
+
 `run_ranks` starts a world of processes on this host (``spawn``, a
 `FileStore` rendezvous in a temporary directory, so concurrent worlds never
 share a port) and returns each rank's result.
@@ -74,15 +80,38 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
                             mesh_dim_names=tuple(axes))
 
 
+def init_fake_world(world: int) -> None:
+    """Initialize the default process group as torch's fake group of
+    ``world`` ranks, this process being rank 0: no peers, no transport,
+    collectives complete at once (their outputs are uninitialized on real
+    tensors, shapes only under `FakeTensorMode`). Raises if a world is
+    already initialized; the caller destroys it
+    (`dist.destroy_process_group`)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a torch.distributed world is already "
+                           "initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+
+
 def make_production_mesh(*, multi_pod: bool = False,
-                         device_type: Optional[str] = None):
+                         device_type: Optional[str] = None,
+                         fake: bool = False):
     """The reference's production mesh, (16, 16) ("data", "model") or
     (2, 16, 16) ("pod", "data", "model"): a `DeviceMesh` where the
-    initialized world has that many ranks, else its `AbstractMesh`."""
+    initialized world has that many ranks, else its `AbstractMesh`. With
+    ``fake`` and no world initialized, first a fake world of that many
+    ranks (`init_fake_world`; the caller destroys it), and the mesh is a
+    "cpu" one unless ``device_type`` says otherwise."""
     shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
     n = 1
     for s in shape:
         n *= s
+    if fake:
+        if not dist.is_initialized():
+            init_fake_world(n)
+        device_type = device_type or "cpu"
     if dist.is_initialized() and dist.get_world_size() == n:
         return make_mesh(shape, axes, device_type)
     return AbstractMesh.of(shape, axes)

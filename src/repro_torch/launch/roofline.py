@@ -1,0 +1,327 @@
+"""Roofline of one step from what the step runs: no hardware needed.
+
+Port of `repro.launch.roofline`. The reference reads the compiled HLO
+(`analyze_hlo`: dot flops, fusion-level bytes and collectives with their
+loop trip counts). The port has no compiler and no HLO: it runs the step
+(on fake tensors, in the dry run) under `StepCounter`, a
+`TorchDispatchMode` that sees every op each rank runs on its local
+shards, in the order it runs them, so loops need no trip counts:
+
+  * flops: `torch.utils.flop_counter`'s formulas on local shapes (per
+    rank), the hand-written kernels' own (`kernels.flash_attn`,
+    `kernels.slstm`: causal where causal, each an opaque op);
+  * HBM bytes: Σ (operand + result bytes) of every op that moves data (not
+    the views, allocations and metadata queries): the eager, no-fusion
+    model, which is how the port runs;
+  * collectives: each functional collective (`_c10d_functional.*`) with
+    its group size, into the reference's ring model (per-rank bytes
+    moved: all-gather (n−1)·operand, all-reduce 2(n−1)/n·operand,
+    reduce-scatter and all-to-all (n−1)/n·operand, a permute its
+    operand). On a "cpu" mesh DTensor makes a shard-to-shard move of an
+    all-gather and a chunk (gloo has no all-to-all); the counter counts
+    such a move as the all-to-all the card's NCCL would run.
+
+The HLO parser (`analyze_hlo`, `parse_collectives`, `from_compiled`) has
+no counterpart: there is no HLO to parse.
+
+Terms (seconds, per step, per rank), for an NVIDIA H100 SXM5 80GB
+(NVIDIA's H100 Tensor Core GPU datasheet):
+  compute    = flops / PEAK_FLOPS     (dense bf16 tensor cores, 989 TFLOP/s)
+  memory     = hbm_bytes / HBM_BW     (HBM3, 3.35 TB/s)
+  collective = ring_bytes / ICI_BW    (NVLink 4: 900 GB/s a GPU, both
+                                       directions; 450 GB/s each way)
+"""
+from __future__ import annotations
+
+import dataclasses
+import weakref
+from typing import Dict, Optional
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+# NVIDIA H100 SXM5 80GB, from NVIDIA's H100 datasheet: HBM3 bandwidth and
+# the dense (no sparsity) tensor-core peaks by operand type; fp32 is the
+# non-tensor FP32 rate
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+HBM_PER_CHIP = 80e9              # bytes of HBM3 a card
+PEAK_FLOPS = PEAK_OPS_S["bf16"]  # FLOP/s a card
+HBM_BW = HBM_BYTES_S             # bytes/s a card
+ICI_BW = 450e9                   # NVLink bytes/s a card, each direction
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    op_bytes: Dict[str, int]          # op kind → Σ operand bytes (per chip)
+    ring_bytes: Dict[str, float]      # op kind → ring-model bytes moved/chip
+    count: Dict[str, int]
+
+    @property
+    def total_operand_bytes(self) -> int:
+        return sum(self.op_bytes.values())
+
+    @property
+    def total_ring_bytes(self) -> float:
+        return sum(self.ring_bytes.values())
+
+
+def ring_bytes(kind: str, operand_bytes: float, n: int) -> float:
+    """Bytes one rank moves for one collective of ``kind`` over ``n``
+    ranks on an operand of ``operand_bytes`` (the reference's ring
+    model)."""
+    if kind == "all-gather":
+        return operand_bytes * (n - 1)
+    if kind == "all-reduce":
+        return 2.0 * operand_bytes * (n - 1) / n
+    if kind in ("reduce-scatter", "all-to-all"):
+        return operand_bytes * (n - 1) / n
+    return float(operand_bytes)               # collective-permute
+
+
+@dataclasses.dataclass
+class Roofline:
+    flops: float                 # per-chip flops
+    hbm_bytes: float             # per-chip bytes accessed
+    coll: CollectiveStats
+    n_chips: int
+    model_flops: float = 0.0     # 6·N·D (global, useful work)
+
+    @property
+    def t_compute(self) -> float:
+        return self.flops / PEAK_FLOPS
+
+    @property
+    def t_memory(self) -> float:
+        return self.hbm_bytes / HBM_BW
+
+    @property
+    def t_collective(self) -> float:
+        return self.coll.total_ring_bytes / ICI_BW
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def t_step(self) -> float:
+        """Perfect-overlap lower bound: max of the three terms."""
+        return max(self.t_compute, self.t_memory, self.t_collective)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        """MODEL_FLOPS / (per-chip flops × chips) — remat/pad waste."""
+        total = self.flops * self.n_chips
+        return self.model_flops / total if total else 0.0
+
+    @property
+    def mfu(self) -> float:
+        """Model FLOPs utilization at the roofline step time."""
+        total = self.n_chips * PEAK_FLOPS * self.t_step
+        return self.model_flops / total if total else 0.0
+
+    def to_dict(self) -> dict:
+        return {
+            "flops_per_chip": self.flops,
+            "hbm_bytes_per_chip": self.hbm_bytes,
+            "collective_operand_bytes": self.coll.total_operand_bytes,
+            "collective_ring_bytes": self.coll.total_ring_bytes,
+            "collective_ops": self.coll.count,
+            "collective_ring_bytes_by_op": self.coll.ring_bytes,
+            "t_compute_s": self.t_compute,
+            "t_memory_s": self.t_memory,
+            "t_collective_s": self.t_collective,
+            "bottleneck": self.bottleneck,
+            "t_step_s": self.t_step,
+            "model_flops": self.model_flops,
+            "useful_flops_ratio": self.useful_flops_ratio,
+            "mfu_at_roofline": self.mfu,
+        }
+
+
+def model_flops(n_active_params: int, tokens: int, kind: str) -> float:
+    """6·N·D for training, 2·N·D for inference forward passes."""
+    factor = 6.0 if kind == "train" else 2.0
+    return factor * n_active_params * tokens
+
+
+# ---------------------------------------------------------------------------
+# the counter
+# ---------------------------------------------------------------------------
+
+_COLLECTIVES = (("all_gather", "all-gather"), ("reduce_scatter",
+                                               "reduce-scatter"),
+                ("all_reduce", "all-reduce"), ("all_to_all", "all-to-all"),
+                ("broadcast", "collective-permute"),
+                ("send", "collective-permute"),
+                ("recv", "collective-permute"))
+_NO_TRAFFIC = {"empty", "empty_strided", "empty_like", "new_empty",
+               "new_empty_strided", "lift_fresh", "wait_tensor",
+               "_local_scalar_dense", "is_same_size", "sym_size",
+               "sym_stride", "sym_numel", "sym_storage_offset", "dim"}
+
+
+def _tensors(*trees) -> list:
+    """The tensors among ``trees`` (lists, tuples, dicts of them)."""
+    out: list = []
+    for t in trees:
+        _add_tensors(t, out)
+    return out
+
+
+def _add_tensors(x, out: list) -> None:
+    # a module-level walk: a recursive closure would make a reference
+    # cycle that keeps the tensors (and the peak estimate) alive
+    if isinstance(x, torch.Tensor):
+        out.append(x)
+    elif isinstance(x, (list, tuple)):
+        for y in x:
+            _add_tensors(y, out)
+    elif isinstance(x, dict):
+        for y in x.values():
+            _add_tensors(y, out)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _group_size(func, args) -> int:
+    """The group size of a functional collective: its ``group_size``
+    argument, else its group's size."""
+    names = [a.name for a in func._schema.arguments]
+    if "group_size" in names:
+        return int(args[names.index("group_size")])
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    group = args[names.index("group_name")]
+    if isinstance(group, str):
+        group = _resolve_process_group(group)
+    return group.size()
+
+
+class StepCounter(TorchDispatchMode):
+    """Counts, per rank, the flops (`flops`, and by op in `flops_by_op`,
+    keyed "namespace.op"), HBM bytes and collectives of the ops
+    run under it (see the module docstring), and the peak bytes of the
+    tensors those ops make that are alive at once (`peak_bytes`: the
+    step's temporaries, its inputs not included). Ops on DTensors pass to
+    DTensor, whose local ops come back here."""
+
+    def __init__(self):
+        super().__init__()
+        from torch.utils.flop_counter import flop_registry
+        self._flop_registry = flop_registry
+        self.flops = 0.0
+        self.flops_by_op: Dict[str, float] = {}
+        self.hbm_bytes = 0.0
+        self.op_bytes: Dict[str, int] = {}
+        self.ring: Dict[str, float] = {}
+        self.count: Dict[str, int] = {}
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self.n_ops = 0
+        self._muted = 0
+        self._patched = None
+
+    # -- collectives ---------------------------------------------------
+    def _collective(self, kind: str, operand_bytes: int, n: int) -> None:
+        self.op_bytes[kind] = self.op_bytes.get(kind, 0) + operand_bytes
+        self.count[kind] = self.count.get(kind, 0) + 1
+        self.ring[kind] = self.ring.get(kind, 0.0) + ring_bytes(
+            kind, operand_bytes, n)
+
+    def _alltoall(self, orig):
+        """DTensor's shard-to-shard move, counted as one all-to-all of its
+        input over the mesh dim (its ops inside are not counted again)."""
+        def move(input, gather_dim, shard_dim, mesh, mesh_dim):
+            n = mesh.size(mesh_dim)
+            nbytes = _nbytes(input)
+            self._collective("all-to-all", nbytes, n)
+            self.hbm_bytes += 2 * nbytes
+            self._muted += 1
+            try:
+                return orig(input, gather_dim, shard_dim, mesh, mesh_dim)
+            finally:
+                self._muted -= 1
+        return move
+
+    def __enter__(self):
+        from torch.distributed.tensor import placement_types as pt
+        orig = getattr(pt, "shard_dim_alltoall", None)
+        if orig is not None:
+            self._patched = (pt, orig)
+            pt.shard_dim_alltoall = self._alltoall(orig)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        if self._patched is not None:
+            pt, orig = self._patched
+            pt.shard_dim_alltoall = orig
+            self._patched = None
+        return super().__exit__(*exc)
+
+    # -- memory ----------------------------------------------------------
+    def _track(self, t: torch.Tensor) -> None:
+        n = _nbytes(t)
+        self.live_bytes += n
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        weakref.finalize(t, self._free, n)
+
+    def _free(self, n: int) -> None:
+        self.live_bytes -= n
+
+    # -- dispatch --------------------------------------------------------
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented          # DTensor runs its local ops here
+        out = func(*args, **kwargs)
+        if self._muted:
+            return out
+        self.n_ops += 1
+        packet = func._overloadpacket
+        name = packet.__name__
+        ins, outs = _tensors(args, kwargs), _tensors(out)
+        if packet in self._flop_registry:
+            f = self._flop_registry[packet](*args, **kwargs, out_val=out)
+            self.flops += f
+            key = f"{func.namespace}.{name}"
+            self.flops_by_op[key] = self.flops_by_op.get(key, 0.0) + f
+        if func.namespace == "_c10d_functional":
+            for key, kind in _COLLECTIVES:
+                if key in name:
+                    self._collective(kind, sum(_nbytes(t) for t in ins),
+                                     _group_size(func, args))
+                    break
+        returns = func._schema.returns
+        aliased = bool(returns) and all(r.alias_info is not None
+                                        for r in returns)
+        if name in _NO_TRAFFIC or (aliased and not func._schema.is_mutable):
+            return out                     # a view, allocation or query
+        self.hbm_bytes += sum(_nbytes(t) for t in ins + outs)
+        if not aliased:
+            for t in outs:
+                self._track(t)
+        return out
+
+    def collectives(self) -> CollectiveStats:
+        return CollectiveStats(dict(self.op_bytes), dict(self.ring),
+                               dict(self.count))
+
+    def roofline(self, n_chips: int, model_fl: float = 0.0) -> Roofline:
+        return Roofline(flops=self.flops, hbm_bytes=self.hbm_bytes,
+                        coll=self.collectives(), n_chips=n_chips,
+                        model_flops=model_fl)
+
+
+def count_step(fn, *args, n_chips: int = 1, model_fl: float = 0.0,
+               counter: Optional[StepCounter] = None):
+    """Run ``fn(*args)`` under a `StepCounter`; returns (its result, the
+    counter's `Roofline`, the counter)."""
+    counter = counter or StepCounter()
+    with counter:
+        out = fn(*args)
+    return out, counter.roofline(n_chips, model_fl), counter

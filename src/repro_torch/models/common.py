@@ -17,6 +17,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..interop import tree_map
+from ..parallel.sharding import whole_last_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +81,31 @@ class ModelConfig:
             raise ValueError(f"{self.dtype!r} is not a torch float type")
         return dt
 
+    def n_params_dense(self) -> int:
+        """Rough parameter count (for MODEL_FLOPS = 6·N·D)."""
+        d, f, v, l = self.d_model, self.d_ff, self.vocab, self.n_layers
+        hq = self.n_heads * self.head_dim
+        hkv = self.n_kv_heads * self.head_dim
+        attn = d * hq + 2 * d * hkv + hq * d
+        if self.n_experts:
+            mlp_dense = 0
+            moe = self.n_experts * (3 * d * f) + d * self.n_experts
+        else:
+            mlp_dense = 3 * d * f if self.mlp_act == "silu" else 2 * d * f
+            moe = 0
+        return l * (attn + mlp_dense + moe) + 2 * v * d
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top_k experts only)."""
+        if not self.n_experts:
+            return self.n_params_dense()
+        d, f, v, l = self.d_model, self.d_ff, self.vocab, self.n_layers
+        hq = self.n_heads * self.head_dim
+        hkv = self.n_kv_heads * self.head_dim
+        attn = d * hq + 2 * d * hkv + hq * d
+        act = self.top_k * (3 * d * f) + d * self.n_experts
+        return l * (attn + act) + 2 * v * d
+
 
 # ---------------------------------------------------------------------------
 # Numerics
@@ -126,8 +152,11 @@ class _RMSNorm(torch.autograd.Function):
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm with f32 internal math, cast back to x's type; its gradient
-    is the reference's (f32 math, cotangents in the stream's type)."""
-    return _RMSNorm.apply(x, scale, eps)
+    is the reference's (f32 math, cotangents in the stream's type). A
+    DTensor split along the normalized dim is gathered along it first (a
+    sum over a split dim left DTensor choosing to scatter the rows over
+    the sequence instead)."""
+    return _RMSNorm.apply(whole_last_dim(x), scale, eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -170,8 +199,14 @@ def sinusoidal_positions(n: int, d: int,
     do not. The table is within 1 f32 ulp of the reference's, on
     ``device``. It is built once per (n, d, device) and shared by every
     caller after that (no host work or host-to-device copy per call), so
-    callers read it and never write to it."""
-    return _sinusoid_table(n, d, resolve_device(device))
+    callers read it and never write to it. Under a `FakeTensorMode` (the
+    dry run) it is built anew and not kept: a fake table must not outlive
+    its mode."""
+    from torch._guards import detect_fake_mode
+    dev = resolve_device(device)
+    if detect_fake_mode() is not None:
+        return _sinusoid_table.__wrapped__(n, d, dev)
+    return _sinusoid_table(n, d, dev)
 
 
 @functools.lru_cache(maxsize=16)
@@ -182,6 +217,55 @@ def _sinusoid_table(n: int, d: int, dev: torch.device) -> torch.Tensor:
     pos = torch.arange(n, dtype=torch.float32, device=dev)[:, None]
     ang = (pos / torch.from_numpy(denom).to(dev)[None, :]).double()
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).float()
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """table[tokens]: (..., d) rows of the (V, d) embedding. On DTensors a
+    vocab-parallel lookup: each rank gathers its rows of its own vocab
+    slice (the FSDP dim gathered first), zeros where a token lies in
+    another rank's slice, and the ranks of ``model`` sum (exactly one row
+    is nonzero) into rows laid out over the batch: no op that DTensor has
+    no rule for (an index of a sharded table, its accumulating backward)
+    ever runs."""
+    from ..parallel import sharding
+    b, v = sharding.batch_head_entries(tokens.shape[0], table.shape[0])
+    pl = sharding.spec_placements
+    mesh = sharding.get_mesh()
+    rows = pl(b, *(None,) * (tokens.dim() - 1))
+    ts = pl(v, None)
+    b_dims = sharding.batch_axes(mesh) if b else ()
+
+    def local(tab, tok):
+        if not v:                        # the whole vocab on this rank
+            return tab[tok]
+        n = tab.shape[0]
+        idx = tok.long() - mesh.get_local_rank("model") * n
+        hit = (idx >= 0) & (idx < n)
+        out = tab[idx.clamp(0, n - 1)]
+        return torch.where(hit[..., None], out, torch.zeros_like(out))
+    out = sharding.local_call(
+        local, (table, tokens), (ts, rows),
+        sharding.grad_partial(pl(b, *(None,) * tokens.dim()),
+                              ("model",) if v else ()),
+        (sharding.grad_partial(ts, b_dims), rows))
+    return sharding.logical(out, ("batch",) + (None,) * tokens.dim())
+
+
+def lm_logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """h (B, S, d) · lm_head (d, V) → logits (B, S, V). On DTensors each
+    rank multiplies its rows by its vocab columns of the whole-d head (the
+    FSDP dim gathered first): logits laid out over batch and vocab, as the
+    reference's `sharding.logical` sets them."""
+    from ..parallel import sharding
+    b, v = sharding.batch_head_entries(h.shape[0], w.shape[1])
+    pl = sharding.spec_placements
+    hs, ws = pl(b, None, None), pl(None, v)
+    b_dims = sharding.batch_axes(sharding.get_mesh()) if b else ()
+    return sharding.local_call(
+        lambda h_, w_: torch.einsum("bsd,dv->bsv", h_, w_), (h, w),
+        (hs, ws), pl(b, None, v),
+        (sharding.grad_partial(hs, ("model",) if v else ()),
+         sharding.grad_partial(ws, b_dims)))
 
 
 def remat_run(on: bool) -> Callable[..., Any]:

@@ -35,8 +35,9 @@ Where the frameworks differ, the port follows the reference:
     `init_state` makes them; the conv history is concatenated in x's type;
     where the reference casts to f32, the port upcasts (`common.upcast`):
     the same f32 for bf16 and f32, float64 kept in a float64 run;
-  * the reference's `sharding.logical` annotations have no counterpart on
-    one card (tp = 1) and are dropped.
+  * the reference's `sharding.logical` layouts stand where it puts them
+    (heads over ``model``, the block's output over the batch), no-ops
+    without a mesh.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..parallel import sharding
 from .common import ModelConfig, dense_init, rms_norm, upcast
 # the reference's mamba2 and xlstm each carry this depthwise causal conv
 # (pad or state, a sum over taps, SiLU); the port keeps one copy
@@ -91,7 +93,7 @@ def _split_proj(params, u: torch.Tensor, cfg: ModelConfig):
     d_inner, nh, _, _ = dims(cfg)
     n = cfg.ssm_state
     zxbcdt = u @ params["in_proj"]
-    return torch.split(zxbcdt, [d_inner, d_inner, n, n, nh], dim=-1)
+    return sharding.split_cols(zxbcdt, [d_inner, d_inner, n, n, nh])
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -100,6 +102,30 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def ssd_chunked(x, dt, a_log, b, c, chunk: int,
+                init_state: Optional[torch.Tensor] = None):
+    """`_ssd_chunked`, on each rank's local rows and heads where x is a
+    DTensor (the scan is independent per row and head; B and C are
+    shared by the heads, so with the heads split their gradient is a
+    partial sum over ``model``)."""
+    bs, h = sharding.batch_head_entries(x.shape[0], x.shape[2])
+    pl = sharding.spec_placements
+    s4, s3, sbc, st = (pl(bs, None, h, None), pl(bs, None, h),
+                       pl(bs, None, None), pl(bs, h, None, None))
+
+    def call(x_, dt_, a_, b_, c_, *init):
+        return _ssd_chunked(x_, dt_, a_, b_, c_, chunk,
+                            init[0] if init else None)
+    args = (x, dt, a_log, b, c) + (() if init_state is None
+                                   else (init_state,))
+    ins = (s4, s3, pl(h), sbc, sbc) + (() if init_state is None else (st,))
+    from torch.distributed.tensor import Partial
+    dbc = tuple(Partial() if h and a == "model" else p_ for a, p_ in zip(
+        sharding.mesh_axes(sharding.get_mesh()), sbc))
+    return sharding.local_call(call, args, ins, (s4, st),
+                               ins[:3] + (dbc, dbc) + ins[5:])
+
+
+def _ssd_chunked(x, dt, a_log, b, c, chunk: int,
                 init_state: Optional[torch.Tensor] = None):
     """Chunked SSD scan.
 
@@ -171,11 +197,12 @@ def apply(params, u: torch.Tensor, cfg: ModelConfig,
     conv_state = None if state is None else state["conv"]
     xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"],
                                  conv_state)
-    x, b, c = torch.split(xbc, [d_inner, n, n], dim=-1)
+    x, b, c = sharding.split_cols(xbc, [d_inner, n, n])
 
     dtf = _softplus(upcast(dt) + params["dt_bias"][None, None, :])
     a = -torch.exp(params["A_log"])
-    xh = upcast(x).reshape(*x.shape[:-1], nh, p)
+    xh = sharding.split_last(upcast(x), nh, p)
+    xh = sharding.logical(xh, ("batch", None, "ssm_inner", None))
 
     if state is None or u.shape[1] > 1:
         init_state = None if state is None else state["ssm"]
@@ -191,10 +218,10 @@ def apply(params, u: torch.Tensor, cfg: ModelConfig,
         y = torch.einsum("bhpn,bn->bhp", final,
                          upcast(c[:, 0, :]))[:, None]
     y = y + params["D"][None, None, :, None] * xh
-    y = y.reshape(*u.shape[:-1], d_inner).to(u.dtype)
+    y = sharding.merge_last(y).to(u.dtype)
 
     y = rms_norm(y * F.silu(z), params["ssm_norm"])
-    out = y @ params["out_proj"]
+    out = sharding.logical(y @ params["out_proj"], ("batch", None, None))
     if state is None:
         return out, None
     return out, {"conv": new_conv, "ssm": final}

@@ -17,8 +17,10 @@ follows the reference:
     sort;
   * the dispatch positions are an int32 cumsum of one-hots
     (`torch.cumsum` of int32 would give int64 without its ``dtype``).
-The reference's `sharding.logical` annotations (experts over the model
-axis) have no counterpart on one card and are dropped.
+The reference's `sharding.logical` layouts stand where it puts them in
+the dense MLP (the hidden units over ``model``), no-ops without a mesh;
+the MoE layer's (experts over ``model`` where their count divides it,
+else d_ff) are the local layouts of `moe_apply`.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..parallel import sharding
 from .common import ModelConfig, dense_init
 
 
@@ -45,11 +48,15 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    hidden = ("batch", None, "mlp")
     if cfg.mlp_act == "silu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-        return h @ params["w_down"]
-    # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ params["w_in"], approximate="tanh") @ params["w_out"]
+        y = sharding.logical(h, hidden) @ params["w_down"]
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(x @ params["w_in"], approximate="tanh")
+        y = sharding.logical(h, hidden) @ params["w_out"]
+    return sharding.logical(y, ("batch", None, None))
 
 
 # ---------------------------------------------------------------------------
@@ -96,7 +103,49 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig):
 
     Tokens are dispatched in groups of ≤ cfg.moe_group: the dispatch and
     combine tensors are (B·G, g, E, C) with C = cf·g·k/E, so their
-    footprint is linear in S for a fixed group size."""
+    footprint is linear in S for a fixed group size.
+
+    Where x is a DTensor the layer runs on each rank's local rows, with
+    the reference's layouts (experts over ``model`` where E divides it,
+    as moonshot's 64; else experts whole and d_ff over ``model``, as
+    mixtral's 8) as the local weights. Every rank of a model group holds
+    the same tokens and routes them over all E experts, then runs its own
+    experts (or its slice of d_ff): y is a partial sum over ``model``.
+    aux is each batch shard's mean, equal across ``model``."""
+    from torch.distributed.tensor import Partial
+    mesh = sharding.get_mesh()
+    axes = sharding.mesh_axes(mesh)
+    e = cfg.n_experts
+    ep = sharding.experts_shardable(e)
+    b, _ = sharding.batch_head_entries(x.shape[0])
+    m = "model" if "model" in axes else None
+    pl = sharding.spec_placements
+    rows = pl(b, None, None)
+    w_in = pl(m, None, None) if ep else pl(None, None, m)
+    w_out = pl(m, None, None) if ep else pl(None, m, None)
+    b_dims = sharding.batch_axes(mesh) if b else ()
+
+    y_out = tuple(Partial() if a == m else r for a, r in zip(axes, rows))
+    aux_out = tuple(Partial("avg") if a in b_dims or a == m else r
+                    for a, r in zip(axes, pl()))
+    router_grad = tuple(Partial() if a in b_dims or a == m else r
+                        for a, r in zip(axes, pl()))
+
+    def call(x_, router, gate, up, down):
+        e0 = mesh.get_local_rank(m) * gate.shape[0] if ep and m else 0
+        return _moe_local(x_, router, gate, up, down, cfg, e0)
+    y, aux = sharding.local_call(
+        call, (x, params["router"], params["moe_gate"], params["moe_up"],
+               params["moe_down"]),
+        (rows, pl(None, None), w_in, w_in, w_out), (y_out, aux_out),
+        (y_out, router_grad, w_in, w_in, w_out))
+    return sharding.logical(y, ("batch", None, None)), aux
+
+
+def _moe_local(x: torch.Tensor, router, gate, up, down, cfg: ModelConfig,
+               e0: int):
+    """The layer over experts [e0, e0 + gate.shape[0]) of the
+    cfg.n_experts the tokens are routed over (all of them off a mesh)."""
     bb, ss, d = x.shape
     g = min(cfg.moe_group, ss)
     n_groups = ss // g if ss % g == 0 else 1
@@ -108,9 +157,9 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig):
     c = capacity(cfg, s)
     # routing in the router's type: f32, as the reference (float64 in a
     # run that measures f32's own rounding)
-    ft = params["router"].dtype
+    ft = router.dtype
 
-    logits = x.to(ft) @ params["router"]                        # (B,S,E)
+    logits = x.to(ft) @ router                        # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
     gates, idx = _top_k(probs, k)                               # (B,S,k)
     gates = gates / gates.sum(dim=-1, keepdim=True)
@@ -133,9 +182,13 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig):
         combine = combine + pos_oh.to(ft) * gates[..., r][..., None, None]
         counts = counts + mask_r.sum(dim=1, keepdim=True, dtype=torch.int32)
 
+    e_local = gate.shape[0]
+    if e_local != e:
+        dispatch = dispatch[:, :, e0:e0 + e_local]
+        combine = combine[:, :, e0:e0 + e_local]
     xin = torch.einsum("bsec,bsd->ebcd", dispatch, x)
-    h = F.silu(torch.einsum("ebcd,edf->ebcf", xin, params["moe_gate"])) \
-        * torch.einsum("ebcd,edf->ebcf", xin, params["moe_up"])
-    yout = torch.einsum("ebcf,efd->ebcd", h, params["moe_down"])
+    h = F.silu(torch.einsum("ebcd,edf->ebcf", xin, gate)) \
+        * torch.einsum("ebcd,edf->ebcf", xin, up)
+    yout = torch.einsum("ebcf,efd->ebcd", h, down)
     y = torch.einsum("bsec,ebcd->bsd", combine.to(x.dtype), yout)
     return y.reshape(bb, ss, d), aux

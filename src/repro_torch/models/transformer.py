@@ -20,6 +20,13 @@ goes through the flash kernel when ``cfg.fused_attention`` is set; decode
 attends over the cache with the dense `_attend_dense`, as the reference
 does (it left decode to XLA).
 
+Sharded: the reference's `sharding.logical` layouts (the embedded stream
+over the batch, logits over batch and vocab) are applied where it applies
+them, no-ops without a mesh; `shard_cache` lays a stacked cache out as
+(None, batch, None, heads, None); a DTensor cache is written through its
+local shards (`sharding.local_pair`), and `next_token_ce` takes each
+rank's rows whole.
+
 Training (`forward`, `cross_entropy`, `loss_fn`): with ``cfg.remat`` each
 layer body runs under `torch.utils.checkpoint` (non-reentrant), where the
 reference wraps it in `jax.checkpoint`: its activations are dropped after
@@ -38,8 +45,8 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..parallel import sharding
 from . import attention, mlp
-from .common import (ModelConfig, dense_init, remat_run, rms_norm,
-                     stack_layers)
+from .common import (ModelConfig, dense_init, embed_lookup, lm_logits,
+                     remat_run, rms_norm, stack_layers)
 
 Pos = Union[int, torch.Tensor]
 
@@ -115,10 +122,17 @@ def layer_apply(lp: Dict[str, Any], h: torch.Tensor, cfg: ModelConfig,
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
                  embed_prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
-    h = params["embed"][tokens].to(cfg.param_dtype())
+    h = embed_lookup(params["embed"], tokens).to(cfg.param_dtype())
     if embed_prefix is not None:
         h = torch.cat([embed_prefix.to(h.dtype), h], dim=1)
-    return h
+    return sharding.logical(h, ("batch", None, None))
+
+
+def _head(params, h: torch.Tensor) -> torch.Tensor:
+    """Final norm, LM head, logits laid out over batch and vocab."""
+    h = rms_norm(h, params["final_norm"])
+    logits = lm_logits(h, params["lm_head"])
+    return sharding.logical(logits, ("batch", None, "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -154,9 +168,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     for lp in _unbind_layers(params["layers"], cfg.n_layers):
         h, a = run(_body, h, lp, cfg, positions)
         aux = aux + a
-    h = rms_norm(h, params["final_norm"])
-    logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])
-    return logits, aux
+    return _head(params, h), aux
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -165,6 +177,30 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     before the logsumexp. The reference picks the label's logit as
     sum(where(iota == label, lf, 0)), which equals lf[label] exactly; a
     gather takes the same value without a (B, S, V) index tensor."""
+    return _token_ce(logits, labels, vocab).mean()
+
+
+def next_token_ce(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
+                  start: int = 0) -> torch.Tensor:
+    """`cross_entropy(logits[:, start:-1], labels[:, 1:], vocab)`: the
+    next-token loss over the positions from ``start`` (a vlm's text). On
+    DTensor logits each rank takes its own rows whole (the vocab gathered
+    over ``model``), slicing them locally, and the mean runs over the
+    per-token losses laid out by rows: no rank ever holds another rank's
+    rows, in the forward or the backward (DTensor's own strategies for the
+    slice, the logsumexp and their backwards run them on the whole batch
+    on every rank)."""
+    b, _ = sharding.batch_head_entries(logits.shape[0])
+    rows = sharding.spec_placements(b, None, None)
+    tok = sharding.spec_placements(b, None)
+    return sharding.local_call(
+        lambda lg, lb: _token_ce(lg[:, start:-1, :], lb[:, 1:], vocab),
+        (logits, labels), (rows, tok), tok).mean()
+
+
+def _token_ce(logits: torch.Tensor, labels: torch.Tensor,
+              vocab: int) -> torch.Tensor:
+    """Each token's CE in f32, (B, S)."""
     lf = logits.float()
     v_pad = lf.shape[-1]
     if v_pad > vocab:
@@ -172,7 +208,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         lf = lf.masked_fill(pad, -1e30)
     lse = torch.logsumexp(lf, dim=-1)                         # (B, S)
     picked = lf.gather(-1, labels[..., None].long())[..., 0]
-    return (lse - picked).mean()
+    return lse - picked
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
@@ -181,9 +217,8 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     the text positions."""
     prefix = batch.get("embed_prefix")
     logits, aux = forward(params, batch["tokens"], cfg, embed_prefix=prefix)
-    if prefix is not None:
-        logits = logits[:, prefix.shape[1]:, :]
-    ce = cross_entropy(logits[:, :-1, :], batch["labels"][:, 1:], cfg.vocab)
+    ce = next_token_ce(logits, batch["labels"], cfg.vocab,
+                       0 if prefix is None else prefix.shape[1])
     return ce + 1e-2 * aux, {"ce": ce, "aux": aux}
 
 
@@ -208,10 +243,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
 
+def shard_cache(cache, mesh=None):
+    """Each stacked (L, B, W, kv, hd) cache leaf laid out as (None, batch,
+    None, heads, None) on the current mesh (`sharding.logical`: a no-op
+    without a mesh or on a plain tensor). ``mesh`` is unused, as in the
+    reference."""
+    from ..interop import tree_map
+    return tree_map(lambda a: sharding.logical(
+        a, (None, "batch", None, "heads", None)), cache)
+
+
 def _ring_write(buf: torch.Tensor, vals: torch.Tensor,
                 pos: Pos) -> torch.Tensor:
     """Write vals (B, S, H, D) at ring slots [(pos) % W ...] of buf
-    (B, W, H, D), in place (the reference returns a new buffer)."""
+    (B, W, H, D), in place (the reference returns a new buffer); a DTensor
+    buf through its local shard."""
+    out = buf
+    buf, vals = sharding.local_pair(buf, vals)
     w = buf.shape[1]
     s = vals.shape[1]
     vals = vals.to(buf.dtype)
@@ -226,7 +274,7 @@ def _ring_write(buf: torch.Tensor, vals: torch.Tensor,
         start = max(int(pos) + s - w, 0)
         slots = (start + torch.arange(s, device=buf.device)) % w
         buf[:, slots] = vals
-    return buf
+    return out
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -247,9 +295,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
         h = h + _mlp(lp, rms_norm(h, lp["mlp_norm"]), cfg)[0]
         _ring_write(ck[i], k, 0)
         _ring_write(cv[i], v, 0)
-    h = rms_norm(h[:, -1:, :], params["final_norm"])
-    logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])
-    return logits[:, 0], cache
+    return _head(params, h[:, -1:, :])[:, 0], cache
 
 
 def decode_step(params, token: torch.Tensor, pos: Pos,
@@ -275,13 +321,8 @@ def decode_step(params, token: torch.Tensor, pos: Pos,
         q, k, v = attention.qkv(lp["attn"], x, cfg, positions)
         kk = _ring_write(ck[i], k, pos)
         vv = _ring_write(cv[i], v, pos)
-        rep = q.shape[2] // kk.shape[2]
-        if rep > 1:
-            kk = kk.repeat_interleave(rep, dim=2)
-            vv = vv.repeat_interleave(rep, dim=2)
+        kk, vv = attention.repeat_kv(kk, vv, q.shape[2])
         o = attention._attend_dense(q, kk, vv, valid[None, None], scale)
         h = h + attention.out_proj(lp["attn"], o)
         h = h + _mlp(lp, rms_norm(h, lp["mlp_norm"]), cfg)[0]
-    h = rms_norm(h, params["final_norm"])
-    logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])
-    return logits[:, 0], cache
+    return _head(params, h)[:, 0], cache

@@ -34,9 +34,9 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..parallel import sharding
 from . import attention, mlp
-from .common import (ModelConfig, dense_init, remat_run, rms_norm,
-                     sinusoidal_positions, stack_layers)
-from .transformer import _ring_write, _unbind_layers, cross_entropy
+from .common import (ModelConfig, dense_init, embed_lookup, lm_logits,
+                     remat_run, rms_norm, sinusoidal_positions, stack_layers)
+from .transformer import _ring_write, _unbind_layers, next_token_ce
 
 
 def init_enc_layer(generator: torch.Generator, cfg: ModelConfig,
@@ -100,6 +100,7 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = cfg.param_dtype()
     pos = sinusoidal_positions(frames.shape[1], cfg.d_model, frames.device)
     h = frames.to(dt) + pos[None].to(dt)
+    h = sharding.logical(h, ("batch", None, None))
     positions = torch.arange(h.shape[1], device=h.device)
     run = remat_run(cfg.remat)
     for lp in _unbind_layers(params["enc_layers"], cfg.enc_layers):
@@ -109,7 +110,7 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _embed(params, tokens: torch.Tensor, pos_rows: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
-    h = params["embed"][tokens].to(cfg.param_dtype())
+    h = embed_lookup(params["embed"], tokens).to(cfg.param_dtype())
     return h + pos_rows[None].to(h.dtype)
 
 
@@ -129,12 +130,19 @@ def decode_train(params, tokens: torch.Tensor, enc_out: torch.Tensor,
     """Teacher-forced decoder over tokens (B, S) → logits (B, S, V_pad)."""
     h = _embed(params, tokens, sinusoidal_positions(
         tokens.shape[1], cfg.d_model, tokens.device), cfg)
+    h = sharding.logical(h, ("batch", None, None))
     positions = torch.arange(h.shape[1], device=h.device)
     run = remat_run(cfg.remat)
     for lp in _unbind_layers(params["dec_layers"], cfg.n_layers):
         h = run(_dec_body, h, lp, enc_out, cfg, positions)
+    return _head(params, h)
+
+
+def _head(params, h: torch.Tensor) -> torch.Tensor:
+    """Final norm, LM head, logits laid out over batch and vocab."""
     h = rms_norm(h, params["final_norm"])
-    return torch.einsum("bsd,dv->bsv", h, params["lm_head"])
+    logits = lm_logits(h, params["lm_head"])
+    return sharding.logical(logits, ("batch", None, "vocab"))
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
@@ -142,7 +150,7 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     {"ce", "aux"}), aux 0."""
     enc_out = encode(params, batch["enc_embed"], cfg)
     logits = decode_train(params, batch["tokens"], enc_out, cfg)
-    ce = cross_entropy(logits[:, :-1, :], batch["labels"][:, 1:], cfg.vocab)
+    ce = next_token_ce(logits, batch["labels"], cfg.vocab)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                              device=ce.device)}
 
@@ -185,13 +193,12 @@ def prefill(params, tokens: torch.Tensor, frames: torch.Tensor,
         h = h + attention.out_proj(lp["attn"], o)
         xo, (xk, xv) = attention.cross_attention(
             lp["xattn"], rms_norm(h, lp["xattn_norm"]), enc_out, cfg)
-        state["xk"][i] = xk
-        state["xv"][i] = xv
+        for name, new in (("xk", xk), ("xv", xv)):
+            buf, vals = sharding.local_pair(state[name][i], new)
+            buf.copy_(vals)
         h = h + xo
         h = h + mlp.apply(lp["mlp"], rms_norm(h, lp["mlp_norm"]), cfg)
-    h = rms_norm(h[:, -1:, :], params["final_norm"])
-    logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])
-    return logits[:, 0], state
+    return _head(params, h[:, -1:, :])[:, 0], state
 
 
 def decode_step(params, token: torch.Tensor, pos, state: Dict[str, Any],
@@ -214,10 +221,7 @@ def decode_step(params, token: torch.Tensor, pos, state: Dict[str, Any],
         q, k, v = attention.qkv(lp["attn"], x, cfg, positions)
         kk = _ring_write(state["k"][i], k, pos)
         vv = _ring_write(state["v"][i], v, pos)
-        rep = q.shape[2] // kk.shape[2]
-        if rep > 1:
-            kk = kk.repeat_interleave(rep, dim=2)
-            vv = vv.repeat_interleave(rep, dim=2)
+        kk, vv = attention.repeat_kv(kk, vv, q.shape[2])
         o = attention._attend_dense(q, kk, vv, valid[None, None], scale)
         h = h + attention.out_proj(lp["attn"], o)
         xo, _ = attention.cross_attention(
@@ -225,6 +229,4 @@ def decode_step(params, token: torch.Tensor, pos, state: Dict[str, Any],
             cached_kv=(state["xk"][i], state["xv"][i]))
         h = h + xo
         h = h + mlp.apply(lp["mlp"], rms_norm(h, lp["mlp_norm"]), cfg)
-    h = rms_norm(h, params["final_norm"])
-    logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])
-    return logits[:, 0], state
+    return _head(params, h)[:, 0], state

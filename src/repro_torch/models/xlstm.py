@@ -32,8 +32,13 @@ kernel twice per micro-batch and the backward kernel once. The
 reference's inner `jax.checkpoint` on the mLSTM chunk step only trades
 memory inside a block that is already rematerialized, and is not ported.
 
-The reference's `sharding.logical` annotations have no counterpart on one
-card (tp = 1) and are dropped. Scalars that the reference divides a
+Sharded: the reference's `sharding.logical` layouts stand where it puts
+them (no-ops without a mesh), and where the sLSTM inputs are DTensors the
+forward and backward kernels run on each rank's local rows through
+`local_map` (`_slstm_sharded`, `_slstm_bwd_sharded`; batch over the
+mesh's batch dims, R replicated, dr a partial sum over them), so
+`_SlstmScan` keeps its gradient and no DTensor reaches a kernel. Scalars
+that the reference divides a
 stream by (1/sqrt(D)) are cast to the stream's type first, as JAX's weak
 typing does.
 """
@@ -45,9 +50,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+
 from ..device import DeviceLike, resolve_device
 from ..kernels.slstm.slstm import slstm_fused, slstm_fused_bwd
-from .common import ModelConfig, dense_init, remat_run, rms_norm
+from ..parallel import sharding
+from .common import (ModelConfig, dense_init, embed_lookup, lm_logits,
+                     remat_run, rms_norm)
 
 NEG = -1e30
 
@@ -67,8 +75,31 @@ def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
 # mLSTM cell — chunkwise parallel
 # ---------------------------------------------------------------------------
 
+def _cell_specs(b, h):
+    """Placements of the mLSTM cell's (B, S, H, D), (B, S, H) inputs and
+    of its state (C (B, H, D, D), n (B, H, D), m (B, H)) on the current
+    mesh, rows over ``b`` and heads over ``h``."""
+    pl = sharding.spec_placements
+    return (pl(b, None, h, None), pl(b, None, h),
+            (pl(b, h, None, None), pl(b, h, None), pl(b, h)))
+
+
 def mlstm_chunked(q, k, v, log_i, log_f, chunk: int,
                   state: Optional[Tuple] = None):
+    """`_mlstm_chunked`, on each rank's local rows and heads where q is a
+    DTensor (a cell is independent per row and head)."""
+    s4, s3, cs = _cell_specs(*sharding.batch_head_entries(q.shape[0],
+                                                          q.shape[2]))
+
+    def call(q_, k_, v_, li, lf, *st):
+        return _mlstm_chunked(q_, k_, v_, li, lf, chunk, st or None)
+    args = (q, k, v, log_i, log_f) + (tuple(state) if state else ())
+    return sharding.local_call(call, args, (s4,) * 3 + (s3,) * 2
+                               + (cs if state else ()), (s4, *cs))
+
+
+def _mlstm_chunked(q, k, v, log_i, log_f, chunk: int,
+                   state: Optional[Tuple] = None):
     """q/k/v: (B, S, H, D); log_i/log_f: (B, S, H) f32 (log input/forget
     gate).
 
@@ -142,7 +173,19 @@ def mlstm_chunked(q, k, v, log_i, log_f, chunk: int,
 
 
 def mlstm_step(q, k, v, log_i, log_f, state):
-    """Single decode step. q/k/v: (B, H, D); log_i/log_f: (B, H)."""
+    """Single decode step. q/k/v: (B, H, D); log_i/log_f: (B, H); on each
+    rank's local rows and heads where q is a DTensor."""
+    b, h = sharding.batch_head_entries(q.shape[0], q.shape[1])
+    pl = sharding.spec_placements
+    s3, s2 = pl(b, h, None), pl(b, h)
+    cs = (pl(b, h, None, None), s3, s2)
+    return sharding.local_call(
+        lambda q_, k_, v_, li, lf, *st: _mlstm_step(q_, k_, v_, li, lf, st),
+        (q, k, v, log_i, log_f, *state), (s3,) * 3 + (s2,) * 2 + cs,
+        (s3, *cs))
+
+
+def _mlstm_step(q, k, v, log_i, log_f, state):
     c_st, n_st, m_st = state
     d = q.shape[-1]
     q = _div_sqrt(q, d)
@@ -195,7 +238,21 @@ def mlstm_block_init(generator: torch.Generator, cfg: ModelConfig,
 def _conv_causal(x, w, b, state=None):
     """Depthwise causal conv over S then SiLU. x: (B, S, C), w: (K, C);
     state: the last K − 1 inputs (B, K − 1, C) or None (zeros). Returns
-    (y, new_state)."""
+    (y, new_state). On each rank's local rows and channels where x is a
+    DTensor (the conv is independent per row and channel)."""
+    bs, c = sharding.batch_head_entries(x.shape[0], x.shape[2])
+    pl = sharding.spec_placements
+    rows, ws, bias = pl(bs, None, c), pl(None, c), pl(c)
+    b_dims = sharding.batch_axes(sharding.get_mesh()) if bs else ()
+    grads = (rows, sharding.grad_partial(ws, b_dims),
+             sharding.grad_partial(bias, b_dims))
+    st, st_spec = ((), ()) if state is None else ((state,), (rows,))
+    return sharding.local_call(_conv_causal_local, (x, w, b) + st,
+                               (rows, ws, bias) + st_spec, (rows, rows),
+                               grads + st_spec)
+
+
+def _conv_causal_local(x, w, b, state=None):
     k = w.shape[0]
     if state is None:
         xp = F.pad(x, (0, 0, k - 1, 0))
@@ -218,17 +275,23 @@ def mlstm_block_apply(p, x, cfg: ModelConfig, state=None):
     dh = di // nh
     h = rms_norm(x, p["norm"])
     up = h @ p["mlstm_up"]
-    xm, gate = up[..., :di], up[..., di:]
+    xm, gate = sharding.split_cols(up, [di, di])
+    xm = sharding.logical(xm, ("batch", None, "ssm_inner"))
     conv_state = None if state is None else state["conv"]
     xc, new_conv = _conv_causal(xm, p["conv_w"], p["conv_b"], conv_state)
-    xch = xc.reshape(bb, s, nh, dh)
-    xmh = xm.reshape(bb, s, nh, dh)
+    xch = sharding.split_last(xc, nh, dh)
+    xmh = sharding.split_last(xm, nh, dh)
     # streams stay in the model dtype; numerics are upcast per chunk inside
     # mlstm_chunked
     q = torch.einsum("bshd,hde->bshe", xch, p["mlstm_q"])
     k = torch.einsum("bshd,hde->bshe", xch, p["mlstm_k"])
     v = torch.einsum("bshd,hde->bshe", xmh, p["mlstm_v"])
-    if_pre = (xc.float() @ p["gate_if"].float()) + p["if_bias"][None, None, :]
+    # the gates over the batch only: a product over a model-split dim
+    # leaves a partial sum, which DTensor would scatter over the sequence
+    # at the next nonlinear op instead of reducing (no-op without a mesh)
+    if_pre = sharding.logical(xc.float() @ p["gate_if"].float(),
+                              ("batch", None, None)) \
+        + p["if_bias"][None, None, :]
     log_i, f_pre = if_pre[..., :nh], if_pre[..., nh:]     # (B, S, H)
     log_f = _log_sigmoid(f_pre)
 
@@ -240,9 +303,10 @@ def mlstm_block_apply(p, x, cfg: ModelConfig, state=None):
     else:
         hv, new_cell = mlstm_chunked(q, k, v, log_i, log_f, cfg.ssd_chunk,
                                      cell_state)
-    hv = hv.reshape(bb, s, di).to(x.dtype)
+    hv = sharding.merge_last(hv).to(x.dtype)
     hv = rms_norm(hv + p["skip"][None, None, :] * xc, p["mlstm_norm"])
     out = (hv * F.silu(gate)) @ p["mlstm_down"]
+    out = sharding.logical(out, ("batch", None, None))
     if state is None:
         return x + out, None
     return x + out, {"conv": new_conv, "cell": new_cell}
@@ -297,15 +361,55 @@ def slstm_block_init(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def _slstm_specs(xg: torch.Tensor):
+    """The sLSTM kernels' local layouts on the current mesh: (rows of
+    (B, S, X), rows of (B, d), replicated, partial sum over the batch
+    dims), the batch over the mesh's batch dims where it divides."""
+    b, _ = sharding.batch_head_entries(xg.shape[0])
+    pl = sharding.spec_placements
+    b_dims = sharding.batch_axes(sharding.get_mesh()) if b else ()
+    return (pl(b, None, None), pl(b, None), pl(),
+            sharding.grad_partial(pl(), b_dims))
+
+
+def _slstm_sharded(xg, r, state, nh: int):
+    """`slstm_fused` on each rank's local rows where xg is a DTensor:
+    (hs, (c, n, h, m))."""
+    def call(xg_, r_, c, n, h, m):
+        hs, out = slstm_fused(xg_, r_, (c, n, h, m), nh)
+        return (hs, *out)
+    rows, st, rep, _ = _slstm_specs(xg)
+    hs, *out = sharding.local_call(call, (xg, r, *state),
+                                   (rows, rep) + (st,) * 4,
+                                   (rows,) + (st,) * 4)
+    return hs, tuple(out)
+
+
+def _slstm_bwd_sharded(xg, r, state, nh: int, hs, dhs, dstate):
+    """`slstm_fused_bwd` on each rank's local rows where xg is a DTensor:
+    (dxg, dr, dstate0), dr summed over the batch dims."""
+    def call(xg_, r_, c, n, h, m, hs_, dhs_, dc, dn, dh, dm):
+        dxg, dr, dst = slstm_fused_bwd(xg_, r_, (c, n, h, m), nh, hs_, dhs_,
+                                       (dc, dn, dh, dm))
+        return (dxg, dr, *dst)
+    rows, st, rep, partial = _slstm_specs(xg)
+    dxg, dr, *dst = sharding.local_call(
+        call, (xg, r, *state, hs, dhs, *dstate),
+        (rows, rep) + (st,) * 4 + (rows, rows) + (st,) * 4,
+        (rows, partial) + (st,) * 4)
+    return dxg, dr, tuple(dst)
+
+
 class _SlstmScan(torch.autograd.Function):
     """The sLSTM recurrence with a gradient: forward `slstm_fused`,
     backward `slstm_fused_bwd` (each a kernel launch on a CUDA tensor, the
-    plain version on a CPU tensor). Saves xg, r, the initial state and
-    hs; an output's missing cotangent is zero."""
+    plain version on a CPU tensor; on local shards where the inputs are
+    DTensors). Saves xg, r, the initial state and hs; an output's missing
+    cotangent is zero."""
 
     @staticmethod
     def forward(ctx, xg, r, c, n, h, m, nh):
-        hs, out = slstm_fused(xg, r, (c, n, h, m), nh)
+        hs, out = _slstm_sharded(xg, r, (c, n, h, m), nh)
         ctx.nh = nh
         ctx.save_for_backward(xg, r, c, n, h, m, hs)
         return (hs, *out)
@@ -313,8 +417,8 @@ class _SlstmScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dhs, dc, dn, dh, dm):
         xg, r, c, n, h, m, hs = ctx.saved_tensors
-        dxg, dr, dst0 = slstm_fused_bwd(xg, r, (c, n, h, m), ctx.nh, hs,
-                                        dhs, (dc, dn, dh, dm))
+        dxg, dr, dst0 = _slstm_bwd_sharded(xg, r, (c, n, h, m), ctx.nh, hs,
+                                           dhs, (dc, dn, dh, dm))
         return (dxg, dr, *dst0, None)
 
 
@@ -341,7 +445,8 @@ def slstm_block_apply(p, x, cfg: ModelConfig, state=None):
     y = x + hv
     f = rms_norm(y, p["ffn_norm"])
     f = F.silu(f @ p["w_gate"]) * (f @ p["w_up"])
-    out = y + f @ p["w_down"]
+    f = sharding.logical(f, ("batch", None, "mlp"))
+    out = sharding.logical(y + f @ p["w_down"], ("batch", None, None))
     if state is None:
         return out, None
     return out, {"conv": new_conv, "cell": new_cell}
@@ -394,7 +499,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, states=None):
     per-block states (serving). Returns (logits (B, S, V_pad), states).
     Blocks are rematerialized in the backward when ``cfg.remat`` (training
     form, grad enabled; the blocks draw no random numbers)."""
-    h = params["embed"][tokens].to(cfg.param_dtype())
+    h = embed_lookup(params["embed"], tokens).to(cfg.param_dtype())
+    h = sharding.logical(h, ("batch", None, None))
     run = remat_run(cfg.remat and states is None)
     new_states = []
     for i, bp in enumerate(params["blocks"]):
@@ -404,7 +510,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, states=None):
         h, ns = run(apply, bp[kind], h, cfg, st)
         new_states.append(ns)
     h = rms_norm(h, params["final_norm"])
-    logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])
+    logits = lm_logits(h, params["lm_head"])
+    logits = sharding.logical(logits, ("batch", None, "vocab"))
     return logits, (None if states is None else new_states)
 
 
@@ -417,9 +524,9 @@ def init_states(cfg: ModelConfig, batch: int, device: DeviceLike = "cuda"):
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     """(ce, {"ce", "aux"}): next-token cross entropy, aux 0."""
-    from .transformer import cross_entropy
+    from .transformer import next_token_ce
     logits, _ = forward(params, batch["tokens"], cfg)
-    ce = cross_entropy(logits[:, :-1, :], batch["labels"][:, 1:], cfg.vocab)
+    ce = next_token_ce(logits, batch["labels"], cfg.vocab)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                              device=ce.device)}
 

@@ -36,10 +36,10 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..parallel import sharding
 from . import attention, mamba2, mlp
-from .common import (ModelConfig, dense_init, remat_run, rms_norm,
-                     stack_layers)
+from .common import (ModelConfig, dense_init, embed_lookup, lm_logits,
+                     remat_run, rms_norm, stack_layers)
 from .transformer import (_layer, _ring_write, _unbind_layers,
-                          cross_entropy)
+                          next_token_ce)
 
 
 def attn_points(cfg: ModelConfig) -> List[int]:
@@ -100,7 +100,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     layer and each application of the shared block is rematerialized in
     the backward when ``cfg.remat`` (grad enabled; no random numbers
     drawn, so no RNG state is kept)."""
-    h = params["embed"][tokens].to(cfg.param_dtype())
+    h = embed_lookup(params["embed"], tokens).to(cfg.param_dtype())
+    h = sharding.logical(h, ("batch", None, None))
     positions = torch.arange(h.shape[1], device=h.device)
     points = set(attn_points(cfg))
     run = remat_run(cfg.remat)
@@ -109,13 +110,14 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         if i in points:
             h = run(_shared_block, params["shared"], h, cfg, positions)
     h = rms_norm(h, params["final_norm"])
-    return torch.einsum("bsd,dv->bsv", h, params["lm_head"])
+    logits = lm_logits(h, params["lm_head"])
+    return sharding.logical(logits, ("batch", None, "vocab"))
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     """(ce, {"ce", "aux"}): next-token cross entropy, aux 0."""
     logits = forward(params, batch["tokens"], cfg)
-    ce = cross_entropy(logits[:, :-1, :], batch["labels"][:, 1:], cfg.vocab)
+    ce = next_token_ce(logits, batch["labels"], cfg.vocab)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                              device=ce.device)}
 
@@ -148,7 +150,7 @@ def _serve_pass(params, tokens: torch.Tensor, pos, state,
                 cfg: ModelConfig):
     """Shared serve path: prefill (S ≥ 1, pos = 0) or decode (S = 1,
     pos = t). Writes ``state`` in place and returns (last_logits, state)."""
-    h = params["embed"][tokens].to(cfg.param_dtype())
+    h = embed_lookup(params["embed"], tokens).to(cfg.param_dtype())
     s = h.shape[1]
     decode = s == 1
     positions = (torch.full((1,), int(pos), dtype=torch.int32,
@@ -170,7 +172,8 @@ def _serve_pass(params, tokens: torch.Tensor, pos, state,
         h, ns = _mamba_layer(_layer(params["layers"], i), h, cfg,
                              _layer(mamba_st, i))
         for key in ("conv", "ssm"):
-            mamba_st[key][i] = ns[key]
+            buf, new = sharding.local_pair(mamba_st[key][i], ns[key])
+            buf.copy_(new)
         if i not in points:
             continue
         x = rms_norm(h, sp["attn_norm"])
@@ -179,10 +182,7 @@ def _serve_pass(params, tokens: torch.Tensor, pos, state,
         cv = _ring_write(cv_all[app], v, pos)
         if decode:
             kk, vv = ck, cv
-            rep = q.shape[2] // kk.shape[2]
-            if rep > 1:
-                kk = kk.repeat_interleave(rep, dim=2)
-                vv = vv.repeat_interleave(rep, dim=2)
+            kk, vv = attention.repeat_kv(kk, vv, q.shape[2])
             o = attention._attend_dense(q, kk, vv, valid[None, None], scale)
         else:
             o = attention.attend_causal(q, k, v, 0, win, cfg.q_chunk,
@@ -191,8 +191,8 @@ def _serve_pass(params, tokens: torch.Tensor, pos, state,
         h = h + mlp.apply(sp["mlp"], rms_norm(h, sp["mlp_norm"]), cfg)
         app += 1
     h = rms_norm(h[:, -1:, :], params["final_norm"])
-    logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])
-    return logits[:, 0], state
+    logits = lm_logits(h, params["lm_head"])
+    return sharding.logical(logits, ("batch", None, "vocab"))[:, 0], state
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, state):

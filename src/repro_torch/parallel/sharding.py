@@ -21,8 +21,14 @@ The rules read a mesh only through `mesh_axes`, which takes a torch
 specs of a 256-chip mesh are computed without its ranks.
 
 `logical` is a no-op without a mesh, as in the reference; with one it
-redistributes only a `DTensor`. The port's models run at tp = 1 and call
-it nowhere.
+redistributes only a `DTensor`. The port's models call it where the
+reference's do (`models.attention`, `mlp`, `transformer`, `mamba2`,
+`zamba2`, `xlstm`, `whisper`), so a single-card run is unchanged and a
+step built on a mesh (`launch.steps.make_lowerable`) lays its
+activations out as the reference's GSPMD constraints do. `local_pair`
+gives the in-place cache writes of a DTensor serve state their local
+shards, and `local_call` hands a kernel the local shards of DTensor
+inputs.
 
 TP divisibility policy: head counts are padded and KV heads replicated at
 config-resolution time so every sharded dim divides the mesh axis.
@@ -33,6 +39,8 @@ import re
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..interop import tree_named_leaves, tree_unflatten
 
@@ -70,7 +78,10 @@ def get_mesh():
 
 def mesh_axes(mesh) -> Dict[str, int]:
     """{dim name: size} in mesh order, of a `DeviceMesh` (`mesh_dim_names`,
-    `shape`) or of any object with `axis_names` and a `shape` mapping."""
+    `shape`) or of any object with `axis_names` and a `shape` mapping;
+    none without a mesh."""
+    if mesh is None:
+        return {}
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:
         return dict(zip(names, (int(s) for s in mesh.shape)))
@@ -134,13 +145,128 @@ def logical(x, axes: Sequence[Optional[str]]):
     not a `DTensor`): a DTensor is redistributed onto the current mesh with
     the placements of the logical axes, dims that do not divide their mesh
     dims replicated."""
-    from torch.distributed.tensor import DTensor
     mesh = _CURRENT["mesh"]
     if mesh is None or not isinstance(x, DTensor):
         return x
     spec = _fit(x.shape, _logical_to_spec(axes, mesh, _CURRENT["mode"]),
                 mesh)
     return x.redistribute(mesh, placements(spec, mesh))
+
+
+def local_pair(dst, src):
+    """(dst, src) ready for an in-place write of src into dst: where dst is
+    a `DTensor`, its local shard and src's local shard laid out as dst (a
+    plain src counts as replicated; src has dst's rank and dims); plain
+    tensors as they are."""
+    if not isinstance(dst, DTensor):
+        return dst, src
+    mesh = dst.device_mesh
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    src = src.redistribute(mesh, dst.placements)
+    return dst.to_local(), src.to_local()
+
+
+def batch_head_entries(batch: int, *heads: int):
+    """(batch entry, heads entry) of a spec on the current mesh for a
+    tensor of ``batch`` rows and ``heads`` heads (each count given must
+    divide): the batch dims where the rows divide them, ``model`` where
+    every head count divides it; None where not (the reference's
+    shard_map specs)."""
+    if _CURRENT["mesh"] is None:
+        return None, None
+    axes = mesh_axes(_CURRENT["mesh"])
+    b_axes = batch_axes(_CURRENT["mesh"])
+    bsz = int(np.prod([axes[a] for a in b_axes])) if b_axes else 0
+    m = axes.get("model")
+    return (b_axes if bsz and batch % bsz == 0 else None,
+            "model" if m and all(h % m == 0 for h in heads) else None)
+
+
+def spec_placements(*entries) -> tuple:
+    """`placements` of ``P(*entries)`` on the current mesh (none without
+    one)."""
+    if _CURRENT["mesh"] is None:
+        return ()
+    return placements(P(*entries), _CURRENT["mesh"])
+
+
+def whole_last_dim(x, unless: int = 0):
+    """A DTensor split along its last dim, gathered along it (its other
+    placements kept; with ``unless`` > 0 only over the mesh dims whose
+    size does not divide ``unless``); anything else as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    last = x.dim() - 1
+    pl = [Replicate() if isinstance(p, Shard) and p.dim in (last, -1)
+          and (not unless or unless % x.device_mesh.size(i)) else p
+          for i, p in enumerate(x.placements)]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def split_last(x, n: int, d: int):
+    """x (..., n·d) viewed as (..., n, d). A DTensor split along its last
+    dim over a mesh dim whose size does not divide n is gathered along it
+    first (a view cannot split such a shard; GSPMD gathers implicitly)."""
+    x = whole_last_dim(x, unless=n)
+    return x.reshape(*x.shape[:-1], n, d)
+
+
+def split_cols(x, sizes):
+    """`torch.split(x, sizes, dim=-1)`; a DTensor split along its last dim
+    is gathered along it first (DTensor would otherwise move the shard to
+    another dim to cut the pieces)."""
+    return torch.split(whole_last_dim(x), sizes, dim=-1)
+
+
+def merge_last(x):
+    """x (..., n, d) viewed as (..., n·d). On a DTensor the view runs on
+    each rank's local shard (the last dim gathered first if split), so
+    the gradient comes back laid out as the merged output and its own
+    split never meets a dim split over a mesh dim that does not divide
+    the heads."""
+    x = whole_last_dim(x)
+    pl = tuple(getattr(x, "placements", ()))
+    return local_call(
+        lambda t: t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1]), (x,),
+        (pl,), pl)
+
+
+def grad_partial(specs: tuple, axes) -> tuple:
+    """``specs`` with a Partial sum on each mesh dim named in ``axes``: the
+    layout of the gradient of an input that the ranks on those dims each
+    see part of."""
+    names = mesh_axes(_CURRENT["mesh"])
+    return tuple(Partial() if a in axes else p for a, p in zip(names, specs))
+
+
+def local_call(fn, args, in_specs, out_specs, grad_specs=None):
+    """``fn`` on each rank's local shards of ``args`` (`local_map` on the
+    current mesh, the reference's shard_map): each arg redistributed to its
+    ``in_specs`` placements first (a plain tensor counts as replicated),
+    the outputs DTensors of ``out_specs``; an arg's gradient is laid out
+    by its ``grad_specs`` entry (default: its ``in_specs``; a Partial
+    where ranks holding copies of an input each see part of its
+    gradient). Without a DTensor among ``args``, ``fn(*args)`` as it is
+    (the specs are then empty: every spec helper here reads no dims
+    without a mesh). The models hand the kernels their inputs through
+    here."""
+    if not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+    from torch.distributed.tensor.placement_types import Placement
+    mesh = _CURRENT["mesh"]
+    args = tuple(a if isinstance(a, DTensor) or not torch.is_tensor(a)
+                 else DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                         run_check=False) for a in args)
+    if out_specs and isinstance(out_specs[0], Placement):
+        out_specs = list(out_specs)          # one output
+    return local_map(fn, out_placements=out_specs, in_placements=in_specs,
+                     in_grad_placements=grad_specs or in_specs,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +364,6 @@ def placements(spec: PartitionSpec, mesh) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``, one per mesh dim in mesh
     order: `Shard(d)` where tensor dim d names the mesh dim, else
     `Replicate()`."""
-    from torch.distributed.tensor import Replicate, Shard
     names = list(mesh_axes(mesh))
     out = [Replicate()] * len(names)
     for d, entry in enumerate(spec):

@@ -283,11 +283,32 @@ def test_vlm_hybrid_and_encdec_modules_import_without_jax(name):
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+SHARDED_LAUNCH_MODULES = ("repro_torch.launch.steps",
+                          "repro_torch.launch.roofline",
+                          "repro_torch.launch.dryrun")
+
+
+@pytest.mark.parametrize("name", SHARDED_LAUNCH_MODULES)
+def test_sharded_launch_modules_import_without_jax(name):
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({name!r})
+        bad = sorted(k for k in sys.modules
+                     if k == "jax" or k.startswith("jax.")
+                     or k == "repro" or k.startswith("repro."))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO_SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.mark.parametrize("path", [
     os.path.join(os.path.dirname(REPO_SRC), "chip_smoke.py"),
     *(os.path.join(REPO_SRC, "repro_torch", *m.split(".")[1:]) + ".py"
       for m in ADAPT_FLEET_MODULES + PARALLEL_MODULES + TRAIN_MOE_MODULES
-      + FAMILY_MODULES if m.count(".") > 1)])
+      + FAMILY_MODULES + SHARDED_LAUNCH_MODULES if m.count(".") > 1)])
 def test_source_names_no_jax_or_reference_import(path):
     """Statically: neither chip_smoke.py nor the new modules import `jax`
     or `repro` (the subprocess checks above see only what one import
