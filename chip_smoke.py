@@ -408,9 +408,13 @@ result line), in the order they run:
      qwen3-0.6b × train_4k / prefill_32k / decode_32k (fused_attention)
      on the 16 × 16 and 2 × 16 × 16 fake worlds, xlstm-125m × long_500k,
      qwen3-0.6b × long_500k (skipped with the policy's reason) and
-     mixtral-8x22b × decode_32k with int8 weight gathers; each ok cell's
-     roofline terms, bottleneck, MFU at the roofline and bytes per rank;
-     a failed cell fails the script.
+     mixtral-8x22b × decode_32k with int8 weight gathers (each layer's
+     weights gathered and dequantized when its layer runs); each ok
+     cell's roofline terms, bottleneck, MFU at the roofline, collective
+     ring bytes by op, bytes per rank and the op at the temporaries'
+     peak; a failed cell fails the script, and so does a qwen3 train_4k
+     cell (its CE vocab-parallel) or the mixtral cell that does not fit
+     80 GB a rank.
 The line before the last is the `kernels` JSON (twelve kernels; the
 three cnn_eq rows also carry their launches on each path, `path_launches`:
 [4], [11], [12], [13], [14], [15] and [16], the last summed over ranks;
@@ -851,6 +855,10 @@ DRYRUN_CELLS = tuple(
        ("qwen3-0.6b", "long_500k", False, {}),
        ("mixtral-8x22b", "decode_32k", False, {"serve_int8_weights": True})])
 DRYRUN_TIMEOUT_S = 420
+# the cells whose temporaries the vocab-parallel CE and the layer-by-layer
+# int8 dequantization bring within 80 GB a rank (on every mesh above)
+DRYRUN_MUST_FIT = (("qwen3-0.6b", "train_4k"), ("mixtral-8x22b",
+                                                "decode_32k"))
 
 
 def require(cond: bool, msg: str) -> None:
@@ -5024,7 +5032,8 @@ def dryrun_cells() -> dict:
 
 def check_dryrun(dry: dict) -> None:
     """[17c] every cell "ok", or "skipped" with the port's reason for
-    exactly the cells the long-context policy skips."""
+    exactly the cells the long-context policy skips; the cells of
+    DRYRUN_MUST_FIT within 80 GB a rank."""
     for key, res in dry["cells"].items():
         arch, shape, _ = key.split()
         ok, reason = LM_steps.cell_supported(arch, LM_configs.SHAPES[shape])
@@ -5032,6 +5041,11 @@ def check_dryrun(dry: dict) -> None:
             require(res["status"] == "ok",
                     f"[17c] {key}: {res.get('status')} "
                     f"{res.get('error', '')}")
+            if (arch, shape) in DRYRUN_MUST_FIT:
+                m = res["memory"]
+                require(m["fits_hbm"], f"[17c] {key} does not fit 80 GB: "
+                                       f"{m['live_bytes_per_chip']} B a "
+                                       f"rank, peak at {m['peak_op']}")
         else:
             require(res == {"arch": arch, "shape": shape,
                             "status": "skipped", "reason": reason,
@@ -5771,11 +5785,13 @@ def main() -> int:
               f"per rank: flops {r['flops_per_chip']:.4g}, HBM bytes "
               f"{r['hbm_bytes_per_chip']:.4g}, collective ring bytes "
               f"{r['collective_ring_bytes']:.4g} "
+              f"{json.dumps(r['collective_ring_bytes_by_op'])} "
               f"{json.dumps(r['collective_ops'])}, kernel flops "
               f"{json.dumps(res['kernel_flops'])} (expected "
               f"{res['kernel_flops_expected']:.4g}); arguments "
               f"{m['argument_bytes']} B + temporaries {m['temp_bytes']} B a "
-              f"rank, fits 80 GB: {m['fits_hbm']}; build "
+              f"rank (peak at {m['peak_op']}), fits 80 GB: "
+              f"{m['fits_hbm']}; build "
               f"{res['t_build_s']} s, count {res['t_count_s']} s, "
               f"{res['ops_per_chip']} ops", flush=True)
     check_dryrun(dry)

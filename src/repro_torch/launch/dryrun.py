@@ -24,7 +24,8 @@ without a sharding rule) are bugs.
 Memory per rank: the arguments' local shards (params, optimizer state,
 batch, serve state) plus the step's temporaries (the peak of the live
 bytes the step's ops made, `StepCounter.peak_bytes`), against the H100's
-80 GB.
+80 GB, with the op that made the peak and the largest tensors live there
+(`peak_op`, `peak_live`).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
@@ -158,7 +159,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
             "argument_bytes": arg_bytes, "output_bytes": out_bytes,
             "temp_bytes": counter.peak_bytes,
             "live_bytes_per_chip": live,
-            "fits_hbm": bool(live <= HBM_PER_CHIP)}
+            "fits_hbm": bool(live <= HBM_PER_CHIP),
+            "peak_op": counter.peak_op,
+            "peak_live": [{"bytes": n, "op": op, "shape": list(shape),
+                           "dtype": dt}
+                          for n, op, shape, dt in counter.peak_live]}
         if verbose:
             r = result["roofline"]
             print(f"[{arch} × {shape_name} × {n_chips}ch] OK  "

@@ -13,6 +13,9 @@ shards, in the order it runs them, so loops need no trip counts:
   * HBM bytes: Σ (operand + result bytes) of every op that moves data (not
     the views, allocations and metadata queries): the eager, no-fusion
     model, which is how the port runs;
+  * not counted: the runs DTensor makes of an op on fake tensors of the
+    global shape to derive its output's shape (the first time it meets
+    the op's schema): no rank runs them;
   * collectives: each functional collective (`_c10d_functional.*`) with
     its group size, into the reference's ring model (per-rank bytes
     moved: all-gather (n−1)·operand, all-reduce 2(n−1)/n·operand,
@@ -34,6 +37,7 @@ Terms (seconds, per step, per rank), for an NVIDIA H100 SXM5 80GB
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import weakref
 from typing import Dict, Optional
 
@@ -49,6 +53,7 @@ HBM_PER_CHIP = 80e9              # bytes of HBM3 a card
 PEAK_FLOPS = PEAK_OPS_S["bf16"]  # FLOP/s a card
 HBM_BW = HBM_BYTES_S             # bytes/s a card
 ICI_BW = 450e9                   # NVLink bytes/s a card, each direction
+PEAK_LIVE = 6                    # tensors `StepCounter` names at its peak
 
 
 @dataclasses.dataclass
@@ -206,8 +211,10 @@ class StepCounter(TorchDispatchMode):
     keyed "namespace.op"), HBM bytes and collectives of the ops
     run under it (see the module docstring), and the peak bytes of the
     tensors those ops make that are alive at once (`peak_bytes`: the
-    step's temporaries, its inputs not included). Ops on DTensors pass to
-    DTensor, whose local ops come back here."""
+    step's temporaries, its inputs not included), with the op that made
+    the peak (`peak_op`) and the largest tensors live there (`peak_live`:
+    (bytes, making op, shape, dtype), at most `PEAK_LIVE`). Ops on
+    DTensors pass to DTensor, whose local ops come back here."""
 
     def __init__(self):
         super().__init__()
@@ -221,6 +228,10 @@ class StepCounter(TorchDispatchMode):
         self.count: Dict[str, int] = {}
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.peak_op = ""
+        self.peak_live: list = []
+        self._live: Dict[int, tuple] = {}
+        self._made = 0
         self.n_ops = 0
         self._muted = 0
         self._patched = None
@@ -247,30 +258,56 @@ class StepCounter(TorchDispatchMode):
                 self._muted -= 1
         return move
 
+    def _silent(self, orig):
+        """``orig`` with this counter muted while it runs."""
+        def run(*args, **kwargs):
+            self._muted += 1
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                self._muted -= 1
+        return run
+
     def __enter__(self):
         from torch.distributed.tensor import placement_types as pt
+        from torch.distributed.tensor._sharding_prop import ShardingPropagator
+        self._patched = []
         orig = getattr(pt, "shard_dim_alltoall", None)
         if orig is not None:
-            self._patched = (pt, orig)
+            self._patched.append((pt, "shard_dim_alltoall", orig))
             pt.shard_dim_alltoall = self._alltoall(orig)
+        # DTensor derives an op's output shape by running it once on fake
+        # tensors of the global shape (the first time it sees the op's
+        # schema): no rank runs that op
+        name = next((n for n in ("_propagate_tensor_meta_non_cached",
+                                 "_propagate_tensor_meta")
+                     if hasattr(ShardingPropagator, n)), None)
+        if name is not None:
+            orig = getattr(ShardingPropagator, name)
+            self._patched.append((ShardingPropagator, name, orig))
+            setattr(ShardingPropagator, name, self._silent(orig))
         return super().__enter__()
 
     def __exit__(self, *exc):
-        if self._patched is not None:
-            pt, orig = self._patched
-            pt.shard_dim_alltoall = orig
-            self._patched = None
+        for owner, name, orig in reversed(self._patched or ()):
+            setattr(owner, name, orig)
+        self._patched = None
         return super().__exit__(*exc)
 
     # -- memory ----------------------------------------------------------
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, op: str) -> None:
         n = _nbytes(t)
+        key = self._made = self._made + 1
+        self._live[key] = (n, op, tuple(t.shape), str(t.dtype)[6:])
         self.live_bytes += n
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
-        weakref.finalize(t, self._free, n)
+        if self.live_bytes > self.peak_bytes:
+            self.peak_bytes = self.live_bytes
+            self.peak_op = op
+            self.peak_live = heapq.nlargest(PEAK_LIVE, self._live.values())
+        weakref.finalize(t, self._free, key)
 
-    def _free(self, n: int) -> None:
-        self.live_bytes -= n
+    def _free(self, key: int) -> None:
+        self.live_bytes -= self._live.pop(key)[0]
 
     # -- dispatch --------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -304,7 +341,7 @@ class StepCounter(TorchDispatchMode):
         self.hbm_bytes += sum(_nbytes(t) for t in ins + outs)
         if not aliased:
             for t in outs:
-                self._track(t)
+                self._track(t, f"{func.namespace}.{name}")
         return out
 
     def collectives(self) -> CollectiveStats:

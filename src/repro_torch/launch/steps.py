@@ -35,7 +35,7 @@ from .. import configs
 from ..configs.shapes import ShapeSpec
 from ..interop import tree_leaves, tree_map, tree_named_leaves, tree_unflatten
 from ..models import registry
-from ..models.common import ModelConfig
+from ..models.common import Int8Weight, ModelConfig, dequant_int8
 from ..optim.adam import AdamW
 from ..parallel import sharding
 from ..parallel.sharding import P
@@ -227,9 +227,16 @@ def serve_state_specs(cfg: ModelConfig, state_shapes, mesh):
 # over `data`; storing the big weights as int8 + per-tensor scale halves
 # those collective bytes. The gather runs BEFORE dequantization (the
 # int8 DTensor is redistributed to its serve-mode placements), so the
-# collective moves int8, not bf16.
+# collective moves int8, not bf16. The steps gather and dequantize a
+# stacked layer weight one layer at a time, as the layer loop reaches it
+# (`layerwise_int8`), where the reference's per-layer gather sits inside
+# its layer scan.
 
 _INT8_MIN_SIZE = 1 << 16
+# the param-tree keys whose weights are per layer: stacked (L, ...) under
+# "layers", "enc_layers", "dec_layers"; one dict a block under "blocks"
+# (xlstm)
+_LAYER_KEYS = ("layers", "enc_layers", "dec_layers", "blocks")
 
 
 def _is_qleaf(node) -> bool:
@@ -264,18 +271,37 @@ def _map_qleaves(fn: Callable, tree, *rest):
     return tree
 
 
+def _gather_placements(spec, mesh):
+    return None if mesh is None else sharding.placements(spec["q"], mesh)
+
+
 def dequantize_weights(qparams, gather_specs, mesh, dtype: torch.dtype):
     """Gather each int8 weight to its ``gather_specs`` layout (the
     serve-mode spec, without the FSDP dim) and dequantize locally:
     (q · s) in f32, then ``dtype``. A plain q is dequantized as it is."""
-    from torch.distributed.tensor import DTensor
+    return _map_qleaves(lambda node, spec: dequant_int8(
+        node["q"], node["s"], _gather_placements(spec, mesh), dtype),
+        qparams, gather_specs)
 
-    def one(node, spec):
-        q = node["q"]
-        if isinstance(q, DTensor):
-            q = q.redistribute(mesh, sharding.placements(spec["q"], mesh))
-        return (q.to(torch.float32) * node["s"]).to(dtype)
-    return _map_qleaves(one, qparams, gather_specs)
+
+def layerwise_int8(qparams, gather_specs, mesh, dtype: torch.dtype):
+    """The int8 tree as the serving steps read it: each {"q", "s"} node
+    under a per-layer key (`_LAYER_KEYS`) an `Int8Weight`, which the
+    model's layer loop gathers and dequantizes one layer (or block) at a
+    time; every other node (embed, lm_head, a shared block) gathered and
+    dequantized now, as `dequantize_weights` does. Each element is the
+    same (q · s) either way, so the steps' outputs are bitwise those on
+    `dequantize_weights`' tree."""
+    def per_layer(node, spec):
+        return Int8Weight(node["q"], node["s"],
+                          _gather_placements(spec, mesh), dtype)
+    whole = {k: v for k, v in qparams.items() if k not in _LAYER_KEYS}
+    out = dequantize_weights(whole, {k: gather_specs[k] for k in whole},
+                             mesh, dtype)
+    for k in qparams:
+        if k in _LAYER_KEYS:
+            out[k] = _map_qleaves(per_layer, qparams[k], gather_specs[k])
+    return {k: out[k] for k in qparams}
 
 
 # ---------------------------------------------------------------------------
@@ -423,9 +449,10 @@ def make_lowerable(arch: str, shape: ShapeSpec, mesh, reduced: bool = False,
     `sharding.param_shardings` in mode "train", or "serve_fsdp" /
     "serve"; the batch by `batch_specs` (zeros of `input_specs`); the
     serve state by `serve_state_specs`. With ``cfg.serve_int8_weights``
-    the weights are stored as `quantize_weights_int8` and each step
-    gathers and dequantizes them first. Sets the current mesh
-    (`sharding.set_mesh`) for the step to run in."""
+    the weights are stored as `quantize_weights_int8`; each step gathers
+    and dequantizes the non-layer weights first and every layer's weights
+    when its layer loop reaches them (`layerwise_int8`). Sets the current
+    mesh (`sharding.set_mesh`) for the step to run in."""
     cfg = resolve_config(arch, shape, reduced=reduced)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
@@ -468,7 +495,7 @@ def make_lowerable(arch: str, shape: ShapeSpec, mesh, reduced: bool = False,
         dt = cfg.param_dtype()
 
         def deq(qp):
-            return dequantize_weights(qp, gspecs, mesh, dt)
+            return layerwise_int8(qp, gspecs, mesh, dt)
     dparams = place(params, pspecs, mesh)
     bspecs = batch_specs(cfg, shape, mesh)
 

@@ -268,6 +268,65 @@ def lm_logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
          sharding.grad_partial(ws, b_dims)))
 
 
+def dequant_int8(q: torch.Tensor, s: torch.Tensor, placements,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """(q · s) in f32, then ``dtype``: an int8 weight and its f32 scale
+    dequantized, as the reference's `dequantize_weights` takes each
+    element. A DTensor q is first redistributed to ``placements`` (its
+    serve-mode layout: the FSDP gather moves int8)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        q = q.redistribute(q.device_mesh, placements)
+    return q.to(torch.float32).mul_(s).to(dtype)
+
+
+def _layer_placements(placements) -> list:
+    """The placements of one layer of a stacked (L, ...) DTensor laid out
+    by ``placements``: a split of dim d is a split of the layer's dim
+    d − 1 (the layer dim itself is never split)."""
+    from torch.distributed.tensor import Shard
+    if any(isinstance(p, Shard) and p.dim == 0 for p in placements):
+        raise ValueError(f"the layer dim of a stacked weight is split: "
+                         f"{placements}")
+    return [Shard(p.dim - 1) if isinstance(p, Shard) else p
+            for p in placements]
+
+
+class Int8Weight:
+    """An int8 weight ({"q": int8, "s": f32 scale}) that stays int8 until a
+    layer reads it: ``w[i]`` is layer i of a stacked (L, ...) weight and
+    `whole()` the whole weight, each gathered to its serve-mode layout
+    (``placements``, whose leading layer dim is never split) and
+    dequantized by `dequant_int8` when called. Nothing is kept: the
+    caller drops a layer's weights when it is done with them."""
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor, placements,
+                 dtype: torch.dtype):
+        self.q, self.s, self.placements, self.dtype = q, s, placements, dtype
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor
+        q, pl = self.q, self.placements
+        if isinstance(q, DTensor):            # layer i of each rank's shard
+            q = DTensor.from_local(q.to_local()[i], q.device_mesh,
+                                   _layer_placements(q.placements),
+                                   run_check=False)
+            pl = _layer_placements(pl)
+        else:
+            q = q[i]
+        return dequant_int8(q, self.s, pl, self.dtype)
+
+    def whole(self) -> torch.Tensor:
+        return dequant_int8(self.q, self.s, self.placements, self.dtype)
+
+
+def dequant_block(tree):
+    """``tree`` with each `Int8Weight` dequantized whole (a block that is
+    not stacked over layers); any other leaf as it is."""
+    return tree_map(lambda t: t.whole() if isinstance(t, Int8Weight) else t,
+                    tree)
+
+
 def remat_run(on: bool) -> Callable[..., Any]:
     """run(fn, *args) → fn(*args), under `torch.utils.checkpoint`
     (non-reentrant) when ``on`` and grad is enabled, where the reference

@@ -24,8 +24,12 @@ Sharded: the reference's `sharding.logical` layouts (the embedded stream
 over the batch, logits over batch and vocab) are applied where it applies
 them, no-ops without a mesh; `shard_cache` lays a stacked cache out as
 (None, batch, None, heads, None); a DTensor cache is written through its
-local shards (`sharding.local_pair`), and `next_token_ce` takes each
-rank's rows whole.
+local shards (`sharding.local_pair`), and `next_token_ce` is
+vocab-parallel (`_VocabCE`: the logits stay split over ``model``). The
+serving loops read their layers through `_unbind_layers`, so an int8
+weight tree (`common.Int8Weight` leaves, `launch.steps.make_lowerable`
+with ``cfg.serve_int8_weights``) is gathered and dequantized one layer at
+a time.
 
 Training (`forward`, `cross_entropy`, `loss_fn`): with ``cfg.remat`` each
 layer body runs under `torch.utils.checkpoint` (non-reentrant), where the
@@ -37,6 +41,7 @@ stacked once, not scattered into a zero (L, ...) tensor per layer.
 """
 from __future__ import annotations
 
+from collections.abc import Sequence
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
@@ -45,8 +50,8 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..parallel import sharding
 from . import attention, mlp
-from .common import (ModelConfig, dense_init, embed_lookup, lm_logits,
-                     remat_run, rms_norm, stack_layers)
+from .common import (Int8Weight, ModelConfig, dense_init, embed_lookup,
+                     lm_logits, remat_run, rms_norm, stack_layers)
 
 Pos = Union[int, torch.Tensor]
 
@@ -139,15 +144,48 @@ def _head(params, h: torch.Tensor) -> torch.Tensor:
 # forward (train / eval, no cache)
 # ---------------------------------------------------------------------------
 
-def _unbind_layers(stacked: Dict[str, Any], n: int) -> list:
+class _Layers(Sequence):
+    """The n per-layer dicts of a stacked layer tree, each built when it is
+    read (`_layer` on the leaves split once). Iterating over a tree with
+    int8 leaves (`Int8Weight`) empties each layer's dict before the next
+    layer's weights are dequantized, so one layer's are live at a time."""
+
+    def __init__(self, parts: Dict[str, Any], n: int, lazy: bool):
+        self.parts, self.n, self.lazy = parts, n, lazy
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int) -> Dict[str, Any]:
+        if not 0 <= i < self.n:
+            raise IndexError(i)
+        return _layer(self.parts, i)
+
+    def __iter__(self):
+        prev = None
+        for i in range(self.n):
+            if self.lazy and prev is not None:
+                prev.clear()
+            prev = self[i]
+            yield prev
+
+
+def _unbind_layers(stacked: Dict[str, Any], n: int) -> _Layers:
     """The stacked (L, ...) layer params as n per-layer dicts of views,
-    one `unbind` per leaf."""
+    one `unbind` per leaf; an int8 leaf (`Int8Weight`) is dequantized
+    layer by layer as the dicts are read."""
+    lazy = False
+
     def split(tree):
+        nonlocal lazy
         if isinstance(tree, dict):
-            parts = {k: split(v) for k, v in tree.items()}
-            return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+            return {k: split(v) for k, v in tree.items()}
+        if isinstance(tree, Int8Weight):
+            lazy = True
+            return tree
         return tree.unbind(0)
-    return split(stacked)
+    parts = split(stacked)
+    return _Layers(parts, n, lazy)
 
 
 def _body(h: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig,
@@ -183,32 +221,99 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def next_token_ce(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
                   start: int = 0) -> torch.Tensor:
     """`cross_entropy(logits[:, start:-1], labels[:, 1:], vocab)`: the
-    next-token loss over the positions from ``start`` (a vlm's text). On
-    DTensor logits each rank takes its own rows whole (the vocab gathered
-    over ``model``), slicing them locally, and the mean runs over the
-    per-token losses laid out by rows: no rank ever holds another rank's
-    rows, in the forward or the backward (DTensor's own strategies for the
-    slice, the logsumexp and their backwards run them on the whole batch
-    on every rank)."""
-    b, _ = sharding.batch_head_entries(logits.shape[0])
-    rows = sharding.spec_placements(b, None, None)
-    tok = sharding.spec_placements(b, None)
+    next-token loss over the positions from ``start`` (a vlm's text).
+
+    On DTensor logits it is vocab-parallel, as the reference's GSPMD
+    reduces its CE over ``model``: the logits stay laid out over batch
+    and vocab, and each rank runs `_VocabCE` on its (B_l, S, V_pad /
+    model) slice, with the row max, the sum of exponentials and the
+    label's logit all-reduced over ``model``; the mean runs over the
+    per-token losses laid out by rows. No rank holds another rank's rows
+    or vocab columns, in the forward or the backward."""
+    b, v = sharding.batch_head_entries(logits.shape[0], logits.shape[-1])
+    pl = sharding.spec_placements
+    tok = pl(b, None)
+    group, rank = sharding.axis_group("model") if v else (None, 0)
+    rows = slice(start, -1)
     return sharding.local_call(
-        lambda lg, lb: _token_ce(lg[:, start:-1, :], lb[:, 1:], vocab),
-        (logits, labels), (rows, tok), tok).mean()
+        lambda lg, lb: _VocabCE.apply(lg, lb[:, 1:], vocab, rows, group,
+                                      rank),
+        (logits, labels), (pl(b, None, v), tok), tok).mean()
 
 
 def _token_ce(logits: torch.Tensor, labels: torch.Tensor,
               vocab: int) -> torch.Tensor:
-    """Each token's CE in f32, (B, S)."""
-    lf = logits.float()
-    v_pad = lf.shape[-1]
-    if v_pad > vocab:
-        pad = torch.arange(v_pad, device=lf.device) >= vocab
-        lf = lf.masked_fill(pad, -1e30)
-    lse = torch.logsumexp(lf, dim=-1)                         # (B, S)
-    picked = lf.gather(-1, labels[..., None].long())[..., 0]
-    return lse - picked
+    """Each token's CE in f32, (B, S), over the whole vocab."""
+    return _VocabCE.apply(logits, labels, vocab, slice(None), None, 0)
+
+
+def _masked_f32(lg: torch.Tensor, vocab: int, col0: int) -> torch.Tensor:
+    """An f32 copy of the logits (..., n) that are vocab columns col0 ..
+    col0 + n − 1, padded columns (≥ vocab) set to −1e30 (the reference's
+    iota mask, by global column)."""
+    lf = lg.to(torch.float32, copy=True)
+    n = lf.shape[-1]
+    if col0 + n > vocab:
+        lf.masked_fill_(torch.arange(col0, col0 + n, device=lf.device)
+                        >= vocab, -1e30)
+    return lf
+
+
+def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``t`` all-reduced with ``op`` over ``group`` (a functional
+    collective), waited for (under `FakeTensorMode` it returns a plain
+    fake tensor)."""
+    from torch.distributed import _functional_collectives as fc
+    out = fc.all_reduce(t, op, group)
+    return out.wait() if isinstance(out, fc.AsyncCollectiveTensor) else out
+
+
+class _VocabCE(torch.autograd.Function):
+    """Each token's CE in f32 of ``logits[:, rows]`` (B, S, n), vocab
+    columns rank·n .. rank·n + n − 1 of V_pad, against ``labels`` (B, S').
+
+    With ``group`` (a mesh dim over which the vocab is split) the row max
+    is all-reduced with MAX, Σ exp(lf − max) and the label's logit (taken
+    on the rank whose slice holds it, 0 elsewhere) with SUM, through
+    functional collectives; lse = log(Σ) + max, as `torch.logsumexp`
+    takes it. Without one (no mesh, ``model`` of size 1, or the vocab
+    whole on each rank) the same arithmetic runs with no collective. The
+    backward, (exp(lf − lse) − onehot) · g, needs no collective: it
+    recomputes lf from the saved logits (no f32 copy is kept) and comes
+    back in the logits' own shape and type, zero outside ``rows``."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, vocab, rows, group, rank):
+        n = logits.shape[-1]
+        col0 = rank * n
+        lf = _masked_f32(logits[:, rows], vocab, col0)
+        idx = labels.long() - col0
+        hit = (idx >= 0) & (idx < n)
+        idx = idx.clamp(0, n - 1)[..., None]
+        picked = torch.where(hit, lf.gather(-1, idx)[..., 0], 0.0)
+        m = lf.amax(-1)
+        if group is not None:
+            m = _all_reduce(m, "max", group)
+        s = lf.sub_(m[..., None]).exp_().sum(-1)
+        del lf
+        if group is not None:
+            s = _all_reduce(s, "sum", group)
+            picked = _all_reduce(picked, "sum", group)
+        lse = torch.log(s) + m
+        ctx.save_for_backward(logits, lse, idx, hit)
+        ctx.vocab, ctx.rows, ctx.col0 = vocab, rows, col0
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx, hit = ctx.saved_tensors
+        g = g.float()
+        d = _masked_f32(logits[:, ctx.rows], ctx.vocab, ctx.col0)
+        d.sub_(lse[..., None]).exp_().mul_(g[..., None])
+        d.scatter_add_(-1, idx, torch.where(hit, -g, 0.0)[..., None])
+        out = torch.zeros_like(logits)
+        out[:, ctx.rows] = d
+        return out, None, None, None, None, None
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
@@ -285,8 +390,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
     h = embed_tokens(params, tokens, cfg, embed_prefix)
     positions = torch.arange(h.shape[1], device=h.device)
     ck, cv = cache["k"], cache["v"]
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
         x = rms_norm(h, lp["attn_norm"])
         q, k, v = attention.qkv(lp["attn"], x, cfg, positions)
         o = attention.attend_causal(q, k, v, 0, cfg.window, cfg.q_chunk,
@@ -315,8 +419,7 @@ def decode_step(params, token: torch.Tensor, pos: Pos,
     slot = torch.arange(w, device=h.device)[None, :]
     age = (pos - slot) % w                               # 0 .. w-1
     valid = (age <= pos) & (age < win)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
         x = rms_norm(h, lp["attn_norm"])
         q, k, v = attention.qkv(lp["attn"], x, cfg, positions)
         kk = _ring_write(ck[i], k, pos)

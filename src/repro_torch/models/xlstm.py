@@ -54,8 +54,8 @@ import torch.nn.functional as F
 from ..device import DeviceLike, resolve_device
 from ..kernels.slstm.slstm import slstm_fused, slstm_fused_bwd
 from ..parallel import sharding
-from .common import (ModelConfig, dense_init, embed_lookup, lm_logits,
-                     remat_run, rms_norm)
+from .common import (ModelConfig, dequant_block, dense_init, embed_lookup,
+                     lm_logits, remat_run, rms_norm)
 
 NEG = -1e30
 
@@ -504,6 +504,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, states=None):
     run = remat_run(cfg.remat and states is None)
     new_states = []
     for i, bp in enumerate(params["blocks"]):
+        bp = dequant_block(bp)        # int8 weights: this block's alone
         st = None if states is None else states[i]
         kind = "slstm" if "slstm" in bp else "mlstm"
         apply = slstm_block_apply if kind == "slstm" else mlstm_block_apply

@@ -184,6 +184,17 @@ def batch_head_entries(batch: int, *heads: int):
             "model" if m and all(h % m == 0 for h in heads) else None)
 
 
+def axis_group(axis: str):
+    """(group, this rank's coordinate) of the current mesh's ``axis``, the
+    group as functional collectives take it; (None, 0) without a mesh or
+    where the axis has one rank (nothing to reduce)."""
+    mesh = _CURRENT["mesh"]
+    axes = mesh_axes(mesh)
+    if axes.get(axis, 1) == 1:
+        return None, 0
+    return (mesh, list(axes).index(axis)), mesh.get_local_rank(axis)
+
+
 def spec_placements(*entries) -> tuple:
     """`placements` of ``P(*entries)`` on the current mesh (none without
     one)."""

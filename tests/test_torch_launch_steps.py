@@ -429,3 +429,207 @@ def test_train_cli_mesh_on_a_one_rank_world_equals_the_single_card_run(
     assert meshed["restarts"] == plain["restarts"] == 0
     np.testing.assert_allclose(meshed["losses"], plain["losses"], rtol=1e-6)
     assert meshed["losses"][-1] < meshed["losses"][0]
+
+
+# ---------------------------------------------------------------------------
+# int8 weights gathered and dequantized layer by layer
+# ---------------------------------------------------------------------------
+
+INT8_ARCHS = ("qwen3-0.6b", "mixtral-8x22b")        # dense, MoE
+INT8_OVERRIDES = {"serve_int8_weights": True, "serve_fsdp": True}
+INT8_DECODE = ShapeSpec("decode_t", PREFILL.seq_len, PREFILL.global_batch,
+                        "decode")
+
+
+def _layer_qnodes(tree) -> list:
+    """The names of the {"q", "s"} nodes under the per-layer keys."""
+    return sorted({n.rsplit("/", 1)[0] for n, _ in tree_named_leaves(tree)
+                   if n.endswith("/q")
+                   and n.split("/")[0] in tsteps._LAYER_KEYS})
+
+
+def int8_rank(rank, world, cases):
+    """One rank of the 2 x 2 world, for each arch: the int8 prefill and one
+    decode step through `make_lowerable` (the steps dequantize layer by
+    layer) and the same steps on the whole-tree `dequantize_weights`
+    output, from fresh serve states, the results gathered whole."""
+    from repro_torch.interop import to_torch
+    from repro_torch.launch import mesh as tmesh
+    # one intra-op thread: under CPU contention, gloo ranks of two threads
+    # now and then return values ~1e-5 off, and the paths are compared
+    # bitwise
+    torch.set_num_threads(1)
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"), "cpu")
+    out = {}
+    for arch, (params_np, prompt, dec_tok) in cases.items():
+        params = to_torch(params_np, "cpu")
+        low = tsteps.make_lowerable(arch, PREFILL, mesh, reduced=True,
+                                    cfg_overrides=INT8_OVERRIDES,
+                                    params=params)
+        lowd = tsteps.make_lowerable(arch, INT8_DECODE, mesh, reduced=True,
+                                     cfg_overrides=INT8_OVERRIDES,
+                                     params=params)
+        qp = low.args[0]
+        model = treg.build(low.cfg)
+        gspecs = sharding.param_specs(qp, mesh, "serve")
+        whole = tsteps.dequantize_weights(qp, gspecs, mesh,
+                                          low.cfg.param_dtype())
+        pb = low.place(1, {"tokens": torch.from_numpy(prompt)})
+        tok = low.place(1, {"tokens": torch.from_numpy(dec_tok)})["tokens"]
+        res = {"layer_qnodes": _layer_qnodes(qp)}
+        for how in ("layerwise", "whole"):
+            state = low.place(2, model.init_serve_state(
+                PREFILL.global_batch, PREFILL.seq_len, "cpu"))
+            if how == "layerwise":
+                logits, state = low.fn(qp, pb, state)
+                nxt, dlogits, _ = lowd.fn(lowd.args[0], tok, DECODE_POS,
+                                          state)
+            else:
+                logits, state = tsteps.build_prefill_step(model)(
+                    whole, pb, state)
+                nxt, dlogits, _ = tsteps.build_decode_step(model)(
+                    whole, tok, DECODE_POS, state)
+            res[how] = {"prefill": _full(logits), "decode": _full(dlogits),
+                        "next": _full(nxt)}
+        out[arch] = res
+    sharding.set_mesh(None)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_reference(arch: str):
+    """The reference's reduced weights (numpy), a prompt and a decode
+    token, and its int8 prefill and decode (`make_lowerable(...).fn` with
+    serve_int8_weights) on the Auto (1, 1) JAX CPU mesh."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.shapes import ShapeSpec as JShape
+    from repro.models import registry as jreg
+    from repro.parallel import sharding as jsharding
+    jsteps = _ref_steps()
+    mesh = _auto_mesh()
+    rng = np.random.default_rng(7)
+    cfg = dataclasses.replace(jsteps.resolve_config(
+        arch, JShape(*dataclasses.astuple(PREFILL)), reduced=True),
+        **INT8_OVERRIDES)
+    params = jax.tree.map(np.asarray,
+                          jreg.build(cfg).init(jax.random.PRNGKey(9)))
+    prompt = rng.integers(0, cfg.vocab, (PREFILL.global_batch,
+                                         PREFILL.seq_len)).astype(np.int32)
+    dec_tok = rng.integers(0, cfg.vocab,
+                           (PREFILL.global_batch, 1)).astype(np.int32)
+    res = {}
+    try:
+        with mesh:
+            qp = jsteps.quantize_weights_int8(jax.tree.map(jnp.asarray,
+                                                           params))
+            low = jsteps.make_lowerable(arch, JShape(*dataclasses.astuple(
+                PREFILL)), mesh, reduced=True, cfg_overrides=INT8_OVERRIDES)
+            lowd = jsteps.make_lowerable(arch, JShape(*dataclasses.astuple(
+                INT8_DECODE)), mesh, reduced=True,
+                cfg_overrides=INT8_OVERRIDES)
+            state = jreg.build(low.cfg).init_serve_state(
+                PREFILL.global_batch, PREFILL.seq_len)
+            logits, state = low.fn(qp, {"tokens": jnp.asarray(prompt)},
+                                   state)
+            res["prefill"] = np.asarray(logits, np.float32)
+            _, logits, _ = lowd.fn(qp, jnp.asarray(dec_tok),
+                                   jnp.int32(DECODE_POS), state)
+            res["decode"] = np.asarray(logits, np.float32)
+    finally:
+        jsharding.set_mesh(None)
+    return params, prompt, dec_tok, res
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_cells():
+    from repro_torch.launch.mesh import run_ranks
+    cases = {a: _int8_reference(a)[:3] for a in INT8_ARCHS}
+    return run_ranks(int8_rank, 4, (cases,), timeout_s=600)
+
+
+@pytest.mark.parametrize("arch", INT8_ARCHS)
+def test_int8_layerwise_serving_is_bitwise_the_whole_tree_dequant(arch):
+    """Each layer's weights gathered and dequantized when its layer runs
+    give bitwise the steps on `dequantize_weights`' whole tree; the layer
+    weights really are int8 (the reduced configs' big layer leaves clear
+    `_INT8_MIN_SIZE`)."""
+    for out in _int8_cells():
+        res = out[arch]
+        qnodes = res["layer_qnodes"]
+        assert tsteps._INT8_MIN_SIZE == 1 << 16
+        assert any("mlp" in n for n in qnodes) and len(qnodes) >= 3, qnodes
+        for what in ("prefill", "decode", "next"):
+            got, want = res["layerwise"][what], res["whole"][what]
+            assert got.dtype == want.dtype and torch.equal(got, want), what
+
+
+@pytest.mark.parametrize("arch", INT8_ARCHS)
+def test_int8_layerwise_serving_equals_reference(arch):
+    *_, ref = _int8_reference(arch)
+    for out in _int8_cells():
+        for what in ("prefill", "decode"):
+            _lm_close(out[arch]["layerwise"][what], ref[what])
+
+
+INT8_FAMILY_ARCHS = ("qwen3-0.6b", "mixtral-8x22b", "llava-next-34b",
+                     "zamba2-1.2b", "xlstm-125m", "whisper-large-v3")
+
+
+def _int8_decode_cell(arch: str, n_layers: int):
+    """The reduced int8 decode_32k cell at ``n_layers`` on a fake 16 x 16
+    world, one step under `StepCounter`: (its temporaries beyond the
+    step's new outputs, one layer's gathered, dequantized weight bytes a
+    rank)."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import _local_bytes
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh = make_production_mesh(fake=True)
+    try:
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            low = tsteps.make_lowerable(
+                arch, SHAPES["decode_32k"], mesh, reduced=True,
+                cfg_overrides=dict(INT8_OVERRIDES, n_layers=n_layers))
+            counter = roofline.StepCounter()
+            out, _, _ = roofline.count_step(low.fn, *low.args,
+                                            counter=counter)
+            args = {id(t) for t in tree_leaves(low.args)}
+            new_out = _local_bytes([t for t in tree_leaves(out)
+                                    if id(t) not in args])
+            qp = low.args[0]
+            sizes = sharding.mesh_axes(mesh)
+            specs = dict(zip((n for n, _ in tree_named_leaves(qp)),
+                             sharding.spec_leaves(sharding.param_specs(
+                                 qp, mesh, "serve"))))
+            layer = 0
+            for name, leaf in tree_named_leaves(qp):
+                if name.rsplit("/", 1)[0] not in _layer_qnodes(qp) \
+                        or not name.endswith("/q"):
+                    continue
+                div = int(np.prod([sizes[a] for e in specs[name]
+                                   for a in ((e,) if isinstance(e, str)
+                                             else (e or ()))]))
+                layer += leaf.numel() // div
+        item = low.cfg.param_dtype().itemsize
+        return counter.peak_bytes - new_out, layer * item // n_layers
+    finally:
+        sharding.set_mesh(None)
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", INT8_FAMILY_ARCHS)
+def test_int8_serving_temporaries_do_not_grow_with_depth(arch, monkeypatch):
+    """Every family's reduced int8 decode_32k cell (serve_fsdp) on a fake
+    16 x 16 world: its temporaries beyond the step's new outputs (xlstm
+    returns its states anew) at 2 and at 8 layers differ by less than one
+    layer's dequantized weights, where dequantizing the whole tree up
+    front would add six layers' worth. The size floor is set to 1 here, so
+    that every layer weight of the reduced configs is int8 at both
+    depths."""
+    monkeypatch.setattr(tsteps, "_INT8_MIN_SIZE", 1)
+    t2, layer2 = _int8_decode_cell(arch, 2)
+    t8, layer8 = _int8_decode_cell(arch, 8)
+    assert layer8 > 0 and layer2 > 0
+    assert abs(t8 - t2) < layer8, (t2, t8, layer8)

@@ -165,3 +165,41 @@ def test_counter_ring_bytes_on_a_fake_16x16_world():
     roof = counter.roofline(256, 0.0)
     assert roof.t_collective == roof.coll.total_ring_bytes / rl.ICI_BW
     assert np.isfinite(roof.t_step)
+
+
+@pytest.mark.parametrize("op", ("to_f32", "add", "matmul"))
+def test_counter_sees_only_local_ops_of_a_dtensor_op(op):
+    """DTensor derives an op's output shape by running the op once on fake
+    tensors of the global shape, the first time it meets the op's schema;
+    no rank runs that op, so the counter leaves it out: a fresh op's first
+    call counts the same flops, bytes and peak as its second, all at the
+    local shapes (x: (64, 100) of a global (64, 1600)), and the peak names
+    a local tensor."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_fake_world, make_mesh
+    init_fake_world(256)
+    try:
+        mesh = make_mesh((16, 16), ("data", "model"), "cpu")
+        with FakeTensorMode():
+            x = DTensor.from_local(torch.empty(64, 100), mesh,
+                                   [Replicate(), Shard(1)], run_check=False)
+            w = DTensor.from_local(torch.empty(100, 48), mesh,
+                                   [Replicate(), Shard(0)], run_check=False)
+            fn = {"to_f32": lambda: x.to(torch.float64),
+                  "add": lambda: x + 1.5,
+                  "matmul": lambda: (x @ w).to_local()}[op]
+            counts = []
+            for _ in range(2):
+                counter = rl.StepCounter()
+                with counter:
+                    fn()
+                counts.append((counter.flops, counter.hbm_bytes,
+                               counter.peak_bytes, counter.n_ops))
+                assert counter.peak_live[0][2] in ((64, 100), (64, 48)), \
+                    counter.peak_live
+    finally:
+        dist.destroy_process_group()
+    assert counts[0] == counts[1]
+    assert counts[0][2] <= 64 * 100 * 8
