@@ -21,7 +21,12 @@ shape whose DTensors, under `FakeTensorMode`, hold no memory: what
 
 `run_ranks` starts a world of processes on this host (``spawn``, a
 `FileStore` rendezvous in a temporary directory, so concurrent worlds never
-share a port) and returns each rank's result.
+share a port) and returns each rank's result. Its ranks run oneMKL in its
+reproducible mode (`RANK_ENV`): without it, a rank of two or more intra-op
+threads now and then computes its OpenMP worker's part of an MKL vector
+function (ATen's ``exp`` of more than 2048 elements, through oneMKL's VM
+``vmsExp``) to ~1e-4 relative accuracy instead of to its last bit, so the
+same inputs gave results ~1e-5 apart from run to run.
 
 Which path a tensor takes between ranks is decided once, here
 (`stages_through_host`): NCCL moves CUDA tensors device to device; any
@@ -30,6 +35,7 @@ ranks on one GPU) gets CUDA tensors copied to the host and back.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import multiprocessing
 import os
@@ -44,6 +50,11 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
+# the environment of `run_ranks`' processes (unless the caller's sets
+# these): oneMKL's conditional numerical reproducibility on its portable
+# code path; "AUTO" and MKL_DYNAMIC=FALSE do not stop the worker threads'
+# inexact vector math
+RANK_ENV = {"MKL_CBWR": "COMPATIBLE"}
 # (shape, dim names) of the reference's production meshes
 PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
                      True: ((2, 16, 16), ("pod", "data", "model"))}
@@ -147,6 +158,19 @@ def _rank_main(rank: int, world: int, backend: str, store: str, out: str,
         raise
 
 
+@contextlib.contextmanager
+def _environ(values: Mapping[str, str]):
+    """``values`` in `os.environ` where it has no such key (a spawned
+    process copies the environment when it starts), restored after."""
+    added = [k for k in values if k not in os.environ]
+    os.environ.update({k: values[k] for k in added})
+    try:
+        yield
+    finally:
+        for k in added:
+            os.environ.pop(k, None)
+
+
 def run_ranks(fn: Callable, world: int, args: tuple = (),
               backend: str = "gloo", timeout_s: float = 600.0) -> List[Any]:
     """Run ``fn(rank, world, *args)`` in ``world`` spawned processes joined
@@ -156,9 +180,10 @@ def run_ranks(fn: Callable, world: int, args: tuple = (),
     ``fn`` must be importable by name (a module-level function) and its
     result picklable by `torch.save`; a rank chooses its own card
     (`torch.cuda.set_device`) and gets an equal share of the host's cores
-    for its intra-op threads. If a rank raises, exits non-zero or the
-    world outlives ``timeout_s``, every rank still running is terminated
-    and RuntimeError (TimeoutError) carries the first failure."""
+    for its intra-op threads, and `RANK_ENV` in its environment. If a rank
+    raises, exits non-zero or the world outlives ``timeout_s``, every rank
+    still running is terminated and RuntimeError (TimeoutError) carries
+    the first failure."""
     if world < 1:
         raise ValueError(f"world must be >= 1, got {world}")
     ctx = multiprocessing.get_context("spawn")
@@ -167,8 +192,9 @@ def run_ranks(fn: Callable, world: int, args: tuple = (),
         procs = [ctx.Process(target=_rank_main, args=(
             r, world, backend, store, tmp, fn, tuple(args)))
             for r in range(world)]
-        for p in procs:
-            p.start()
+        with _environ(RANK_ENV):
+            for p in procs:
+                p.start()
         deadline = time.monotonic() + timeout_s
         try:
             while any(p.is_alive() for p in procs):

@@ -16,12 +16,15 @@ counterpart of the reference's `ShapeDtypeStruct`s, which
 
 The train step reduces each gradient to its parameter's placements (a
 weight replicated over ``data`` gets a `Partial` sum there) before the
-clipping and the update, where the reference's GSPMD reduces implicitly,
-and lays the new parameters and moments out as their inputs were. Plain
-tensors that the model makes (positions, masks) count as replicated
-(`implicit_replication`). Left out by choice: the reference's donation
-and out_shardings of the serve state (the port writes its caches in
-place).
+clipping and the update, where the reference's GSPMD reduces implicitly:
+a stacked layer leaf's one layer at a time inside the layer loop's
+backward (`models.transformer._LayerGrad`), any other leaf's once
+`torch.autograd.grad` returns it; its f32 sums live on the parameters'
+shards. It lays the new parameters and moments out as their inputs
+were. Plain tensors that the model makes (positions, masks) count as
+replicated (`implicit_replication`). Left out by choice: the reference's
+donation and out_shardings of the serve state (the port writes its
+caches in place).
 """
 from __future__ import annotations
 
@@ -330,16 +333,33 @@ def _like(new, old):
     return new
 
 
+def loss_and_grads(model: registry.Model, params, batch):
+    """One microbatch's (loss, the gradient of every parameter leaf in
+    `tree_leaves` order, None where unused), by `torch.autograd.grad`. On
+    DTensor params (under `_replication`) the loss is replicated, and a
+    stacked layer leaf's gradient comes back in its parameter's placements
+    (the layer loop reduces each layer's as its backward produces it,
+    `models.transformer._LayerGrad`); another leaf's may come back in any
+    layout (a Partial sum)."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = model.loss_fn(tree_unflatten(params, leaves), batch)
+    if _is_dtensor(loss):
+        loss = _replicated(loss)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), grads
+
+
 def build_train_step(model: registry.Model, opt: AdamW):
     """Gradient-accumulating train step: every batch leaf has a leading
-    accum axis. For each microbatch, the loss's gradient is taken with
-    `torch.autograd.grad` and added into f32 sums; the sums are divided by
-    accum and `opt.update` applies them (with its gradient clipping).
-    Returns (new_params, new_opt_state, {"loss": mean microbatch loss}).
-    The sums are updated in place; params and the optimizer state are
-    not. On DTensor params each gradient is first reduced to its
-    parameter's placements, and the new params and state keep their
-    inputs' layouts."""
+    accum axis. For each microbatch, `loss_and_grads`; each gradient is
+    laid out as its parameter (`_like`: a Partial reduced, a whole leaf
+    split; a no-op on a stacked layer leaf's), then cast to f32 and added
+    into the f32 sums, which are held on the parameters' shards. The sums
+    are divided by accum and `opt.update` applies them (with its gradient
+    clipping). Returns (new_params, new_opt_state, {"loss": mean
+    microbatch loss}). The sums are updated in place; params and the
+    optimizer state are not. The new params and state keep their inputs'
+    layouts."""
 
     def train_step(params, opt_state, batch):
         with _replication(params):
@@ -351,17 +371,13 @@ def build_train_step(model: registry.Model, opt: AdamW):
         gsum = [torch.zeros_like(p, dtype=torch.float32) for p in plist]
         losses = []
         for a in range(accum):
-            mb = tree_map(lambda t: t[a], batch)
-            leaves = [p.detach().requires_grad_(True) for p in plist]
-            loss, _ = model.loss_fn(tree_unflatten(params, leaves), mb)
-            if _is_dtensor(loss):
-                loss = _replicated(loss)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            loss, grads = loss_and_grads(model, params,
+                                         tree_map(lambda t: t[a], batch))
             for acc, g, p in zip(gsum, grads, plist):
                 if g is not None:
-                    acc.add_(_like(g.float(), p))
-            losses.append(loss.detach())
-            del loss, grads, leaves
+                    acc.add_(_like(g, p).float())
+            losses.append(loss)
+            del grads
         grads = tree_unflatten(params, [g / accum for g in gsum])
         new_params, new_opt = opt.update(grads, opt_state, params)
         new_params = tree_map(_like, new_params, params)

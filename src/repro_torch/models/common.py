@@ -140,13 +140,21 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, scale = ctx.saved_tensors
-        xf, gf = upcast(x), upcast(g)
+        xf = upcast(x)
         r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + ctx.eps)
         xhat = xf * r
-        gs = gf * upcast(scale)
-        dx = r * (gs - xhat * (gs * xhat).mean(dim=-1, keepdim=True))
+        del xf
+        gf = upcast(g)
         dscale = (gf * xhat).sum(dim=tuple(range(x.dim() - 1)))
-        return dx.to(x.dtype), dscale.to(scale.dtype), None
+        gs = gf * upcast(scale)
+        del gf
+        # r · (gs − xhat · mean(gs · xhat)), each operand dropped once
+        # used: at most three f32 tensors of x's size are live at once
+        t = xhat * (gs * xhat).mean(dim=-1, keepdim=True)
+        del xhat
+        t = gs - t
+        del gs
+        return (r * t).to(x.dtype), dscale.to(scale.dtype), None
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -106,7 +106,8 @@ def ssd_chunked(x, dt, a_log, b, c, chunk: int,
     """`_ssd_chunked`, on each rank's local rows and heads where x is a
     DTensor (the scan is independent per row and head; B and C are
     shared by the heads, so with the heads split their gradient is a
-    partial sum over ``model``)."""
+    partial sum over ``model``; A is shared by the rows, so with the rows
+    split its gradient is a partial sum over the batch dims)."""
     bs, h = sharding.batch_head_entries(x.shape[0], x.shape[2])
     pl = sharding.spec_placements
     s4, s3, sbc, st = (pl(bs, None, h, None), pl(bs, None, h),
@@ -121,8 +122,9 @@ def ssd_chunked(x, dt, a_log, b, c, chunk: int,
     from torch.distributed.tensor import Partial
     dbc = tuple(Partial() if h and a == "model" else p_ for a, p_ in zip(
         sharding.mesh_axes(sharding.get_mesh()), sbc))
+    da = sharding.grad_partial(ins[2], bs or ())
     return sharding.local_call(call, args, ins, (s4, st),
-                               ins[:3] + (dbc, dbc) + ins[5:])
+                               ins[:2] + (da, dbc, dbc) + ins[5:])
 
 
 def _ssd_chunked(x, dt, a_log, b, c, chunk: int,

@@ -37,7 +37,13 @@ reference wraps it in `jax.checkpoint`: its activations are dropped after
 the forward and recomputed in the backward, so a fused-attention layer
 launches the forward kernel twice per backward pass. The stacked layer
 params are split with one `unbind` per leaf, so each leaf's gradient is
-stacked once, not scattered into a zero (L, ...) tensor per layer.
+stacked once, not scattered into a zero (L, ...) tensor per layer. On
+DTensor params each layer's view passes through `_LayerGrad`, whose
+backward lays that layer's gradient out as the parameter's shard (a
+Partial sum reduce-scattered, a replicated dim sliced) as soon as the
+layer's backward has made it: the stack holds (L, local shard)
+gradients, never whole ones, where the reference's GSPMD lays its scan's
+gradient out from the params' shardings. Plain tensors get no such node.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..device import DeviceLike, resolve_device
 from ..parallel import sharding
@@ -69,9 +76,37 @@ def _mlp(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig):
 
 
 def _layer(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer i's params: views into the stacked (L, ...) tensors."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+    """Layer i's params: views into the stacked (L, ...) tensors, a
+    DTensor view that takes a gradient through `_LayerGrad`."""
+    return {k: _layer(v, i) if isinstance(v, dict) else _layer_view(v[i])
             for k, v in stacked.items()}
+
+
+def _layer_view(v):
+    if isinstance(v, DTensor) and v.requires_grad and torch.is_grad_enabled():
+        return _LayerGrad.apply(v)
+    return v
+
+
+class _LayerGrad(torch.autograd.Function):
+    """The identity on one layer's view of a stacked DTensor leaf; its
+    backward lays the layer's gradient out as the view is laid out (a
+    Partial sum reduce-scattered, a replicated dim sliced), so that
+    `unbind`'s backward stacks (L, local shard) gradients, never whole
+    ones. The node is made when the layer is read, just before the
+    layer's forward, so the autograd engine runs it as soon as the layer's
+    backward is done."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
 
 
 # ---------------------------------------------------------------------------

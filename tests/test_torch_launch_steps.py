@@ -13,8 +13,10 @@
     reference's `make_lowerable(...).fn` on a (1, 1) JAX CPU mesh with the
     same numpy weights and batch: logits at the LM bound (rtol 1e-4, atol
     1e-4·max|logits|), every parameter after the step within
-    1e-3·max|leaf|; in the same world `shard_cache`'s placements and
-    `train.build(mesh=)`'s parameter placements.
+    1e-3·max|leaf|; in the same world every gradient leaf in its
+    parameter's placements (a stacked layer leaf's as autograd returns
+    it), `shard_cache`'s placements and `train.build(mesh=)`'s parameter
+    placements.
 
 jax is imported inside the tests only: the spawned ranks import this
 module and must not load it.
@@ -247,6 +249,15 @@ def sharded_rank(rank, world, params_np, tokens, labels, prompt, dec_tok):
     out["want_placements"] = [sharding.placements(s, mesh) for s in
                               sharding.spec_leaves(low.specs[0])]
     out["opt_step"] = int(_full(new_o.step))
+    # microbatch 0's gradients as autograd returns them, and as the step
+    # adds them into its sums
+    with tsteps._replication(low.args[0]):
+        _, grads = tsteps.loss_and_grads(treg.build(low.cfg), low.args[0],
+                                         tree_map(lambda t: t[0], batch))
+    out["grad_placements"] = [
+        (n, tuple(g.placements), tuple(tsteps._like(g, p).placements))
+        for (n, p), g in zip(tree_named_leaves(low.args[0]), grads)]
+    del grads
 
     low = tsteps.make_lowerable(ARCH, PREFILL, mesh, reduced=True,
                                 cfg_overrides=OVERRIDES, params=params)
@@ -381,6 +392,23 @@ def test_sharded_train_step_equals_reference():
             scale = max(np.abs(w).max(), 1e-30)
             assert np.abs(g - w).max() <= GRAD_TOL * scale, name
         assert out["param_placements"] == out["want_placements"]
+
+
+def test_sharded_step_gradients_come_back_in_their_parameters_placements():
+    """Every gradient leaf of the sharded step (`loss_and_grads` on
+    microbatch 0) is laid out as its parameter once `_like` has reduced
+    it, and a stacked layer leaf's already is as autograd returns it: its
+    layer loop reduced each layer's gradient to the parameter's shards."""
+    for out in _sharded_cell():
+        got = out["grad_placements"]
+        assert len(got) == len(out["want_placements"])
+        stacked = 0
+        for (name, raw, laid), want in zip(got, out["want_placements"]):
+            assert laid == tuple(want), name
+            if name.split("/")[0] == "layers":
+                stacked += 1
+                assert raw == tuple(want), name
+        assert stacked >= 9, got
 
 
 def test_shard_cache_and_train_build_placements():

@@ -8,6 +8,8 @@ next_token_ce` on DTensor logits split over ``model``).
     gather, and the reference's `cross_entropy` at the LM bound; its
     gradient equals the plain autograd gradient within 1e-6·max|g| and
     comes back in the logits' placements;
+  * two worlds of ranks with two intra-op threads each, eight CEs a
+    world: every loss and gradient bitwise the one-thread world's;
   * on a one-rank (1, 1) mesh the DTensor loss and gradient are bitwise
     the plain ones (the same arithmetic, no collective);
   * on a fake 16 × 16 world at qwen3's vocabulary, under
@@ -26,25 +28,15 @@ import pytest
 import torch
 import torch.distributed as dist
 
+# the case: f32 logits (B, S, V_PAD) with the padded columns set large
+# (the mask must hide them) and text labels (B, S − START) spread over
+# both halves of the vocabulary, shared with the determinism check
+from repro_torch.launch.determinism import B, START, V_PAD, VOCAB
+from repro_torch.launch.determinism import case as _case
 from repro_torch.models import transformer as ttr
 from repro_torch.parallel import sharding
 
-VOCAB, V_PAD = 300, 384
-B, S, START = 4, 11, 3
 LM_RTOL, LM_ATOL_REL, GRAD_REL = 1e-4, 1e-4, 1e-6
-
-
-def _case(seed: int = 0):
-    """f32 logits (B, S, V_PAD) with the padded columns set large (the
-    mask must hide them) and text labels (B, S − START) spread over
-    both halves of the vocabulary."""
-    rng = np.random.default_rng(seed)
-    logits = (rng.standard_normal((B, S, V_PAD)) * 3).astype(np.float32)
-    logits[..., VOCAB:] += 40.0
-    labels = rng.integers(0, VOCAB, (B, S - START)).astype(np.int32)
-    labels[:, ::2] = rng.integers(V_PAD // 2, VOCAB, labels[:, ::2].shape)
-    labels[:, 1::2] = rng.integers(0, V_PAD // 2, labels[:, 1::2].shape)
-    return logits, labels
 
 
 def _plain(logits: torch.Tensor, labels: torch.Tensor):
@@ -65,12 +57,32 @@ def vocab_ce_rank(rank, world, logits_np, labels_np):
     vocab) and this rank's shard of its gradient, with the gradient's
     placements. Each rank cuts its own shards (`DTensor.from_local`), so
     no collective runs but the CE's and the loss's."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
     from repro_torch.launch.mesh import make_mesh
     # one intra-op thread: under CPU contention, ranks of two threads
-    # now and then return values ~1e-5 off (the whole-vocab CE does too)
+    # now and then returned values ~1e-5 off (the OpenMP worker's part of
+    # the CE's exp_ in oneMKL's inexact vector math), until `run_ranks`
+    # set `RANK_ENV`; test_two_thread_ranks_repeat_bitwise holds two
     torch.set_num_threads(1)
+    return _vocab_ce(make_mesh((2, 2), ("data", "model"), "cpu"), logits_np,
+                     labels_np)
+
+
+def vocab_ce_threads_rank(rank, world, logits_np, labels_np, repeats):
+    """`vocab_ce_rank` with two intra-op threads, ``repeats`` times in one
+    world, and the rank's MKL_CBWR."""
+    from repro_torch.launch.mesh import make_mesh
+    torch.set_num_threads(2)
     mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    return {"runs": [_vocab_ce(mesh, logits_np, labels_np)
+                     for _ in range(repeats)],
+            "threads": torch.get_num_threads(),
+            "mkl_cbwr": os.environ.get("MKL_CBWR")}
+
+
+def _vocab_ce(mesh, logits_np, labels_np):
+    """The CE and this rank's gradient shard on ``mesh`` (see
+    `vocab_ce_rank`)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     sharding.set_mesh(mesh, "train")
     try:
         rows = _rows(mesh.get_local_rank("data"))
@@ -144,6 +156,26 @@ def test_vocab_parallel_ce_gradient_equals_autograd_in_place(gloo_ce):
         float((want.double() - exact).abs().max()))
     assert bool((g[:, :START] == 0).all() and (g[:, -1] == 0).all())
     assert bool((g[..., VOCAB:] == 0).all())           # padded: masked
+
+
+def test_two_thread_ranks_repeat_bitwise(gloo_ce):
+    """Two worlds of ranks with two intra-op threads each, the CE and its
+    gradient eight times in each: every run bitwise the one-thread
+    world's. `run_ranks` gives its ranks oneMKL's reproducible mode
+    (`launch.mesh.RANK_ENV`); without it the OpenMP worker's half of the
+    CE's ``exp_`` came out ~1e-4 relative off now and then (in ~1 run of
+    10 such worlds under CPU contention)."""
+    from repro_torch.launch.mesh import RANK_ENV, run_ranks
+    logits, labels, one = gloo_ce
+    for _ in range(2):
+        outs = run_ranks(vocab_ce_threads_rank, 4, (logits, labels, 8),
+                         timeout_s=300)
+        for out, want in zip(outs, one):
+            assert out["threads"] == 2
+            assert out["mkl_cbwr"] == RANK_ENV["MKL_CBWR"]
+            for run in out["runs"]:
+                assert torch.equal(run["loss"], want["loss"])
+                assert torch.equal(run["grad"], want["grad"])
 
 
 @pytest.fixture
