@@ -398,9 +398,11 @@ result line), in the order they run:
      prefill, 0 a decode); bitwise where it is, else the loss and logits
      within 2e-3 × their largest magnitude and every parameter after the
      step within 1e-3 · max|leaf|; the step, prefill and decode ms both
-     ways; 17b. one sharded xlstm-125m train step on the same mesh against
-     `launch.train.build`: 8 slstm_fused "cluster" and 4 slstm_fused_bwd
-     "bwd_cluster" launches both ways, the same bounds. Multi-rank
+     ways, the steps' beside SHARD_MS_BEFORE (the readings before the
+     weight products ran on each rank's own rows); 17b. one sharded
+     xlstm-125m train step on the same mesh against `launch.train.build`:
+     8 slstm_fused "cluster" and 4 slstm_fused_bwd "bwd_cluster" launches
+     both ways, the same bounds. Multi-rank
      sharding cannot run on one card (NCCL refuses two ranks on one GPU;
      gloo's all-gather of CUDA tensors segfaults on the card): the tests hold
      a 2 × 2 gloo CPU mesh against the reference; 17c. the dry run
@@ -411,8 +413,10 @@ result line), in the order they run:
      mixtral-8x22b × decode_32k with int8 weight gathers (each layer's
      weights gathered and dequantized when its layer runs); each ok
      cell's roofline terms, bottleneck, MFU at the roofline, collective
-     ring bytes by op, bytes per rank and the op at the temporaries'
-     peak; a failed cell fails the script, and so does a qwen3 train_4k
+     ring bytes by op, bytes per rank, the op at the temporaries' peak
+     and the local matrix product with the largest operand (every weight
+     product multiplies a rank's own rows, `sharding.weight_products`);
+     a failed cell fails the script, and so does a qwen3 train_4k
      cell (its CE vocab-parallel) or the mixtral cell that does not fit
      80 GB a rank.
 The line before the last is the `kernels` JSON (twelve kernels; the
@@ -843,6 +847,15 @@ SHARD_SERVE = ShapeSpec("decode_4x2080", LM_PROMPT + LM_GEN, LM_BATCH,
                         "decode")
 SHARD_OVERRIDES = {"tp": 1, "fused_attention": True}
 SHARD_PARAM_TOL = 1e-3
+# [17] / [17b] host ms of the sharded steps at commit e686c1c, before the
+# weight products ran on each rank's own rows (DTensor's strategy laid
+# them out), two runs in one call on an NVIDIA H100 80GB HBM3, 700.00 W,
+# torch 2.11.0+cu128: printed beside this run's (DTensor's per-op host
+# dispatch sets these times; the comparison is across calls)
+SHARD_MS_BEFORE = {"train_sharded_again": (1796.0, 1946.3),
+                   "train_unsharded_again": (720.0, 922.0),
+                   "xlstm_sharded": (8474.6, 8049.8),
+                   "xlstm_unsharded": (7279.0, 6621.6)}
 # [17c] the dry run's cells on fake production worlds: (arch, shape,
 # multi_pod, overrides); qwen3 with the flash kernels (its path here),
 # mixtral serving 2-D sharded with int8 weight gathers; each cell one
@@ -5769,6 +5782,13 @@ def main() -> int:
           f"{json.dumps(sx['launches'])}; loss {json.dumps(sx['loss'])}; "
           f"params after the step {json.dumps(sx['params_after_step'])}; "
           f"{card}", flush=True)
+    print(f"[17] host ms of the sharded steps against commit e686c1c's "
+          f"(before the weight products ran on each rank's rows; "
+          f"{json.dumps(SHARD_MS_BEFORE)}): train sharded "
+          f"{st['ms']['sharded']['again']:.1f}, unsharded "
+          f"{st['ms']['unsharded']['again']:.1f}; xlstm sharded "
+          f"{sx['ms']['sharded']:.1f}, unsharded {sx['ms']['unsharded']:.1f}"
+          f"; {card}", flush=True)
     dry = dryrun_cells()
     for key, res in dry["cells"].items():
         if res["status"] != "ok":
@@ -5791,7 +5811,8 @@ def main() -> int:
               f"{res['kernel_flops_expected']:.4g}); arguments "
               f"{m['argument_bytes']} B + temporaries {m['temp_bytes']} B a "
               f"rank (peak at {m['peak_op']}), fits 80 GB: "
-              f"{m['fits_hbm']}; build "
+              f"{m['fits_hbm']}; largest local product "
+              f"{json.dumps(res['products'][:1])}; build "
               f"{res['t_build_s']} s, count {res['t_count_s']} s, "
               f"{res['ops_per_chip']} ops", flush=True)
     check_dryrun(dry)

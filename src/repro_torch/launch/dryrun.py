@@ -25,7 +25,9 @@ Memory per rank: the arguments' local shards (params, optimizer state,
 batch, serve state) plus the step's temporaries (the peak of the live
 bytes the step's ops made, `StepCounter.peak_bytes`), against the H100's
 80 GB, with the op that made the peak and the largest tensors live there
-(`peak_op`, `peak_live`).
+(`peak_op`, `peak_live`); every local matrix product a rank runs, by
+operand shapes with its count, the largest operand first (`products`),
+and the flops by op (`flops_by_op`).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
@@ -153,6 +155,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
             "roofline": roof.to_dict(),
             "kernel_flops": kernel_flops,
             "kernel_flops_expected": _kernel_flops(cfg, shape, n_chips),
+            "flops_by_op": dict(counter.flops_by_op),
+            "products": [
+                {"op": op, "shapes": [list(s) for s in shapes], "count": c}
+                for op, shapes, c in counter.products_by_size()],
         }
         live = arg_bytes + counter.peak_bytes
         result["memory"] = {

@@ -13,9 +13,15 @@ shards, in the order it runs them, so loops need no trip counts:
   * HBM bytes: Σ (operand + result bytes) of every op that moves data (not
     the views, allocations and metadata queries): the eager, no-fusion
     model, which is how the port runs;
+  * temporaries: a made tensor's bytes from its op until no tensor on
+    its storage is left (a view, or the buffer a collective's wait
+    returns, holds it);
   * not counted: the runs DTensor makes of an op on fake tensors of the
     global shape to derive its output's shape (the first time it meets
     the op's schema): no rank runs them;
+  * matrix products: each local `mm` / `bmm` / `addmm` / `baddbmm` by
+    its operands' shapes (`products`), so a step's largest product, and
+    whether a rank multiplies more rows than its own, can be read;
   * collectives: each functional collective (`_c10d_functional.*`) with
     its group size, into the reference's ring model (per-rank bytes
     moved: all-gather (n−1)·operand, all-reduce 2(n−1)/n·operand,
@@ -54,6 +60,7 @@ PEAK_FLOPS = PEAK_OPS_S["bf16"]  # FLOP/s a card
 HBM_BW = HBM_BYTES_S             # bytes/s a card
 ICI_BW = 450e9                   # NVLink bytes/s a card, each direction
 PEAK_LIVE = 6                    # tensors `StepCounter` names at its peak
+PRODUCTS = ("mm", "bmm", "addmm", "baddbmm")   # the local matrix products
 
 
 @dataclasses.dataclass
@@ -213,8 +220,10 @@ class StepCounter(TorchDispatchMode):
     tensors those ops make that are alive at once (`peak_bytes`: the
     step's temporaries, its inputs not included), with the op that made
     the peak (`peak_op`) and the largest tensors live there (`peak_live`:
-    (bytes, making op, shape, dtype), at most `PEAK_LIVE`). Ops on
-    DTensors pass to DTensor, whose local ops come back here."""
+    (bytes, making op, shape, dtype), at most `PEAK_LIVE`), and how often
+    each local matrix product ran (`products`: (op, operand shapes) →
+    count). Ops on DTensors pass to DTensor, whose local ops come back
+    here."""
 
     def __init__(self):
         super().__init__()
@@ -230,7 +239,11 @@ class StepCounter(TorchDispatchMode):
         self.peak_bytes = 0
         self.peak_op = ""
         self.peak_live: list = []
+        self.products: Dict[tuple, int] = {}
         self._live: Dict[int, tuple] = {}
+        self._refs: Dict[int, int] = {}
+        self._key_of: Dict[int, int] = {}
+        self._stores: Dict[int, list] = {}
         self._made = 0
         self.n_ops = 0
         self._muted = 0
@@ -295,19 +308,41 @@ class StepCounter(TorchDispatchMode):
         return super().__exit__(*exc)
 
     # -- memory ----------------------------------------------------------
+    # A tensor's bytes stay live while any tensor on its storage lives: a
+    # view, or the result of a collective's `wait_tensor` (the same buffer
+    # on the card; a new one under FakeTensorMode), holds its base.
     def _track(self, t: torch.Tensor, op: str) -> None:
-        n = _nbytes(t)
-        key = self._made = self._made + 1
-        self._live[key] = (n, op, tuple(t.shape), str(t.dtype)[6:])
-        self.live_bytes += n
-        if self.live_bytes > self.peak_bytes:
-            self.peak_bytes = self.live_bytes
-            self.peak_op = op
-            self.peak_live = heapq.nlargest(PEAK_LIVE, self._live.values())
+        s = t.untyped_storage()._cdata
+        key = self._key_of.get(s)
+        if key is None:
+            key = self._made = self._made + 1
+            n = _nbytes(t)
+            self._key_of[s] = key
+            self._stores[key] = [s]
+            self._refs[key] = 0
+            self._live[key] = (n, op, tuple(t.shape), str(t.dtype)[6:])
+            self.live_bytes += n
+            if self.live_bytes > self.peak_bytes:
+                self.peak_bytes = self.live_bytes
+                self.peak_op = op
+                self.peak_live = heapq.nlargest(PEAK_LIVE, self._live.values())
+        self._hold(t, key)
+
+    def _hold(self, t: torch.Tensor, key: int) -> None:
+        s = t.untyped_storage()._cdata
+        if s not in self._key_of:
+            self._key_of[s] = key
+            self._stores[key].append(s)
+        self._refs[key] += 1
         weakref.finalize(t, self._free, key)
 
     def _free(self, key: int) -> None:
-        self.live_bytes -= self._live.pop(key)[0]
+        self._refs[key] -= 1
+        if not self._refs[key]:
+            del self._refs[key]
+            for s in self._stores.pop(key):
+                self._key_of.pop(s, None)
+            self.live_bytes -= self._live.pop(key)[0]
 
     # -- dispatch --------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -327,6 +362,9 @@ class StepCounter(TorchDispatchMode):
             self.flops += f
             key = f"{func.namespace}.{name}"
             self.flops_by_op[key] = self.flops_by_op.get(key, 0.0) + f
+        if name in PRODUCTS:
+            key = (name, tuple(tuple(t.shape) for t in ins))
+            self.products[key] = self.products.get(key, 0) + 1
         if func.namespace == "_c10d_functional":
             for key, kind in _COLLECTIVES:
                 if key in name:
@@ -337,12 +375,26 @@ class StepCounter(TorchDispatchMode):
         aliased = bool(returns) and all(r.alias_info is not None
                                         for r in returns)
         if name in _NO_TRAFFIC or (aliased and not func._schema.is_mutable):
+            for t in outs:                 # an alias keeps its base alive
+                key = self._key_of.get(t.untyped_storage()._cdata)
+                if key is None and name == "wait_tensor":
+                    key = self._key_of.get(ins[0].untyped_storage()._cdata)
+                if key is not None:
+                    self._hold(t, key)
             return out                     # a view, allocation or query
         self.hbm_bytes += sum(_nbytes(t) for t in ins + outs)
         if not aliased:
             for t in outs:
                 self._track(t, f"{func.namespace}.{name}")
         return out
+
+    def products_by_size(self) -> list:
+        """Every product counted: (op, operand shapes, count), the largest
+        operand first."""
+        def size(item):
+            return max(int(torch.Size(s).numel()) for s in item[0][1])
+        return [(op, shapes, c) for (op, shapes), c in
+                sorted(self.products.items(), key=size, reverse=True)]
 
     def collectives(self) -> CollectiveStats:
         return CollectiveStats(dict(self.op_bytes), dict(self.ring),

@@ -37,7 +37,10 @@ Where the frameworks differ, the port follows the reference:
     the same f32 for bf16 and f32, float64 kept in a float64 run;
   * the reference's `sharding.logical` layouts stand where it puts them
     (heads over ``model``, the block's output over the batch), no-ops
-    without a mesh.
+    without a mesh; on a mesh in_proj and out_proj multiply each rank's
+    own rows by their ``ssm_inner`` columns / rows
+    (`sharding.weight_products`), and the scan runs on local shards
+    (`ssd_chunked`).
 """
 from __future__ import annotations
 
@@ -90,9 +93,13 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def _split_proj(params, u: torch.Tensor, cfg: ModelConfig):
+    """u (B, S, d) @ in_proj → (z, x, B, C, dt). On DTensors the product
+    runs on each rank's own rows, its columns over ``model``
+    (`sharding.weight_products`), gathered to be cut into the five."""
     d_inner, nh, _, _ = dims(cfg)
     n = cfg.ssm_state
-    zxbcdt = u @ params["in_proj"]
+    zxbcdt = sharding.weight_products(torch.matmul, u, (params["in_proj"],),
+                                      ("cols",))
     return sharding.split_cols(zxbcdt, [d_inner, d_inner, n, n, nh])
 
 
@@ -223,7 +230,9 @@ def apply(params, u: torch.Tensor, cfg: ModelConfig,
     y = sharding.merge_last(y).to(u.dtype)
 
     y = rms_norm(y * F.silu(z), params["ssm_norm"])
-    out = sharding.logical(y @ params["out_proj"], ("batch", None, None))
+    out = sharding.weight_products(torch.matmul, y, (params["out_proj"],),
+                                   ("rows",))
+    out = sharding.logical(out, ("batch", None, None))
     if state is None:
         return out, None
     return out, {"conv": new_conv, "ssm": final}

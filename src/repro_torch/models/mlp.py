@@ -17,10 +17,12 @@ follows the reference:
     sort;
   * the dispatch positions are an int32 cumsum of one-hots
     (`torch.cumsum` of int32 would give int64 without its ``dtype``).
-The reference's `sharding.logical` layouts stand where it puts them in
-the dense MLP (the hidden units over ``model``), no-ops without a mesh;
-the MoE layer's (experts over ``model`` where their count divides it,
-else d_ff) are the local layouts of `moe_apply`.
+On a mesh both layers run on each rank's own rows through
+`sharding.local_call`, with the reference's layouts as the local ones:
+the dense MLP's hidden units over ``model`` (its `sharding.logical`
+``("batch", None, "mlp")``; `sharding.weight_products`), the MoE
+layer's experts over ``model`` where their count divides it, else d_ff
+(`moe_apply`); without a mesh both are the plain products.
 """
 from __future__ import annotations
 
@@ -48,15 +50,33 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    hidden = ("batch", None, "mlp")
+    """x (B, S, d) → (B, S, d). On DTensors the products run on each
+    rank's own rows with the hidden units over ``model`` (the
+    reference's ``("batch", None, "mlp")``), then the closing layout sums
+    the partial result over ``model``."""
     if cfg.mlp_act == "silu":
-        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-        y = sharding.logical(h, hidden) @ params["w_down"]
+        y = swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
     else:
-        # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ params["w_in"], approximate="tanh")
-        y = sharding.logical(h, hidden) @ params["w_out"]
+        y = sharding.weight_products(
+            _gelu_mlp, x, (params["w_in"], params["w_out"]), ("cols", "rows"))
     return sharding.logical(y, ("batch", None, None))
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    """silu(x @ w_gate) · (x @ w_up) @ w_down; on DTensors on each rank's
+    own rows, d_ff over ``model``, the result a partial sum over it
+    (`sharding.weight_products`)."""
+    return sharding.weight_products(_swiglu, x, (w_gate, w_up, w_down),
+                                    ("cols", "cols", "rows"))
+
+
+def _swiglu(x, w_gate, w_up, w_down):
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def _gelu_mlp(x, w_in, w_out):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x @ w_in, approximate="tanh") @ w_out
 
 
 # ---------------------------------------------------------------------------

@@ -82,6 +82,14 @@ def _layer(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
             for k, v in stacked.items()}
 
 
+def _block(params: Dict[str, Any]) -> Dict[str, Any]:
+    """An unstacked layer's params (xlstm's blocks) as `_layer` gives a
+    stacked layer's: each DTensor leaf that takes a gradient through
+    `_LayerGrad`."""
+    return {k: _block(v) if isinstance(v, dict) else _layer_view(v)
+            for k, v in params.items()}
+
+
 def _layer_view(v):
     if isinstance(v, DTensor) and v.requires_grad and torch.is_grad_enabled():
         return _LayerGrad.apply(v)

@@ -33,9 +33,14 @@ reference's inner `jax.checkpoint` on the mLSTM chunk step only trades
 memory inside a block that is already rematerialized, and is not ported.
 
 Sharded: the reference's `sharding.logical` layouts stand where it puts
-them (no-ops without a mesh), and where the sLSTM inputs are DTensors the
-forward and backward kernels run on each rank's local rows through
-`local_map` (`_slstm_sharded`, `_slstm_bwd_sharded`; batch over the
+them (no-ops without a mesh). Every weight product multiplies each rank's
+own rows (`sharding.weight_products`): mlstm_up, mlstm_q / k / v,
+mlstm_down and slstm_w by their ``ssm_inner`` columns over ``model``
+(`_PARAM_RULES`), gate_if by xc's model-split channels (a partial sum,
+reduced before the gates), the sLSTM block's FFN as the dense MLP
+(`mlp.swiglu`). The mLSTM cell, the conv and, where the sLSTM inputs are
+DTensors, the forward and backward kernels run on local shards too
+(`local_map`; `_slstm_sharded`, `_slstm_bwd_sharded`: batch over the
 mesh's batch dims, R replicated, dr a partial sum over them), so
 `_SlstmScan` keeps its gradient and no DTensor reaches a kernel. Scalars
 that the reference divides a
@@ -54,6 +59,7 @@ import torch.nn.functional as F
 from ..device import DeviceLike, resolve_device
 from ..kernels.slstm.slstm import slstm_fused, slstm_fused_bwd
 from ..parallel import sharding
+from . import mlp, transformer
 from .common import (ModelConfig, dequant_block, dense_init, embed_lookup,
                      lm_logits, remat_run, rms_norm)
 
@@ -63,6 +69,18 @@ NEG = -1e30
 def _div_sqrt(x: torch.Tensor, d: int) -> torch.Tensor:
     """x / sqrt(d) with the divisor in x's type (JAX's weak-typed scalar)."""
     return x / torch.tensor(math.sqrt(d), dtype=x.dtype)
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x.float() @ w.float()
+
+
+def _head_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, D) by the block-diagonal per-head weight w (H, D, E);
+    on DTensors on each rank's own rows, E over ``model``."""
+    return sharding.weight_products(
+        lambda x_, w_: torch.einsum("bshd,hde->bshe", x_, w_), x, (w,),
+        ("cols",))
 
 
 def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -268,13 +286,17 @@ def _conv_causal_local(x, w, b, state=None):
 
 def mlstm_block_apply(p, x, cfg: ModelConfig, state=None):
     """x: (B, S, d). state: {"conv", "cell": (C, n, m)} or None (no state
-    returned)."""
+    returned). On DTensors every weight product runs on each rank's own
+    rows (`sharding.weight_products`: mlstm_up, mlstm_q / k / v and
+    mlstm_down by their columns over ``model``, gate_if by xc's
+    model-split channels)."""
     bb, s, d = x.shape
     di = cfg.expand * d
     nh = cfg.n_heads
     dh = di // nh
     h = rms_norm(x, p["norm"])
-    up = h @ p["mlstm_up"]
+    up = sharding.weight_products(torch.matmul, h, (p["mlstm_up"],),
+                                  ("cols",))
     xm, gate = sharding.split_cols(up, [di, di])
     xm = sharding.logical(xm, ("batch", None, "ssm_inner"))
     conv_state = None if state is None else state["conv"]
@@ -283,15 +305,15 @@ def mlstm_block_apply(p, x, cfg: ModelConfig, state=None):
     xmh = sharding.split_last(xm, nh, dh)
     # streams stay in the model dtype; numerics are upcast per chunk inside
     # mlstm_chunked
-    q = torch.einsum("bshd,hde->bshe", xch, p["mlstm_q"])
-    k = torch.einsum("bshd,hde->bshe", xch, p["mlstm_k"])
-    v = torch.einsum("bshd,hde->bshe", xmh, p["mlstm_v"])
-    # the gates over the batch only: a product over a model-split dim
-    # leaves a partial sum, which DTensor would scatter over the sequence
-    # at the next nonlinear op instead of reducing (no-op without a mesh)
-    if_pre = sharding.logical(xc.float() @ p["gate_if"].float(),
-                              ("batch", None, None)) \
-        + p["if_bias"][None, None, :]
+    q = _head_proj(xch, p["mlstm_q"])
+    k = _head_proj(xch, p["mlstm_k"])
+    v = _head_proj(xmh, p["mlstm_v"])
+    # the gates over the batch only: the product over xc's model-split
+    # channels is a partial sum, reduced here before the nonlinear ops
+    # (no-op without a mesh)
+    if_pre = sharding.logical(sharding.weight_products(
+        _matmul_f32, xc, (p["gate_if"],), ("rows",)),
+        ("batch", None, None)) + p["if_bias"][None, None, :]
     log_i, f_pre = if_pre[..., :nh], if_pre[..., nh:]     # (B, S, H)
     log_f = _log_sigmoid(f_pre)
 
@@ -305,7 +327,8 @@ def mlstm_block_apply(p, x, cfg: ModelConfig, state=None):
                                      cell_state)
     hv = sharding.merge_last(hv).to(x.dtype)
     hv = rms_norm(hv + p["skip"][None, None, :] * xc, p["mlstm_norm"])
-    out = (hv * F.silu(gate)) @ p["mlstm_down"]
+    out = sharding.weight_products(torch.matmul, hv * F.silu(gate),
+                                   (p["mlstm_down"],), ("cols",))
     out = sharding.logical(out, ("batch", None, None))
     if state is None:
         return x + out, None
@@ -432,21 +455,27 @@ def slstm_scan(p, xg: torch.Tensor, nh: int, state):
 
 
 def slstm_block_apply(p, x, cfg: ModelConfig, state=None):
+    """x: (B, S, d). state: {"conv", "cell": (c, n, h, m)} or None (no
+    state returned). On DTensors slstm_w and the FFN (`mlp.swiglu`) run
+    on each rank's own rows, the FFN's partial sum reduced before the
+    residual add."""
     bb, s, d = x.shape
     nh = cfg.n_heads
     h = rms_norm(x, p["norm"])
     conv_state = None if state is None else state["conv"]
     hc, new_conv = _conv_causal(h, p["conv_w"], p["conv_b"], conv_state)
-    xg = hc @ p["slstm_w"] + p["slstm_b"][None, None, :].to(h.dtype)
+    xg = sharding.weight_products(torch.matmul, hc, (p["slstm_w"],),
+                                  ("cols",)) \
+        + p["slstm_b"][None, None, :].to(h.dtype)
     cell = (slstm_block_state(cfg, bb, x.device)["cell"] if state is None
             else state["cell"])
     hv, new_cell = slstm_scan(p, xg, nh, cell)
     hv = rms_norm(hv.to(x.dtype), p["gn"])
     y = x + hv
-    f = rms_norm(y, p["ffn_norm"])
-    f = F.silu(f @ p["w_gate"]) * (f @ p["w_up"])
-    f = sharding.logical(f, ("batch", None, "mlp"))
-    out = sharding.logical(y + f @ p["w_down"], ("batch", None, None))
+    f = mlp.swiglu(rms_norm(y, p["ffn_norm"]), p["w_gate"], p["w_up"],
+                   p["w_down"])
+    rows = ("batch", None, None)
+    out = sharding.logical(y + sharding.logical(f, rows), rows)
     if state is None:
         return out, None
     return out, {"conv": new_conv, "cell": new_cell}
@@ -498,13 +527,18 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, states=None):
     """states=None → no state in or out (training form); else a list of
     per-block states (serving). Returns (logits (B, S, V_pad), states).
     Blocks are rematerialized in the backward when ``cfg.remat`` (training
-    form, grad enabled; the blocks draw no random numbers)."""
+    form, grad enabled; the blocks draw no random numbers). On DTensor
+    params each block's gradient is laid out as its params
+    (`transformer._block`, the stacked layer loops' `_LayerGrad`) as the
+    block's backward makes it."""
     h = embed_lookup(params["embed"], tokens).to(cfg.param_dtype())
     h = sharding.logical(h, ("batch", None, None))
     run = remat_run(cfg.remat and states is None)
     new_states = []
     for i, bp in enumerate(params["blocks"]):
-        bp = dequant_block(bp)        # int8 weights: this block's alone
+        # int8 weights: this block's alone; on DTensors each block's
+        # gradient laid out as its params in the block's backward
+        bp = transformer._block(dequant_block(bp))
         st = None if states is None else states[i]
         kind = "slstm" if "slstm" in bp else "mlstm"
         apply = slstm_block_apply if kind == "slstm" else mlstm_block_apply
@@ -525,9 +559,8 @@ def init_states(cfg: ModelConfig, batch: int, device: DeviceLike = "cuda"):
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     """(ce, {"ce", "aux"}): next-token cross entropy, aux 0."""
-    from .transformer import next_token_ce
     logits, _ = forward(params, batch["tokens"], cfg)
-    ce = next_token_ce(logits, batch["labels"], cfg.vocab)
+    ce = transformer.next_token_ce(logits, batch["labels"], cfg.vocab)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                              device=ce.device)}
 

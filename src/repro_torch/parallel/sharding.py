@@ -27,14 +27,16 @@ reference's do (`models.attention`, `mlp`, `transformer`, `mamba2`,
 step built on a mesh (`launch.steps.make_lowerable`) lays its
 activations out as the reference's GSPMD constraints do. `local_pair`
 gives the in-place cache writes of a DTensor serve state their local
-shards, and `local_call` hands a kernel the local shards of DTensor
-inputs.
+shards, `local_call` hands a kernel the local shards of DTensor
+inputs, and `weight_products` runs the models' weight products on each
+rank's own rows (`row_axes`) with the reference's Megatron layout.
 
 TP divisibility policy: head counts are padded and KV heads replicated at
 config-resolution time so every sharded dim divides the mesh axis.
 """
 from __future__ import annotations
 
+import itertools
 import re
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -184,6 +186,26 @@ def batch_head_entries(batch: int, *heads: int):
             "model" if m and all(h % m == 0 for h in heads) else None)
 
 
+def row_axes(batch: int) -> tuple:
+    """The batch dims of the current mesh that a weight product splits
+    ``batch`` rows over: all of them where the rows divide them (the
+    reference's rule, `batch_head_entries`), else the largest set of
+    them that the rows divide, so that ranks share the work of a batch
+    the reference's rule leaves whole (llava's 16-row microbatch on the
+    2 × 16 × 16 mesh: over ``data``, whole over ``pod``); () where none
+    divides or without a mesh."""
+    mesh = _CURRENT["mesh"]
+    axes = mesh_axes(mesh)
+    dims = batch_axes(mesh)
+    best, size = (), 1
+    for k in range(len(dims), 0, -1):
+        for sub in itertools.combinations(dims, k):
+            n = int(np.prod([axes[a] for a in sub]))
+            if batch % n == 0 and n > size:
+                best, size = sub, n
+    return best
+
+
 def axis_group(axis: str):
     """(group, this rank's coordinate) of the current mesh's ``axis``, the
     group as functional collectives take it; (None, 0) without a mesh or
@@ -278,6 +300,49 @@ def local_call(fn, args, in_specs, out_specs, grad_specs=None):
     return local_map(fn, out_placements=out_specs, in_placements=in_specs,
                      in_grad_placements=grad_specs or in_specs,
                      device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def weight_products(fn, x, weights: tuple, kinds: tuple):
+    """``fn(x, *weights)``, a chain of products of an activation x (B,
+    ..., k) by weights, on each rank's own rows (the reference's Megatron
+    layout) where x or a weight is a DTensor; ``fn(x, *weights)`` as it is
+    otherwise. ``kinds[i]`` says how weight i is split over ``model``:
+    "cols" along its last dim (column-parallel: its product split along
+    that dim), "rows" along its first (row-parallel: its product a
+    partial sum over ``model``), as `_PARAM_RULES` lays out its `mlp` /
+    `ssm_inner` dim; every such dim must divide ``model``, else all are
+    whole over it. x's rows lie over `row_axes` (the batch dims where
+    they divide them: no rank multiplies more rows than its batch shard),
+    x's last dim split over ``model`` if the first weight is "rows", else
+    whole; every weight is gathered on its FSDP dim.
+    The result has x's rows and is split over ``model`` along its last
+    dim if the last weight is "cols", else a partial sum over it. x's
+    gradient is a partial sum over ``model`` where the first weight is
+    "cols" (each rank sees its columns' share), the weights' over the
+    batch dims (each rank sees its rows' share)."""
+    if not isinstance(x, DTensor) and not any(isinstance(w, DTensor)
+                                              for w in weights):
+        return fn(x, *weights)
+    split = [w.shape[-1] if k == "cols" else w.shape[0]
+             for w, k in zip(weights, kinds)]
+    _, m = batch_head_entries(x.shape[0], *split)
+    b_dims = row_axes(x.shape[0])
+    b = b_dims or None
+    pl = spec_placements
+    lead = (b,) + (None,) * (x.dim() - 2)
+    tp = ("model",) if m else ()
+    ws = tuple(pl(*(None,) * (w.dim() - 1), m) if k == "cols"
+               else pl(m, *(None,) * (w.dim() - 1))
+               for w, k in zip(weights, kinds))
+    if kinds[0] == "cols":
+        xs = pl(*lead, None)
+        xg = grad_partial(xs, tp)
+    else:
+        xs = xg = pl(*lead, m)
+    out = (pl(*lead, m) if kinds[-1] == "cols"
+           else grad_partial(pl(*lead, None), tp))
+    return local_call(fn, (x, *weights), (xs, *ws), out,
+                      (xg, *(grad_partial(s, b_dims) for s in ws)))
 
 
 # ---------------------------------------------------------------------------

@@ -13,9 +13,11 @@ every layer loop that reads `_unbind_layers`).
     formula bitwise, with at most three f32 tensors of x's size live at
     once (the formula's own form holds six);
   * on a 2 × 2 gloo CPU mesh (one spawned world of 4 ranks), the reduced
-    llava, zamba2 and whisper train steps through
-    `launch.steps.make_lowerable` (the transformer's, zamba2's and
-    whisper's encoder and decoder layer loops): `loss_and_grads` gives
+    llava, zamba2, whisper and xlstm train steps through
+    `launch.steps.make_lowerable` (the transformer's, zamba2's, whisper's
+    encoder and decoder and xlstm's block loops; the dense MLP's, the
+    SSD's and the xLSTM blocks' weight products on each rank's own rows,
+    `sharding.weight_products`): `loss_and_grads` gives
     every stacked layer leaf's gradient in its parameter's placements,
     every leaf's gradient laid out as its parameter equals the
     reference's (`jax.value_and_grad` of its `loss_fn`, 1e-3·max|leaf|),
@@ -142,7 +144,8 @@ def test_rms_norm_backward_holds_three_f32_copies():
 # the sharded steps of the other layer loops on a 2 x 2 gloo CPU mesh
 # ---------------------------------------------------------------------------
 
-FAMILY_ARCHS = ("llava-next-34b", "zamba2-1.2b", "whisper-large-v3")
+FAMILY_ARCHS = ("llava-next-34b", "zamba2-1.2b", "whisper-large-v3",
+                "xlstm-125m")
 TRAIN = ShapeSpec("train_t", 32, 8, "train")
 
 

@@ -203,3 +203,43 @@ def test_counter_sees_only_local_ops_of_a_dtensor_op(op):
         dist.destroy_process_group()
     assert counts[0] == counts[1]
     assert counts[0][2] <= 64 * 100 * 8
+
+
+def test_counter_keeps_a_tensor_live_while_a_view_or_a_collective_holds_it():
+    """A made tensor's bytes stay in the temporaries while any tensor on
+    its storage lives: a view of it after its own tensor is dropped, and
+    the result of a Partial → Replicate redistribute (an all-reduce whose
+    `wait_tensor` returns the buffer; a new one under FakeTensorMode) with
+    its views; none once all are gone."""
+    import gc
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_fake_world, make_mesh
+    init_fake_world(16)
+    try:
+        mesh = make_mesh((4, 4), ("data", "model"), "cpu")
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            f = DTensor.from_local(torch.empty(2, 1024, 256), mesh,
+                                   [Shard(0), Partial()], run_check=False)
+            a = torch.empty(64, 32)
+            counter = rl.StepCounter()
+            with counter:
+                y = (a @ a.T).view(-1)
+                gc.collect()
+                assert counter.live_bytes == 64 * 64 * 4
+                del y
+                gc.collect()
+                assert counter.live_bytes == 0
+                r = f.redistribute(mesh, [Shard(0), Replicate()])
+                gc.collect()
+                assert counter.live_bytes == 2 * 1024 * 256 * 4
+                v = r.to_local()[0]
+                del r
+                gc.collect()
+                assert counter.live_bytes == 2 * 1024 * 256 * 4
+                del v
+                gc.collect()
+                assert counter.live_bytes == 0
+    finally:
+        dist.destroy_process_group()
