@@ -310,15 +310,17 @@ class StepCounter(TorchDispatchMode):
     # -- memory ----------------------------------------------------------
     # A tensor's bytes stay live while any tensor on its storage lives: a
     # view, or the result of a collective's `wait_tensor` (the same buffer
-    # on the card; a new one under FakeTensorMode), holds its base.
+    # on the card; a new one under FakeTensorMode), holds its base. A key's
+    # storages are held until the key is freed: a storage that died while
+    # its key lived (a collective's own result once its wait returned) would
+    # leave its address to the next storage made there, which would then
+    # pass for a view of the key, its bytes uncounted.
     def _track(self, t: torch.Tensor, op: str) -> None:
-        s = t.untyped_storage()._cdata
-        key = self._key_of.get(s)
+        key = self._key_of.get(t.untyped_storage()._cdata)
         if key is None:
             key = self._made = self._made + 1
             n = _nbytes(t)
-            self._key_of[s] = key
-            self._stores[key] = [s]
+            self._stores[key] = []
             self._refs[key] = 0
             self._live[key] = (n, op, tuple(t.shape), str(t.dtype)[6:])
             self.live_bytes += n
@@ -329,10 +331,10 @@ class StepCounter(TorchDispatchMode):
         self._hold(t, key)
 
     def _hold(self, t: torch.Tensor, key: int) -> None:
-        s = t.untyped_storage()._cdata
-        if s not in self._key_of:
-            self._key_of[s] = key
-            self._stores[key].append(s)
+        st = t.untyped_storage()
+        if st._cdata not in self._key_of:
+            self._key_of[st._cdata] = key
+            self._stores[key].append(st)
         self._refs[key] += 1
         weakref.finalize(t, self._free, key)
 
@@ -340,8 +342,8 @@ class StepCounter(TorchDispatchMode):
         self._refs[key] -= 1
         if not self._refs[key]:
             del self._refs[key]
-            for s in self._stores.pop(key):
-                self._key_of.pop(s, None)
+            for st in self._stores.pop(key):
+                del self._key_of[st._cdata]
             self.live_bytes -= self._live.pop(key)[0]
 
     # -- dispatch --------------------------------------------------------

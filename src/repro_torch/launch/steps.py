@@ -5,10 +5,11 @@ Port of `repro.launch.steps`. The reference jits each step with
 `in_shardings` and lowers it; the port runs a step eagerly, and where a
 mesh is given its inputs are DTensors (`torch.distributed.tensor`): the
 parameters and the optimizer state placed by `parallel.sharding.
-param_shardings`, the batch by `batch_specs`, the serve state by
-`serve_state_specs`. The model's own `sharding.logical` sites lay out the
-activations, and the kernels take each rank's local shards through
-`local_map` (`models.attention`, `models.xlstm`). Under
+param_shardings`, the batch by `batch_specs` (its rows over
+`parallel.sharding.row_axes`), the serve state by `serve_state_specs`.
+The model's own `sharding.logical` sites lay out the activations, and the
+kernels take each rank's local shards through `local_map`
+(`models.attention`, `models.xlstm`). Under
 `torch._subclasses.fake_tensor.FakeTensorMode` over a fake process group
 the same `make_lowerable` builds a cell of any size without memory: the
 counterpart of the reference's `ShapeDtypeStruct`s, which
@@ -128,10 +129,20 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
             "pos": sds((), i32)}
 
 
-def batch_specs(cfg: ModelConfig, shape: ShapeSpec, mesh) -> Dict[str, Any]:
-    """`PartitionSpec` tree matching `input_specs`."""
-    b_axes = sharding.batch_axes(mesh)
-    b = b_axes if _divides(shape_batch(cfg, shape), b_axes, mesh) else None
+def batch_specs(cfg: ModelConfig, shape: ShapeSpec, mesh,
+                rows: bool = False) -> Dict[str, Any]:
+    """`PartitionSpec` tree matching `input_specs`: the batch over every
+    batch dim of ``mesh`` where the batch divides them, else whole (the
+    reference's). With ``rows``, as the port's steps take their inputs:
+    a batch that does not divide them all lies over the largest set of
+    them that it divides (`sharding.row_axes`), as the models lay out
+    their activations."""
+    n = shape_batch(cfg, shape)
+    if rows:
+        b = sharding.row_axes(n, mesh) or None
+    else:
+        b_axes = sharding.batch_axes(mesh)
+        b = b_axes if _divides(n, b_axes, mesh) else None
     if shape.kind == "train":
         out = {"tokens": P(None, b, None), "labels": P(None, b, None)}
         if cfg.family == "vlm":
@@ -168,12 +179,13 @@ def _divides(n: int, axes, mesh) -> bool:
 # ---------------------------------------------------------------------------
 
 def _auto_spec(leaf, hints, mesh) -> P:
-    """A spec from logical hints with divisibility fallback."""
+    """A spec from logical hints with divisibility fallback (a "batch" dim
+    over the largest set of batch dims it divides, `sharding.row_axes`)."""
     sizes = sharding.mesh_axes(mesh)
     out = []
     for dim, ax in zip(leaf.shape, hints):
         if ax == "batch":
-            cand = sharding.batch_axes(mesh)
+            cand = sharding.row_axes(dim, mesh)
         elif ax == "model":
             cand = ("model",) if "model" in sizes else ()
         else:
@@ -463,11 +475,12 @@ def make_lowerable(arch: str, shape: ShapeSpec, mesh, reduced: bool = False,
     the step and its DTensor inputs. Parameters (and, for a train cell,
     the AdamW(lr, grad_clip_norm=1.0) state) are placed by
     `sharding.param_shardings` in mode "train", or "serve_fsdp" /
-    "serve"; the batch by `batch_specs` (zeros of `input_specs`); the
-    serve state by `serve_state_specs`. With ``cfg.serve_int8_weights``
-    the weights are stored as `quantize_weights_int8`; each step gathers
-    and dequantizes the non-layer weights first and every layer's weights
-    when its layer loop reaches them (`layerwise_int8`). Sets the current
+    "serve"; the batch by `batch_specs(…, rows=True)` (zeros of
+    `input_specs`); the serve state by `serve_state_specs`. With
+    ``cfg.serve_int8_weights`` the weights are stored as
+    `quantize_weights_int8`; each step gathers and dequantizes the
+    non-layer weights first and every layer's weights when its layer loop
+    reaches them (`layerwise_int8`). Sets the current
     mesh (`sharding.set_mesh`) for the step to run in."""
     cfg = resolve_config(arch, shape, reduced=reduced)
     if cfg_overrides:
@@ -491,7 +504,7 @@ def make_lowerable(arch: str, shape: ShapeSpec, mesh, reduced: bool = False,
         opt = AdamW(lr=lr, grad_clip_norm=1.0)
         opt_state = opt.init(params)
         ospecs = sharding.param_specs(opt_state, mesh, mode)
-        bspecs = batch_specs(cfg, shape, mesh)
+        bspecs = batch_specs(cfg, shape, mesh, rows=True)
         args = (place(params, pspecs, mesh), place(opt_state, ospecs, mesh),
                 place(batch_zeros(), bspecs, mesh))
         return Lowerable(cfg, build_train_step(model, opt), args, "train",
@@ -513,7 +526,7 @@ def make_lowerable(arch: str, shape: ShapeSpec, mesh, reduced: bool = False,
         def deq(qp):
             return layerwise_int8(qp, gspecs, mesh, dt)
     dparams = place(params, pspecs, mesh)
-    bspecs = batch_specs(cfg, shape, mesh)
+    bspecs = batch_specs(cfg, shape, mesh, rows=True)
 
     if shape.kind == "prefill":
         inner = build_prefill_step(model)

@@ -68,8 +68,8 @@ def build(cfg: ModelConfig, lr: float, accum: int,
     type) the current mesh is set in mode "train", init_state() returns
     the params and optimizer state as DTensors placed by
     `sharding.param_shardings(…, mesh, "train")`, and train_step lays a
-    batch of whole tensors out by `steps.batch_specs` (a DTensor batch is
-    taken as it is)."""
+    batch of whole tensors out by `steps.batch_specs(…, rows=True)` (a
+    DTensor batch is taken as it is)."""
     if mesh is not None:
         sharding.set_mesh(mesh, "train")
         device = mesh.device_type
@@ -95,7 +95,7 @@ def build(cfg: ModelConfig, lr: float, accum: int,
         _, rows, seq = batch["tokens"].shape
         shape = configs.ShapeSpec("train", seq,
                                   rows * max(1, cfg.train_accum), "train")
-        specs = steps_lib.batch_specs(cfg, shape, mesh)
+        specs = steps_lib.batch_specs(cfg, shape, mesh, rows=True)
         return step(params, opt_state, steps_lib.place(
             batch, {k: specs[k] for k in batch}, mesh))
 

@@ -98,7 +98,7 @@ def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, h = sharding.batch_head_entries(x.shape[0], w.shape[1])
     pl = sharding.spec_placements
     xs, ws = pl(b, None, None), pl(None, h, None)
-    b_dims = sharding.batch_axes(sharding.get_mesh()) if b else ()
+    b_dims = b or ()
     return sharding.local_call(
         lambda x_, w_: torch.einsum("bsd,dhk->bshk", x_, w_), (x, w),
         (xs, ws), pl(b, None, h, None),
@@ -112,7 +112,7 @@ def merge_heads(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, h = sharding.batch_head_entries(o.shape[0], w.shape[0], o.shape[2])
     pl = sharding.spec_placements
     os_, ws = pl(b, None, h, None), pl(h, None, None)
-    b_dims = sharding.batch_axes(sharding.get_mesh()) if b else ()
+    b_dims = b or ()
     return sharding.local_call(
         lambda o_, w_: torch.einsum("bshk,hkd->bsd", o_, w_), (o, w),
         (os_, ws),

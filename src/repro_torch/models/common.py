@@ -241,7 +241,7 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     mesh = sharding.get_mesh()
     rows = pl(b, *(None,) * (tokens.dim() - 1))
     ts = pl(v, None)
-    b_dims = sharding.batch_axes(mesh) if b else ()
+    b_dims = b or ()
 
     def local(tab, tok):
         if not v:                        # the whole vocab on this rank
@@ -268,7 +268,7 @@ def lm_logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, v = sharding.batch_head_entries(h.shape[0], w.shape[1])
     pl = sharding.spec_placements
     hs, ws = pl(b, None, None), pl(None, v)
-    b_dims = sharding.batch_axes(sharding.get_mesh()) if b else ()
+    b_dims = b or ()
     return sharding.local_call(
         lambda h_, w_: torch.einsum("bsd,dv->bsv", h_, w_), (h, w),
         (hs, ws), pl(b, None, v),

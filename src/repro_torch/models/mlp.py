@@ -26,6 +26,7 @@ layer's experts over ``model`` where their count divides it, else d_ff
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
@@ -131,7 +132,11 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig):
     mixtral's 8) as the local weights. Every rank of a model group holds
     the same tokens and routes them over all E experts, then runs its own
     experts (or its slice of d_ff): y is a partial sum over ``model``.
-    aux is each batch shard's mean, equal across ``model``."""
+    aux is the mean of the batch shards' means, each equal across
+    ``model``: a partial sum of each rank's share (DTensor would give a
+    Partial("avg") output every rank's whole gradient). The router's and
+    the experts' gradients are partial sums over the batch dims the rows
+    lie over (each rank sees its rows' share)."""
     from torch.distributed.tensor import Partial
     mesh = sharding.get_mesh()
     axes = sharding.mesh_axes(mesh)
@@ -143,22 +148,24 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig):
     rows = pl(b, None, None)
     w_in = pl(m, None, None) if ep else pl(None, None, m)
     w_out = pl(m, None, None) if ep else pl(None, m, None)
-    b_dims = sharding.batch_axes(mesh) if b else ()
+    b_dims = b or ()
 
     y_out = tuple(Partial() if a == m else r for a, r in zip(axes, rows))
-    aux_out = tuple(Partial("avg") if a in b_dims or a == m else r
-                    for a, r in zip(axes, pl()))
+    shares = [n for a, n in axes.items() if a in b_dims or a == m]
     router_grad = tuple(Partial() if a in b_dims or a == m else r
                         for a, r in zip(axes, pl()))
 
     def call(x_, router, gate, up, down):
         e0 = mesh.get_local_rank(m) * gate.shape[0] if ep and m else 0
-        return _moe_local(x_, router, gate, up, down, cfg, e0)
+        y_, aux_ = _moe_local(x_, router, gate, up, down, cfg, e0)
+        return y_, aux_ / math.prod(shares)
     y, aux = sharding.local_call(
         call, (x, params["router"], params["moe_gate"], params["moe_up"],
                params["moe_down"]),
-        (rows, pl(None, None), w_in, w_in, w_out), (y_out, aux_out),
-        (y_out, router_grad, w_in, w_in, w_out))
+        (rows, pl(None, None), w_in, w_in, w_out), (y_out, router_grad),
+        (y_out, router_grad)
+        + tuple(sharding.grad_partial(w, b_dims) for w in (w_in, w_in,
+                                                            w_out)))
     return sharding.logical(y, ("batch", None, None)), aux
 
 

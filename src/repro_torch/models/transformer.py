@@ -270,18 +270,24 @@ def next_token_ce(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
     reduces its CE over ``model``: the logits stay laid out over batch
     and vocab, and each rank runs `_VocabCE` on its (B_l, S, V_pad /
     model) slice, with the row max, the sum of exponentials and the
-    label's logit all-reduced over ``model``; the mean runs over the
-    per-token losses laid out by rows. No rank holds another rank's rows
-    or vocab columns, in the forward or the backward."""
+    label's logit all-reduced over ``model``; each rank sums its rows'
+    per-token losses over the whole batch's token count (a partial sum
+    over the batch dims its rows lie over), and the sum is all-reduced.
+    No rank holds another rank's rows or vocab columns, in the forward or
+    the backward."""
     b, v = sharding.batch_head_entries(logits.shape[0], logits.shape[-1])
     pl = sharding.spec_placements
-    tok = pl(b, None)
     group, rank = sharding.axis_group("model") if v else (None, 0)
     rows = slice(start, -1)
-    return sharding.local_call(
+    count = logits.shape[0] * len(range(logits.shape[1])[rows])
+    ce = sharding.local_call(
         lambda lg, lb: _VocabCE.apply(lg, lb[:, 1:], vocab, rows, group,
-                                      rank),
-        (logits, labels), (pl(b, None, v), tok), tok).mean()
+                                      rank).sum() / count,
+        (logits, labels), (pl(b, None, v), pl(b, None)),
+        sharding.grad_partial(pl(), b or ()))
+    if isinstance(ce, DTensor):
+        ce = ce.redistribute(ce.device_mesh, pl())
+    return ce
 
 
 def _token_ce(logits: torch.Tensor, labels: torch.Tensor,

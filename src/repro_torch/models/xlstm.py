@@ -261,7 +261,7 @@ def _conv_causal(x, w, b, state=None):
     bs, c = sharding.batch_head_entries(x.shape[0], x.shape[2])
     pl = sharding.spec_placements
     rows, ws, bias = pl(bs, None, c), pl(None, c), pl(c)
-    b_dims = sharding.batch_axes(sharding.get_mesh()) if bs else ()
+    b_dims = bs or ()
     grads = (rows, sharding.grad_partial(ws, b_dims),
              sharding.grad_partial(bias, b_dims))
     st, st_spec = ((), ()) if state is None else ((state,), (rows,))
@@ -390,7 +390,7 @@ def _slstm_specs(xg: torch.Tensor):
     dims), the batch over the mesh's batch dims where it divides."""
     b, _ = sharding.batch_head_entries(xg.shape[0])
     pl = sharding.spec_placements
-    b_dims = sharding.batch_axes(sharding.get_mesh()) if b else ()
+    b_dims = b or ()
     return (pl(b, None, None), pl(b, None), pl(),
             sharding.grad_partial(pl(), b_dims))
 

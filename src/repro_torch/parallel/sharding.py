@@ -145,14 +145,17 @@ def _logical_to_spec(axes: Sequence[Optional[str]], mesh,
 def logical(x, axes: Sequence[Optional[str]]):
     """Apply a logical-axis layout (no-op without a mesh, or when ``x`` is
     not a `DTensor`): a DTensor is redistributed onto the current mesh with
-    the placements of the logical axes, dims that do not divide their mesh
-    dims replicated."""
+    the placements of the logical axes, a "batch" dim over `row_axes`
+    (the reference's batch dims where the rows divide them all, else the
+    largest set of them the rows divide), other dims that do not divide
+    their mesh dims replicated."""
     mesh = _CURRENT["mesh"]
     if mesh is None or not isinstance(x, DTensor):
         return x
-    spec = _fit(x.shape, _logical_to_spec(axes, mesh, _CURRENT["mode"]),
-                mesh)
-    return x.redistribute(mesh, placements(spec, mesh))
+    spec = _logical_to_spec(axes, mesh, _CURRENT["mode"])
+    spec = P(*((row_axes(n) or None) if ax == "batch" else e
+               for n, ax, e in zip(x.shape, axes, spec)))
+    return x.redistribute(mesh, placements(_fit(x.shape, spec, mesh), mesh))
 
 
 def local_pair(dst, src):
@@ -173,37 +176,40 @@ def local_pair(dst, src):
 def batch_head_entries(batch: int, *heads: int):
     """(batch entry, heads entry) of a spec on the current mesh for a
     tensor of ``batch`` rows and ``heads`` heads (each count given must
-    divide): the batch dims where the rows divide them, ``model`` where
-    every head count divides it; None where not (the reference's
-    shard_map specs)."""
+    divide): the batch dims the rows lie over (`row_axes`: all of them
+    where the rows divide them, the reference's shard_map specs, else the
+    largest set they divide), ``model`` where every head count divides
+    it; None where not. The batch entry is also the set of mesh dims over
+    which a weight's gradient is a partial sum: ranks that share rows
+    (the ``pod`` ranks of a batch the rows lie whole over) see the same
+    gradient."""
     if _CURRENT["mesh"] is None:
         return None, None
-    axes = mesh_axes(_CURRENT["mesh"])
-    b_axes = batch_axes(_CURRENT["mesh"])
-    bsz = int(np.prod([axes[a] for a in b_axes])) if b_axes else 0
-    m = axes.get("model")
-    return (b_axes if bsz and batch % bsz == 0 else None,
+    m = mesh_axes(_CURRENT["mesh"]).get("model")
+    return (row_axes(batch) or None,
             "model" if m and all(h % m == 0 for h in heads) else None)
 
 
-def row_axes(batch: int) -> tuple:
-    """The batch dims of the current mesh that a weight product splits
-    ``batch`` rows over: all of them where the rows divide them (the
-    reference's rule, `batch_head_entries`), else the largest set of
-    them that the rows divide, so that ranks share the work of a batch
-    the reference's rule leaves whole (llava's 16-row microbatch on the
-    2 × 16 × 16 mesh: over ``data``, whole over ``pod``); () where none
-    divides or without a mesh."""
-    mesh = _CURRENT["mesh"]
+def row_axes(batch: int, mesh=None) -> tuple:
+    """The batch dims of ``mesh`` (default: the current mesh) that
+    ``batch`` rows lie over: all of them where the rows divide them (the
+    reference's rule), else the largest set of them that the rows divide,
+    ``data`` rather than ``pod`` where two are as large (a pod's ranks
+    gather the parameters and reduce the gradients among themselves), so
+    that ranks share the work of a batch the reference's rule leaves
+    whole (llava's and mixtral's 16-row microbatch on the 2 × 16 × 16
+    mesh: over ``data``, whole over ``pod``); () where none divides or
+    without a mesh."""
+    mesh = _CURRENT["mesh"] if mesh is None else mesh
     axes = mesh_axes(mesh)
     dims = batch_axes(mesh)
-    best, size = (), 1
-    for k in range(len(dims), 0, -1):
-        for sub in itertools.combinations(dims, k):
-            n = int(np.prod([axes[a] for a in sub]))
-            if batch % n == 0 and n > size:
-                best, size = sub, n
-    return best
+
+    def size(sub):
+        return int(np.prod([axes[a] for a in sub]))
+    subs = [sub for k in range(len(dims) + 1)
+            for sub in itertools.combinations(dims, k)
+            if batch % size(sub) == 0]
+    return max(subs, key=lambda sub: (size(sub), "data" in sub, len(sub)))
 
 
 def axis_group(axis: str):
@@ -325,9 +331,8 @@ def weight_products(fn, x, weights: tuple, kinds: tuple):
         return fn(x, *weights)
     split = [w.shape[-1] if k == "cols" else w.shape[0]
              for w, k in zip(weights, kinds)]
-    _, m = batch_head_entries(x.shape[0], *split)
-    b_dims = row_axes(x.shape[0])
-    b = b_dims or None
+    b, m = batch_head_entries(x.shape[0], *split)
+    b_dims = b or ()
     pl = spec_placements
     lead = (b,) + (None,) * (x.dim() - 2)
     tp = ("model",) if m else ()

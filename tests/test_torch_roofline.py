@@ -243,3 +243,51 @@ def test_counter_keeps_a_tensor_live_while_a_view_or_a_collective_holds_it():
                 assert counter.live_bytes == 0
     finally:
         dist.destroy_process_group()
+
+
+def _int8_decode_reading(arch: str, n_layers: int) -> tuple:
+    """One count of the reduced int8 (serve_fsdp) decode_32k cell of
+    ``arch`` at ``n_layers`` on a fake 16 x 16 world: (peak bytes, the op
+    at the peak, the tensors live there, flops, HBM bytes, ring bytes by
+    op)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel import sharding
+    mesh = make_production_mesh(fake=True)
+    try:
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            low = steps.make_lowerable(
+                arch, SHAPES["decode_32k"], mesh, reduced=True,
+                cfg_overrides={"serve_int8_weights": True,
+                               "serve_fsdp": True, "n_layers": n_layers})
+            _, _, c = rl.count_step(low.fn, *low.args)
+    finally:
+        sharding.set_mesh(None)
+        dist.destroy_process_group()
+    return (c.peak_bytes, c.peak_op, c.peak_live, c.flops, c.hbm_bytes,
+            c.ring)
+
+
+def test_counter_reads_a_step_the_same_whatever_it_counted_before(
+        monkeypatch):
+    """A step's reading is a function of the step alone: the reduced int8
+    decode_32k cell of llava counted three times in one process, the
+    second and third time after itself and after another cell (qwen3's),
+    reads the same peak, op at the peak, tensors live there, flops, HBM
+    bytes and ring bytes each time. A collective's own result dies once
+    its `wait_tensor` has returned a new buffer (under FakeTensorMode)
+    while that buffer keeps their entry alive; a counter that let go of
+    the dead storage saw the next tensor made at its address (the decode's
+    (32768,) arange) as a view of the entry and left its bytes out, but
+    only when the allocator happened to reuse the address."""
+    from repro_torch.launch import steps
+    monkeypatch.setattr(steps, "_INT8_MIN_SIZE", 1)
+    first = _int8_decode_reading("llava-next-34b", 8)
+    again = _int8_decode_reading("llava-next-34b", 8)
+    other = _int8_decode_reading("qwen3-0.6b", 2)
+    last = _int8_decode_reading("llava-next-34b", 8)
+    assert other[0] > 0
+    assert first == again == last, (first[:2], again[:2], last[:2])
