@@ -39,6 +39,7 @@ import torch
 
 from .. import interop
 from ..device import DeviceLike, resolve_device
+from ..obs.trace import span
 from . import autotune as autotune_lib
 from . import qat as qat_lib
 from .equalizer import (CNNEqConfig, fold_bn, folded_weights, init_bn_state,
@@ -239,13 +240,15 @@ class EqualizerEngine:
 
     def __call__(self, x) -> torch.Tensor:
         """(S·N_os,) or (B, S·N_os) waveform → (S,) or (B, S) soft symbols,
-        on the engine's device (a numpy or host input is copied there)."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        squeeze = x.dim() == 1
-        if squeeze:
-            x = x[None]
-        y = self._make_fn(self.resolved_tile_m())(x)
-        return y[0] if squeeze else y
+        on the engine's device (a numpy or host input is copied there).
+        Under a profiler it records the span `eq.engine`."""
+        with span("eq.engine"):
+            x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+            squeeze = x.dim() == 1
+            if squeeze:
+                x = x[None]
+            y = self._make_fn(self.resolved_tile_m())(x)
+            return y[0] if squeeze else y
 
     # -- multi-tenant serving surface --------------------------------------
 

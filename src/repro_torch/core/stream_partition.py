@@ -22,6 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..obs.trace import span
 from .equalizer import CNNEqConfig
 
 
@@ -94,11 +95,20 @@ def partitioned_apply(engine, x_samples, n_inst: int,
     the unsplit stream: every kept symbol is ≥ o_act ≥ o_sym away from a
     chunk edge, and the port's kernels fix each output's summation order,
     so the merged interior is bitwise the unsplit one on every backend.
+
+    Under a profiler it records the spans `eq.partition` (the call), and
+    inside it `eq.partition.split` and `eq.partition.merge`, both timed
+    on the device too (`repro_torch.obs.trace`).
     """
-    x = torch.as_tensor(x_samples, device=getattr(engine, "device", None))
-    if x.dtype != torch.float32:
-        raise TypeError(f"waveform must be float32, got {x.dtype}")
-    o_act = actual_overlap(cfg, n_inst)
-    chunks = split_with_overlap(x, n_inst, o_act, cfg.n_os)
-    y = engine(chunks)    # batched over instances via the engine's batch dim
-    return merge_with_overlap_removal(y, o_act)
+    device = getattr(engine, "device", None)
+    with span("eq.partition"):
+        with span("eq.partition.split",
+                  x_samples if device is None else device):
+            x = torch.as_tensor(x_samples, device=device)
+            if x.dtype != torch.float32:
+                raise TypeError(f"waveform must be float32, got {x.dtype}")
+            o_act = actual_overlap(cfg, n_inst)
+            chunks = split_with_overlap(x, n_inst, o_act, cfg.n_os)
+        y = engine(chunks)  # batched over instances via the engine's batch dim
+        with span("eq.partition.merge", y):
+            return merge_with_overlap_removal(y, o_act)

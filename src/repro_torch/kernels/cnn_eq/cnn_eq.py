@@ -41,7 +41,8 @@ in the same fixed order, so the result depends on neither the kernel,
 `LAUNCHES` counts the kernel launches of each wrapper and
 `INSTANCE_LAUNCHES` those of each kernel, "rb" and "generic" (plain
 integers, bumped only where a kernel is launched); `reset_launch_counts`
-zeroes both.
+zeroes both. Under a profiler each ctypes call into the library records
+the span `eq.cnn_eq.launch` (`repro_torch.obs.trace`).
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ...obs.trace import span
 from . import ref
 from .ref import _wformat_cols, receptive_halo, requant_int8
 
@@ -396,11 +398,12 @@ def _launch(name, mode, xp, weights, kernels, strides, spans, stacked,
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
-        rc = lib.cnn_eq_launch(
-            mode, xp.data_ptr(), out.data_ptr(), batch, n_tiles,
-            xp.shape[1], out.shape[1], tile_step, spans[0], spans[-1],
-            n_layers, int(stacked), ctypes.addressof(c_dims),
-            ctypes.addressof(c_aq), ctypes.addressof(c_ptrs), stream)
+        with span("eq.cnn_eq.launch"):
+            rc = lib.cnn_eq_launch(
+                mode, xp.data_ptr(), out.data_ptr(), batch, n_tiles,
+                xp.shape[1], out.shape[1], tile_step, spans[0], spans[-1],
+                n_layers, int(stacked), ctypes.addressof(c_dims),
+                ctypes.addressof(c_aq), ctypes.addressof(c_ptrs), stream)
     if rc == -2:
         raise ValueError(f"{name}: tile_m={spans[-1]} needs more than "
                          f"{_MAX_SMEM_BYTES} bytes of shared memory per "
@@ -429,9 +432,10 @@ def _rb_call(lib: ctypes.CDLL, mode: int, x: torch.Tensor, out: torch.Tensor,
             int(x.shape[1]), int(x.stride(0)), n_pos, int(stacked),
             ctypes.addressof(c_kcs), ctypes.addressof(c_aq),
             ctypes.addressof(c_ptrs), stream)
-    if w_run is None:
-        return lib.cnn_eq_rb_launch(*args)
-    return lib.cnn_eq_rb_launch_at(int(w_run), *args)
+    with span("eq.cnn_eq.launch"):
+        if w_run is None:
+            return lib.cnn_eq_rb_launch(*args)
+        return lib.cnn_eq_rb_launch_at(int(w_run), *args)
 
 
 def _call_rb(name, mode, x, weights, strides, stacked, formats, scales,

@@ -1,13 +1,20 @@
 """repro_torch.obs — the observability core of the serving stack.
 
-Port of `repro.obs` (these modules are host-side and framework-free):
+Port of `repro.obs` (host-side modules; only `trace`'s hot-path spans
+touch torch):
 
   * `metrics`  — Counter/Gauge/Histogram with bounded reservoirs behind a
     `MetricsRegistry` of dotted names, exported as one nested
     `snapshot()` tree, JSON, or Prometheus text;
   * `trace`    — per-chunk lifecycle spans (submit -> assemble -> launch ->
     execute -> descatter -> emit) in a bounded ring, exportable as Chrome
-    `trace_event` JSON;
+    `trace_event` JSON; and the equalizer path's hot spans (`span`:
+    `eq.partition`, `eq.partition.split`, `eq.engine`, `eq.cnn_eq.launch`,
+    `eq.partition.merge`), on exactly while a `torch.profiler` session
+    records on the calling thread. An operator turns them on by
+    profiling, and reads them in the profiler's export (host ranges on
+    the kernels' clock) or from the ring (`trace.span_records()`: host
+    times, parents, batch ids, the split's and merge's device times);
   * `hub`      — the `Observability` facade (registry + tracer +
     `Retention`) that runtimes accept via their `obs=` parameter;
   * `link`     — streaming per-tenant link-quality estimators (decision-

@@ -1,7 +1,8 @@
-"""Chunk-lifecycle tracing: spans over the serve pipeline's six phases.
+"""Tracing: chunk-lifecycle spans of the serve pipeline, and spans on the
+equalizer's hot path on the profiler's clock.
 
-Every `ChunkPlan` admitted while tracing is on carries a `ChunkSpan`
-stamped at each phase boundary:
+Chunk spans. Every `ChunkPlan` admitted while tracing is on carries a
+`ChunkSpan` stamped at each phase boundary:
 
     submit -> assemble -> launch -> execute -> descatter -> emit
 
@@ -15,14 +16,42 @@ export as Chrome `trace_event` JSON viewable in Perfetto / chrome://tracing.
 When tracing is disabled `begin()` returns None and every hook in the
 serving stack is a no-op — observation must never change launch order or
 numerics (the chaos parity tests run with tracing ON to prove it).
+
+Hot-path spans. `span(name)` brackets one layer of the equalizer's path
+(`eq.partition` and its `eq.partition.split` / `eq.partition.merge` in
+`core.stream_partition`, `eq.engine` in `core.engine`, `eq.cnn_eq.launch`
+around the ctypes launch in `kernels.cnn_eq.cnn_eq`). A span is on
+exactly while a `torch.profiler` session records on the calling thread
+(`torch.autograd._profiler_enabled()`); there is no other switch. To
+turn them on, profile:
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        partitioned_apply(engine, x, n_inst, cfg)
+    prof.export_chrome_trace("eq.json")   # the spans beside the kernels
+    spans = span_records()                # or read the ring
+
+On, a span opens a host range under its name in the profiler's trace (a
+function-scope range: the profiler does not mirror it onto the device
+timeline, so kernel-named device time stays the kernels' own), stamps
+its host start and end with `time.perf_counter`, records its parent from
+a per-thread stack and the batch id of its root, and, given a CUDA
+device, records a pair of timing events on its current stream. Sealed
+spans land in `SPANS`, a bounded ring; `span_records()` reads them (the
+device times after a synchronize) and `clear_spans()` empties it. Off,
+`span` costs one check of the profiler's state and returns a shared
+no-op context manager: no clock, no allocation, no CUDA call.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import threading
 import time
 from collections import deque
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
+
+import torch
 
 #: the canonical phase order of one chunk through the micro-batcher.
 PHASES: Tuple[str, ...] = (
@@ -245,3 +274,161 @@ class Tracer:
     def write_chrome(self, path: str, tenant: Optional[str] = None) -> None:
         with open(path, "w") as f:
             json.dump(self.export_chrome(tenant), f)
+
+
+# ---------------------------------------------------------------------------
+# hot-path spans on the profiler's clock
+# ---------------------------------------------------------------------------
+
+_profiling = torch.autograd._profiler_enabled
+# A function-scope range. `torch.profiler.record_function` opens a user
+# range, which the profiler also lays onto the device timeline over the
+# kernels launched inside it, as device activity under the span's name.
+_HostRange = torch._C._profiler._RecordFunctionFast
+_ids = itertools.count(1)
+
+
+class _Open(threading.local):
+    """Each thread's stack of open spans."""
+
+    def __init__(self) -> None:
+        self.stack: List["HotSpan"] = []
+
+
+_open = _Open()
+
+
+class _Off:
+    """The span of a run that no profiler records: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+OFF = _Off()
+
+
+class HotSpan:
+    """One span of the equalizer's hot path: a context manager while
+    open, a record once sealed in the ring.
+
+    ``sid`` is unique in the process; ``parent`` is the enclosing span's
+    ``sid`` on the same thread (None for a root); ``batch`` is the root's
+    ``sid``; ``t0``/``t1`` are `time.perf_counter` seconds at the start of
+    its entry and the end of its exit, so that a span's own cost is
+    inside it and not in its parent's self time; ``device_ms``
+    is the time between the span's two CUDA events, set by
+    `SpanRing.records` (None without a CUDA device)."""
+
+    __slots__ = ("name", "sid", "parent", "batch", "t0", "t1", "device_ms",
+                 "_on", "_range", "_events")
+
+    def __init__(self, name: str, on=None) -> None:
+        self.name, self._on = name, on
+        self.sid = next(_ids)
+        self.parent: Optional[int] = None
+        self.batch = self.sid
+        self.t0 = self.t1 = 0.0
+        self.device_ms: Optional[float] = None
+        self._range = self._events = None
+
+    @property
+    def host_ms(self) -> float:
+        return (self.t1 - self.t0) * 1e3
+
+    def __enter__(self) -> "HotSpan":
+        self.t0 = time.perf_counter()
+        stack = _open.stack
+        if stack:
+            self.parent, self.batch = stack[-1].sid, stack[-1].batch
+        self._range = _HostRange(self.name)
+        self._range.__enter__()
+        dev = getattr(self._on, "device", self._on)
+        if dev is not None and torch.device(dev).type == "cuda":
+            stream = torch.cuda.current_stream(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            self._events = (start, torch.cuda.Event(enable_timing=True),
+                            stream)
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._events is not None:
+            _, end, stream = self._events
+            end.record(stream)
+        self._range.__exit__(None, None, None)
+        self._range = self._on = None
+        _open.stack.pop()
+        self.t1 = time.perf_counter()
+        SPANS.append(self)
+        return False
+
+
+class SpanRing:
+    """Bounded ring of sealed `HotSpan`s, oldest dropped first."""
+
+    def __init__(self, capacity: int = DEFAULT_CAPACITY) -> None:
+        if capacity < 1:
+            raise ValueError("SpanRing capacity must be >= 1")
+        self.capacity = capacity
+        self._lock = threading.Lock()
+        self._ring: Deque[HotSpan] = deque(maxlen=capacity)
+        self.sealed = 0
+
+    def append(self, rec: HotSpan) -> None:
+        with self._lock:
+            self._ring.append(rec)
+            self.sealed += 1
+
+    @property
+    def dropped(self) -> int:
+        with self._lock:
+            return self.sealed - len(self._ring)
+
+    def records(self) -> List[HotSpan]:
+        """The sealed spans, oldest first. A span's device time is read
+        here, once its end event has completed."""
+        with self._lock:
+            recs = list(self._ring)
+        for r in recs:
+            if r._events is not None:
+                start, end, _ = r._events
+                end.synchronize()
+                r.device_ms = start.elapsed_time(end)
+                r._events = None
+        return recs
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+            self.sealed = 0
+
+
+SPANS = SpanRing()
+
+
+def span(name: str, on=None):
+    """A span named ``name`` while a profiler records, else `OFF`.
+
+    ``on``: a tensor or device; on a CUDA one the span also times the
+    device work enqueued inside it with a pair of CUDA events on the
+    current stream."""
+    if not _profiling():
+        return OFF
+    return HotSpan(name, on)
+
+
+def span_records() -> List[HotSpan]:
+    """`SPANS.records()`: the sealed hot-path spans, oldest first."""
+    return SPANS.records()
+
+
+def clear_spans() -> None:
+    """Empty `SPANS` and zero its counts."""
+    SPANS.clear()

@@ -64,8 +64,12 @@ wrapper refuses a bad type, a bad shape and autograd, and xlstm serving
 launches the cluster kernel once per sLSTM block per prefill and decode
 step. The streaming slice: `partitioned_apply` over 8 and 64 instances of
 7320 symbols equals the unsplit engine bitwise on the interior in every
-datapath, through the register-blocked kernel; `AsyncServeRuntime` on the
-card equals `ServeRuntime` and the offline engine bitwise, and every
+datapath, through the register-blocked kernel; under the profiler, the
+hot spans (`repro_torch.obs.trace`) of 64 x 468,480-symbol int8 batches
+record one launch a batch, mirror nothing onto the device timeline, time
+the partition's copies with their CUDA events within 10 % of the
+profiler's device time, and leave the outputs bitwise; `AsyncServeRuntime`
+on the card equals `ServeRuntime` and the offline engine bitwise, and every
 execute — on the launcher thread or the deadline watchdog's worker — runs
 on the runtime's own CUDA stream. The wire slice: streams served over the
 impaired loopback (int8, BF16 and fp32 wires; sync and async runtimes)
@@ -270,6 +274,58 @@ def test_partitioned_equals_unsplit_bitwise_on_card(cuda_device, dp):
         assert torch.equal(got, want), (dp, n_inst)
         assert torch.equal(sp.merge_with_overlap_removal(got, o_act),
                            y_split)
+
+
+@pytest.mark.cuda
+def test_hot_spans_time_the_partition_on_card(cuda_device):
+    """Under the profiler, 64 x 468,480 int8 stream batches record one
+    `eq.cnn_eq.launch` a batch (as many as the rb kernel's launches), the
+    spans mirror nothing onto the device timeline, the split's and
+    merge's CUDA events time the kernels other than cnn_eq's within 10 %,
+    and the outputs equal those with the spans off bitwise. A spin kernel
+    first keeps the card busy while the batches are enqueued, so that the
+    events time the device's work and not the host's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import trace
+    engine = _slice_spec("spans", "int8", 41).build_engine(cuda_device)
+    assert engine.backend == "fused_int8"
+    n_inst, l_inst, batches = 64, 468480, 8
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(n_inst * l_inst * HT.CNN.n_os, generator=gen,
+                    device=cuda_device)
+    y_off = sp.partitioned_apply(engine, x, n_inst, HT.CNN)
+    torch.cuda.synchronize()
+    trace.clear_spans()
+    kern.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(100_000_000)
+        ys = [sp.partitioned_apply(engine, x, n_inst, HT.CNN)
+              for _ in range(batches)]
+        torch.cuda.synchronize()
+    try:
+        recs = trace.span_records()
+    finally:
+        trace.clear_spans()
+    assert all(torch.equal(y, y_off) for y in ys)
+    by = {}
+    for r in recs:
+        by.setdefault(r.name, []).append(r)
+    assert len(by["eq.partition"]) == batches
+    assert len(by["eq.cnn_eq.launch"]) == batches
+    assert kern.INSTANCE_LAUNCHES == {"rb": batches, "generic": 0}
+    engines = {r.sid for r in by["eq.engine"]}
+    assert all(r.parent in engines for r in by["eq.cnn_eq.launch"])
+    spans_ms = sum(r.device_ms for r in by["eq.partition.split"]
+                   + by["eq.partition.merge"])
+    dev = [(e.name, e.time_range.elapsed_us() * 1e-3) for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    assert not [n for n, _ in dev if n.startswith("eq.")], dev
+    other_ms = sum(ms for n, ms in dev
+                   if "cnn_eq" not in n and "spin_kernel" not in n)
+    assert abs(spans_ms - other_ms) <= 0.1 * other_ms, (spans_ms, other_ms,
+                                                        sorted(set(dev)))
 
 
 def _slice_tenants():
